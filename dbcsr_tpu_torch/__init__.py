@@ -3,9 +3,11 @@
 A second package beside ``dbcsr_tpu`` (the JAX reference, which stays as it
 is): block-sparse matrices kept at rest as T×T tile stores in torch
 tensors, host symbolic planning in numpy, and the local sparse multiply
-``C := alpha·op(A)·op(B) + beta·C`` whose stack products run through
-hand-written CUDA kernels on an H100 (``csrc/``, built with nvcc at first
-use). Plain PyTorch versions of the kernels serve CPU tensors and are the
+``C := alpha·op(A)·op(B) + beta·C`` — eps-filtered, one-shot or planned
+once (``build_filtered_executor``), with the matrix ops of an SCF loop —
+whose stack products run through hand-written CUDA kernels on an H100
+(``csrc/``, built with nvcc at first use; float32/bfloat16 and float64).
+Plain PyTorch versions of the kernels serve CPU tensors and are the
 cross-check. The package imports torch, numpy and scipy, never jax.
 """
 from .block.bcsr import (
@@ -38,8 +40,43 @@ from .core import (
     timer_report,
 )
 from .mm.engine import build_multiply_executor, multiply
+from .mm.filtered import FilteredExecutor, build_filtered_executor
+from .ops.arithmetic import (
+    ELEMENT_FUNCTIONS,
+    add,
+    add_on_diag,
+    crop,
+    dot,
+    filter_blocks,
+    function_of_elements,
+    get_block_diag,
+    get_diag,
+    hadamard_product,
+    scale,
+    scale_by_vector,
+    set_diag,
+    set_value,
+    trace,
+    triu,
+    zero,
+)
+from .ops.norms import (
+    block_norms,
+    block_norms_sq,
+    norm_column,
+    norm_frobenius,
+    norm_gershgorin,
+    norm_maxabs,
+)
 from .ops.random import random_block_sizes, random_matrix
-from .ops.transform import desymmetrize, make_dense, make_undense
+from .ops.transform import (
+    copy,
+    desymmetrize,
+    fold_symmetric,
+    make_dense,
+    make_undense,
+    transpose,
+)
 from . import testing
 
 __version__ = "0.1.0"

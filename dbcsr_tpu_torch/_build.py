@@ -2,7 +2,8 @@
 
 The CUDA kernels in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
 one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds). Nothing prebuilt ships with the package: the library
+build takes seconds): one ``nvcc -c`` per source, all started together,
+then one link. Nothing prebuilt ships with the package: the library
 is built from the sources on first use into ``_build/`` inside the package
 (git-ignored), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads at once. A missing ``nvcc`` or a
@@ -28,11 +29,11 @@ __all__ = [
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("stack_matmul.cu", "panel_matmul.cu")
+_SOURCES = ("stack_matmul.cu", "panel_matmul.cu", "stack_matmul_f64.cu")
 _HEADERS = ("tile_product.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _LOCK = threading.Lock()
@@ -82,20 +83,41 @@ def build_kernels(*, verbose: bool = False) -> BuildInfo:
     so = _library_path()
     if os.path.exists(so) and not verbose:
         return BuildInfo(path=so, seconds=0.0, log="")
+    nvcc = _nvcc()
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+    objs = [f"{tmp}.{os.path.splitext(src)[0]}.o" for src in _SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", os.path.join(_CSRC, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(_SOURCES, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(_SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"[{src}]\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {', '.join(failed)}:\n" + "\n".join(logs)
+            )
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
-    return BuildInfo(path=so, seconds=seconds, log=res.stdout + res.stderr)
+    return BuildInfo(path=so, seconds=time.perf_counter() - t0, log="\n".join(logs))
 
 
 def kernels() -> ctypes.CDLL:
@@ -109,6 +131,11 @@ def kernels() -> ctypes.CDLL:
             # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, dtype, device, stream)
             lib.dbcsr_torch_stack_matmul.argtypes = [
                 vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp,
+            ]
+            lib.dbcsr_torch_stack_matmul_f64.restype = i32
+            # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, device, stream)
+            lib.dbcsr_torch_stack_matmul_f64.argtypes = [
+                vp, vp, vp, vp, vp, vp, i64, i32, i32, vp,
             ]
             lib.dbcsr_torch_panel_matmul.restype = i32
             # (a, b, c, gstart, a_lo, b_lo, obounds, entries, n_slots, c_win,

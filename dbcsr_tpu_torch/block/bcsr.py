@@ -14,8 +14,8 @@ Port of ``dbcsr_tpu/block/bcsr.py`` (reference ``dbcsr_type``,
 
 Stores are float32, bfloat16 or float64 tensors on any device. Complex
 stores are not ported. Symmetry (``N``/``S``/``A``/``H``) stores only the
-upper block triangle (i <= j); ``to_dense`` expands it, the multiply does
-not take it yet.
+upper block triangle (i <= j); ``to_dense`` and ``ops.desymmetrize``
+expand it.
 """
 from __future__ import annotations
 

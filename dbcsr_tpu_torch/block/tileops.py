@@ -1,21 +1,25 @@
 """Tile-granular device operations on tile stores.
 
-Port of the parts of ``dbcsr_tpu/block/tileops.py`` the local multiply
-uses: store alignment by tile keys (``tile_align_map``, ``take_tiles``),
-the block-validity mask built from per-tile indicator matmuls
-(``valid_mask``), and the transposed store (``transpose_store``). Every
-device operation moves whole T×T tiles.
+Port of ``dbcsr_tpu/block/tileops.py``: store alignment by tile keys
+(``tile_align_map``, ``take_tiles``), coordinate masks (``coord_mask``), the
+block↔tile indicator machinery — per-block norms² (``block_sums_sq``) and
+block keep/validity masks (``block_mask_store``, ``valid_mask``) as small
+per-tile indicator matmuls — and the transposed store
+(``transpose_store``). Every device operation moves whole T×T tiles.
+Reductions whose destinations repeat (a block spanning several tiles, a
+tile column) run as ``OrderedSegmentSum``: one pass per position within a
+segment, never atomics, so they are deterministic on the GPU.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .index import BCSRIndex
-from .store import row_indicators, store_layout
+from .store import StoreLayout, row_indicators, store_layout
 
 __all__ = [
     "tile_align_map",
@@ -23,13 +27,24 @@ __all__ = [
     "tile_gather",
     "apply_tile_gather",
     "take_tiles",
+    "coord_mask",
+    "OrderedSegmentSum",
+    "ordered_segment_sum",
     "TileBlockInfo",
     "tile_block_info",
+    "DeviceBlockInfo",
+    "device_block_info",
+    "per_tile_block_sums",
+    "block_sums_sq",
     "block_mask_store",
     "valid_mask",
     "transpose_order",
     "transpose_store",
 ]
+
+#: tiles per batched indicator matmul (bounds the scratch of the norm and
+#: mask passes: 4096 f32 tiles of 128² are 268 MB)
+_TILE_STEP = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +119,64 @@ def take_tiles(store: torch.Tensor, slot_map: np.ndarray, tile: int) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
+# coordinate masks (device, broadcast from tile coords — no element maps)
+# ---------------------------------------------------------------------------
+
+def coord_mask(
+    layout: StoreLayout,
+    fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    device,
+) -> torch.Tensor:
+    """Boolean [n_tiles, T, T] mask: ``fn(global_row, global_col)`` applied
+    per tile via broadcasting (e.g. triu: ``lambda r, c: r <= c``)."""
+    t = layout.tile
+    coords = torch.as_tensor(layout.tile_coords.astype(np.int64), device=device)
+    ar = torch.arange(t, device=device)
+    r = coords[:, 0, None, None] * t + ar[None, :, None]
+    c = coords[:, 1, None, None] * t + ar[None, None, :]
+    return fn(r, c)
+
+
+# ---------------------------------------------------------------------------
+# deterministic segment sums
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OrderedSegmentSum:
+    """``out[s] = Σ values[i]`` over the ``i`` of segment ``s``, added in
+    increasing ``i`` (the order of a sequential scatter-add), resolved once
+    on the host: pass ``j`` adds the ``j``-th member of every segment that
+    has one. Destinations within a pass are distinct, so no atomics."""
+
+    n_seg: int
+    passes: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # (dst, src) int64
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        out = values.new_zeros((self.n_seg,) + tuple(values.shape[1:]))
+        for dst, src in self.passes:
+            out[dst] += values.index_select(0, src)
+        return out
+
+
+def ordered_segment_sum(seg: np.ndarray, n_seg: int, device) -> OrderedSegmentSum:
+    """Plan the reduction of the values whose segment ids are ``seg``
+    (int [n]; ids outside [0, n_seg) are dropped)."""
+    seg = np.asarray(seg, dtype=np.int64)
+    src = np.flatnonzero((seg >= 0) & (seg < n_seg))
+    order = src[np.argsort(seg[src], kind="stable")]
+    ptr = np.searchsorted(seg[order], np.arange(n_seg + 1))
+    lens = np.diff(ptr)
+    passes = []
+    for j in range(int(lens.max(initial=0))):
+        segs = np.flatnonzero(lens > j)
+        passes.append((
+            torch.as_tensor(segs, dtype=torch.int64, device=device),
+            torch.as_tensor(order[ptr[segs] + j], dtype=torch.int64, device=device),
+        ))
+    return OrderedSegmentSum(n_seg=int(n_seg), passes=tuple(passes))
+
+
+# ---------------------------------------------------------------------------
 # block <-> tile indicator machinery
 # ---------------------------------------------------------------------------
 
@@ -169,29 +242,104 @@ def tile_block_info(index: BCSRIndex, tile: int) -> TileBlockInfo:
     return index._cached(key, mk)
 
 
+@dataclass(frozen=True)
+class DeviceBlockInfo:
+    """``TileBlockInfo`` resident on one device: the shared indicators
+    ``J`` [ntr, T, amax] / ``I`` [ntc, T, bmax], each tile's tile row/col
+    (into ``J``/``I``), ``K`` [n_tiles, amax, bmax], ``bid_p1`` = bid + 1
+    (0 where no stored block sits), and the reduction of per-tile
+    (a, b) sums into per-block sums (``block_sum``)."""
+
+    J: torch.Tensor
+    I: torch.Tensor
+    rows: torch.Tensor  # int64 [n_tiles]
+    cols: torch.Tensor  # int64 [n_tiles]
+    K: torch.Tensor
+    bid_p1: torch.Tensor  # int64 [n_tiles, amax, bmax]
+    block_sum: OrderedSegmentSum  # flat z [n_tiles·amax·bmax] -> [nblks]
+
+
+def device_block_info(index: BCSRIndex, tile: int, device) -> DeviceBlockInfo:
+    """Cached per (index, tile, device)."""
+    dev = torch.device(device)
+
+    def mk():
+        info = tile_block_info(index, tile)
+        lay = store_layout(index, tile)
+
+        def up(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+
+        return DeviceBlockInfo(
+            J=up(info.J), I=up(info.I),
+            rows=up(lay.tile_coords[:, 0].astype(np.int64)),
+            cols=up(lay.tile_coords[:, 1].astype(np.int64)),
+            K=up(info.K), bid_p1=up(info.bid + 1),
+            block_sum=ordered_segment_sum(info.bid.reshape(-1), index.nblks, dev),
+        )
+
+    return index._cached(("device_block_info", tile, str(dev)), mk)
+
+
+def per_tile_block_sums(store: torch.Tensor, info: DeviceBlockInfo) -> torch.Tensor:
+    """``z[t, a, b] = Σ_ij J[t,i,a]·|x[t,i,j]|²·I[t,j,b]`` in float32 (IEEE,
+    TF32 off): norms are true single precision like the reference's
+    (``calculate_norms.cpp``). Squares are taken in the store's dtype and
+    rounded to float32, as the JAX package does."""
+    from ..mm.kernels import tf32_matmul
+
+    n = store.shape[0]
+    z = store.new_empty((n, info.K.shape[1], info.K.shape[2]), dtype=torch.float32)
+    with tf32_matmul(False):
+        for s in range(0, n, _TILE_STEP):
+            e = min(s + _TILE_STEP, n)
+            x = store[s:e]
+            y = torch.bmm(info.J.index_select(0, info.rows[s:e]).transpose(1, 2),
+                          (x * x).float())
+            z[s:e] = torch.bmm(y, info.I.index_select(0, info.cols[s:e]))
+    return z
+
+
+def block_sums_sq(index: BCSRIndex, tile: int, store: torch.Tensor) -> np.ndarray:
+    """Per-block Frobenius-norm² (float32 like the reference's norms,
+    ``src/mm/dbcsr_mm_common.F:629-694``): two batched indicator matmuls on
+    the device, the combine of blocks spanning several tiles on the host
+    (float64, then rounded to float32, as the JAX package does)."""
+    if index.nblks == 0:
+        return np.zeros(0, dtype=np.float32)
+    info = device_block_info(index, tile, store.device)
+    z = per_tile_block_sums(store, info).cpu().numpy()
+    bid = tile_block_info(index, tile).bid
+    out = np.zeros(index.nblks + 1, dtype=np.float64)
+    np.add.at(out, bid.reshape(-1) + 1, z.reshape(-1))
+    return out[1:].astype(np.float32)
+
+
 def block_mask_store(
-    index: BCSRIndex, tile: int, device, dtype=torch.float32,
+    index: BCSRIndex, tile: int, device, dtype=torch.float32, keep=None,
 ) -> torch.Tensor:
-    """[n_tiles, T, T] store-validity mask, 1 on positions a stored block
-    covers and 0 on padding: ``mask[t,i,j] = sum_ab J[t,i,a] K[t,a,b]
-    I[t,j,b]``, 0/1-valued and exact in float32."""
-    info = tile_block_info(index, tile)
+    """[n_tiles, T, T] mask with 1 at positions of kept stored blocks:
+    ``mask[t,i,j] = sum_ab J[t,i,a] keep[bid[t,a,b]] K[t,a,b] I[t,j,b]``,
+    0/1-valued and exact in float32. ``keep=None`` keeps every stored block
+    — the store-validity mask (1 on block-covered positions, 0 on padding);
+    otherwise ``keep`` is a 0/1 vector over the blocks, on the host (numpy)
+    or on ``device``."""
     lay = store_layout(index, tile)
     if lay.n_tiles == 0:
         return torch.zeros((0, tile, tile), dtype=dtype, device=device)
-    J = torch.as_tensor(info.J, device=device)
-    I = torch.as_tensor(info.I, device=device)
-    rows = torch.as_tensor(lay.tile_coords[:, 0].astype(np.int64), device=device)
-    cols = torch.as_tensor(lay.tile_coords[:, 1].astype(np.int64), device=device)
-    Kd = torch.as_tensor(info.K, device=device)
-    # J[tr(t)] @ K[t] @ I[tc(t)]^T, in tile batches (bounded scratch)
+    info = device_block_info(index, tile, device)
+    Kd = info.K
+    if keep is not None:
+        kf = torch.zeros(index.nblks + 1, dtype=torch.float32, device=info.K.device)
+        kf[1:] = torch.as_tensor(keep, device=info.K.device).to(torch.float32)
+        Kd = kf[info.bid_p1] * info.K
+    # J[tr(t)] @ Kd[t] @ I[tc(t)]^T, in tile batches (bounded scratch)
     out = torch.empty((lay.n_tiles, tile, tile), dtype=dtype, device=device)
-    step = 4096
-    for s in range(0, lay.n_tiles, step):
-        e = min(s + step, lay.n_tiles)
-        jk = torch.bmm(J.index_select(0, rows[s:e]), Kd[s:e])
+    for s in range(0, lay.n_tiles, _TILE_STEP):
+        e = min(s + _TILE_STEP, lay.n_tiles)
+        jk = torch.bmm(info.J.index_select(0, info.rows[s:e]), Kd[s:e])
         out[s:e] = torch.bmm(
-            jk, I.index_select(0, cols[s:e]).transpose(1, 2)
+            jk, info.I.index_select(0, info.cols[s:e]).transpose(1, 2)
         ).to(dtype)
     return out
 
@@ -233,7 +381,9 @@ def transpose_store(
     signature; on real stores it is the identity.
     """
     if store.is_complex():
-        raise NotImplementedError("complex tile stores are not ported")
+        raise NotImplementedError(
+            "complex tile stores are not ported yet (ROADMAP Queue 1 item 7)"
+        )
     order, coords_t = transpose_order(m_index, tile)
     perm = torch.as_tensor(order, dtype=torch.int64, device=store.device)
     out = store.index_select(0, perm).transpose(1, 2).contiguous()

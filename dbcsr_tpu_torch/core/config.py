@@ -1,7 +1,7 @@
 """Typed configuration with environment overrides and provenance.
 
 The port's subset of ``dbcsr_tpu/core/config.py``: only the fields the
-local multiply reads. Every parameter carries a Default/Environment/User
+local multiply (filtered or not) reads. Every parameter carries a Default/Environment/User
 provenance tag and can be overridden by an environment variable
 ``DBCSR_<NAME>`` read on first use (reference:
 ``src/core/dbcsr_config.F:100-246``). Provenance matters: knobs left at
@@ -57,8 +57,24 @@ class Config:
     panel_bf16_inputs: bool = False
     #: locality reordering pre-pass; only "off" is ported
     reorder: str = "off"
-    #: filtering rule of the symbolic product (read by ``mm/plan.py``)
+    #: on-the-fly filtering with per-row thresholds (eps/row_count)²
+    #: like dbcsr_mm_cannon.F:1100-1113 (else a flat eps² block filter)
+    per_row_eps: bool = True
+    #: filtering rule of the symbolic product (read by ``mm/plan.py``):
+    #: "sum" keeps a C block when the sum of its contributions' norm
+    #: products clears the threshold, "exact" when any single one does
     filter_mode: str = "sum"
+    #: float64 compute path of the JAX package ("auto" | "native" |
+    #: "ozaki"), which chooses between XLA's float64 dot and bf16-slice
+    #: emulations that exist because the TPU has no float64 unit. The port
+    #: accepts every value and always runs float64 natively: sparse stacks
+    #: through the float64 stack kernel (``mm/f64_stack.py``), the dense
+    #: class through a float64 ``torch.mm``.
+    f64_method: str = "auto"
+    #: Ozaki slice count of the JAX package (0 = its full-accuracy default;
+    #: N trades accuracy for speed). Native float64 has no slices, so any
+    #: value other than 0 raises NotImplementedError.
+    f64_slices: int = 0
     #: build the host stack plan with the native C++ planner when it builds
     use_native_planner: bool = True
 

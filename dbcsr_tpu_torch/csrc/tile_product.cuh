@@ -1,6 +1,6 @@
-// One device routine shared by the two stack kernels (stack_matmul.cu,
-// panel_matmul.cu): for one C tile, sum A[i]·B[j] over a contiguous run of
-// (i, j) pairs, in run order, and write the sum once.
+// One device routine shared by the stack kernels (stack_matmul.cu,
+// panel_matmul.cu, stack_matmul_f64.cu): for one C tile, sum A[i]·B[j] over
+// a contiguous run of (i, j) pairs, in run order, and write the sum once.
 //
 // Tile stores are [n, T, T] row-major. A block of 256 threads owns one
 // BM×BM sub-tile of one C tile (BM = min(T, 64)), so a C tile is (T/BM)²
@@ -14,6 +14,8 @@
 // strided by 16 rows/cols so shared-memory reads are free of bank
 // conflicts. f32 inputs run IEEE FFMA; bf16 inputs are widened to f32 in
 // shared memory, so every product is exact and only the f32 sums round.
+// f64 inputs accumulate in f64 (DFMA): the accumulator type follows the
+// input type (AccOf), so the f32/bf16 instantiations compile as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,30 +27,40 @@ namespace dbcsr_torch {
 constexpr int kThreads = 256;  // 16 × 16 thread grid over a sub-tile
 constexpr int kKC = 16;        // K chunk staged through shared memory
 
+// accumulator (and shared-memory staging) type of an input type
+template <typename In> struct AccOf { using type = float; };
+template <> struct AccOf<double> { using type = double; };
+
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
 
 // BM×BM sub-tile (rows r0.., cols c0..) of one C tile `out`:
 //   out[r0:r0+BM, c0:c0+BM] = Σ_{e in [e0, e1)} A[ia(e)] @ B[ib(e)]
 // restricted to those rows/cols; `pair(e)` returns (ia, ib) as int2.
 template <typename In, int T, int BM, typename PairFn>
 __device__ __forceinline__ void tile_run(
-    const In* __restrict__ A, const In* __restrict__ B, float* __restrict__ out,
+    const In* __restrict__ A, const In* __restrict__ B,
+    typename AccOf<In>::type* __restrict__ out,
     int r0, int c0, int e0, int e1, PairFn pair)
 {
+    using Acc = typename AccOf<In>::type;
     static_assert(BM % 16 == 0 && T % BM == 0 && T % kKC == 0, "tile shape");
     constexpr int TM = BM / 16;                    // micro-tile edge
     constexpr int kLoads = BM * kKC / kThreads;    // elements per thread per chunk
-    __shared__ float As[kKC][BM + 1];  // As[k][r] = A[r0 + r][k0 + k]
-    __shared__ float Bs[kKC][BM];      // Bs[k][c] = B[k0 + k][c0 + c]
+    __shared__ Acc As[kKC][BM + 1];  // As[k][r] = A[r0 + r][k0 + k]
+    __shared__ Acc Bs[kKC][BM];      // Bs[k][c] = B[k0 + k][c0 + c]
 
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
-    float acc[TM][TM];
+    Acc acc[TM][TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
+        for (int j = 0; j < TM; ++j) acc[i][j] = Acc(0);
 
     for (int e = e0; e < e1; ++e) {
         const int2 ij = pair(e);
@@ -67,7 +79,7 @@ __device__ __forceinline__ void tile_run(
             __syncthreads();
 #pragma unroll
             for (int k = 0; k < kKC; ++k) {
-                float av[TM], bv[TM];
+                Acc av[TM], bv[TM];
 #pragma unroll
                 for (int i = 0; i < TM; ++i) av[i] = As[k][ty + 16 * i];
 #pragma unroll
@@ -75,7 +87,7 @@ __device__ __forceinline__ void tile_run(
 #pragma unroll
                 for (int i = 0; i < TM; ++i)
 #pragma unroll
-                    for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+                    for (int j = 0; j < TM; ++j) acc[i][j] = fma_acc(av[i], bv[j], acc[i][j]);
             }
             __syncthreads();
         }
@@ -94,7 +106,7 @@ struct SubTile {
     static constexpr int kPerTile = (T / BM) * (T / BM);
 };
 
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1 };  // inputs of K1/K2 (f64 has its own entry point)
 
 }  // namespace dbcsr_torch
 

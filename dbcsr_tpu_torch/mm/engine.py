@@ -23,6 +23,18 @@ pattern is banded and the plan is admitted, else the flat stack. It has no
 band candidate until K5 is ported; the band, grouped and run-fused panel
 drivers plug into ``_DRIVERS`` later without touching the rest.
 
+float64 data: every sparse product ("auto", "stack" or "panel") takes the
+float64 stack kernel, the port of K6 (``f64_stack.py``), as the JAX package
+never gives float64 to its f32 panel or flat kernels; the dense class stays
+a float64 ``torch.mm``.
+
+``multiply(filter_eps=...)`` is the reference's on-the-fly filtering:
+operand block norms → the filtered symbolic product (``plan.py``) → the
+product masked to the surviving blocks → the final norm filter
+(``ops/arithmetic.filter_blocks``). Symmetric operands are expanded
+(``ops/transform.desymmetrize``); a symmetric C is computed in full storage
+and folded back.
+
 Precision (``matmul_precision``): "highest" is IEEE float32 everywhere;
 "high" runs the dense path in TF32; "default" feeds bfloat16 to the dense
 path (float32 accumulation) and, with ``stack_bf16_inputs`` /
@@ -52,6 +64,7 @@ from ..core.config import config_fingerprint, get_config
 from ..core.errors import DbcsrError, dbcsr_assert
 from ..core.stats import get_stats
 from ..core.timing import timed
+from .f64_stack import tile_stack_matmul_f64
 from .kernels import DeviceStack, device_stack, tf32_matmul, tile_stack_matmul
 from .panel import (
     DevicePanelPlan,
@@ -61,12 +74,13 @@ from .panel import (
     tile_stack_matmul_panel,
 )
 from .plan import symbolic_product
-from .plancache import get_plan_cache
+from .plancache import array_fingerprint, get_plan_cache
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
 __all__ = ["multiply", "build_multiply_executor", "LocalPlan"]
 
 _PRECISIONS = ("default", "high", "highest")
+_F64_METHODS = ("auto", "native", "ozaki")
 
 
 def _effective_trans(trans: str) -> Tuple[bool, bool]:
@@ -89,13 +103,7 @@ _UNPORTED_DRIVERS = {
 }
 
 
-def _reject_unported(a, b, c, *, filter_eps=None, limits=None, dist=None,
-                     k_dist=None) -> None:
-    if filter_eps is not None:
-        raise NotImplementedError(
-            "filter_eps (on-the-fly filtering) is not ported yet: ROADMAP "
-            "Queue 1 item 5"
-        )
+def _reject_unported(a, b, c, *, limits=None, dist=None, k_dist=None) -> None:
     if limits is not None:
         raise NotImplementedError(
             "limits (sub-matrix windows) are not ported yet: ROADMAP Queue 1 "
@@ -128,9 +136,18 @@ def _check_config(cfg, driver: str) -> None:
             f"reorder={cfg.reorder!r}: the RCM locality reordering is not "
             "ported yet (ROADMAP Queue 1 item 5); use reorder='off'"
         )
+    if cfg.f64_slices != 0:
+        raise NotImplementedError(
+            f"f64_slices={cfg.f64_slices}: the port multiplies float64 "
+            "natively and has no Ozaki slices to count (ROADMAP Queue 1 "
+            "item 7: ops/f64_emu.py is not ported); use f64_slices=0"
+        )
     dbcsr_assert(
         cfg.matmul_precision in _PRECISIONS,
         f"bad matmul_precision {cfg.matmul_precision!r}",
+    )
+    dbcsr_assert(
+        cfg.f64_method in _F64_METHODS, f"bad f64_method {cfg.f64_method!r}"
     )
 
 
@@ -432,8 +449,6 @@ def _dense_route(p: _Problem, explicit: bool) -> LocalPlan:
 @_driver("panel")
 def _panel_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
     cfg = p.cfg
-    if not explicit and p.dtype not in (torch.float32, torch.bfloat16):
-        return None  # the panel kernel's dtypes (float64 stacks: K6)
     tplan = p.tile_plan()
     tuned = None if explicit else _tuned_driver(cfg, p.a_index, p.b_index)
     pplan = _cached_panel_plan(
@@ -467,6 +482,21 @@ def _stack_route(p: _Problem, explicit: bool) -> LocalPlan:
     )
 
 
+def _f64_route(p: _Problem) -> LocalPlan:
+    """Every float64 sparse stack product: the float64 stack kernel (the
+    port of K6) over the flat c-sorted stack."""
+    tplan = p.tile_plan()
+    ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device)
+
+    def run(a_st, b_st):
+        return tile_stack_matmul_f64(a_st, b_st, ds)
+
+    return LocalPlan(
+        "f64_stack", tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3, run,
+        in_dtype=torch.float64, tile_plan=tplan, stack=ds,
+    )
+
+
 def _empty_route(p: _Problem) -> LocalPlan:
     """No tile triples: the product has no tiles (the caller's alignment
     fills C's tiles with zeros)."""
@@ -489,6 +519,8 @@ def _select_route(p: _Problem) -> LocalPlan:
             return _dense_route(p, False)
     if len(tplan.stack) == 0:
         return _empty_route(p)
+    if p.dtype == torch.float64:
+        return _f64_route(p)
     if p.driver != "auto":
         return _DRIVERS[p.driver](p, True)
     for name in _AUTO_SPARSE_ORDER:
@@ -578,24 +610,39 @@ def multiply(
     """Sparse multiply ``C := alpha·op(A)·op(B) + beta·C`` with the
     reference's semantics (``dbcsr_multiply``, ``src/dbcsr_api.F:1411``):
     transposes ('C' equals 'T' on real data), alpha/beta scaling, product
-    block discovery and retain-sparsity mode, on the operands' device.
-    ``filter_eps``, ``limits``, ``dist``/``k_dist``, symmetric and complex
-    operands raise NotImplementedError naming the ROADMAP item that ports
-    them."""
-    from ..ops.transform import desymmetrize
+    block discovery, epsilon filtering (``filter_eps``: blocks of the result
+    with Frobenius norm below eps are dropped), retain-sparsity mode and
+    symmetric operands, on the operands' device. ``limits``,
+    ``dist``/``k_dist`` and complex operands raise NotImplementedError
+    naming the ROADMAP item that ports them.
 
-    _reject_unported(a, b, c, filter_eps=filter_eps, limits=limits,
-                     dist=dist, k_dist=k_dist)
+    Iterative filtered callers (SCF: same patterns, new data every step)
+    should hold a ``build_filtered_executor`` instead: it plans once and
+    runs on the device with no host sync, where this path computes block
+    norms on the host and replans the filtered pattern on every call."""
+    from ..ops.transform import desymmetrize, fold_symmetric
+
+    _reject_unported(a, b, c, limits=limits, dist=dist, k_dist=k_dist)
     cfg = get_config()
     _check_config(cfg, cfg.mm_driver)
     ta, _ = _effective_trans(transa)
     tb, _ = _effective_trans(transb)
 
+    if c is not None and c.sym != SYM_NONE:
+        # symmetric product matrix: compute in full storage, fold back
+        # (reference: canonical symmetric index, src/mm/dbcsr_mm.F:714)
+        out = multiply(
+            transa, transb, alpha, a, b, beta, desymmetrize(c),
+            filter_eps=filter_eps, retain_sparsity=retain_sparsity,
+            return_flops=return_flops,
+        )
+        if return_flops:
+            return fold_symmetric(out[0], c.sym), out[1]
+        return fold_symmetric(out, c.sym)
+
     with timed("multiply"):
         a = desymmetrize(a)
         b = desymmetrize(b)
-        if c is not None:
-            desymmetrize(c)
         dbcsr_assert(a.tile == b.tile, "operand tile sizes differ")
         m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
         k_sizes_a = a.index.row_block_sizes if ta else a.index.col_block_sizes
@@ -614,15 +661,10 @@ def multiply(
             dbcsr_assert(c.tile == a.tile, "C tile size differs from operands")
 
         with timed("multiply/plan"):
-            pcache = get_plan_cache()
-            cache_key = pcache.key(a.index, ta, b.index, tb)
-            cached = pcache.get(cache_key)
-            if cached is not None:
-                symb, prod_index = cached
-            else:
-                symb = symbolic_product(a.index, ta, b.index, tb)
-                prod_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
-                pcache.put(cache_key, (symb, prod_index))
+            symb, prod_index = _symbolic_plan(
+                a, ta, b, tb, m_sizes, n_sizes, filter_eps, cfg,
+                need_index=not retain_sparsity,
+            )
             if retain_sparsity:
                 dbcsr_assert(c is not None, "retain_sparsity requires c")
                 c_index = c.index
@@ -634,12 +676,17 @@ def multiply(
         with timed("multiply/exec"):
             out_data = _execute_local(
                 a, ta, b, tb, c, c_index, alpha, beta, cfg,
-                mask_result=retain_sparsity,
+                mask_result=filter_eps is not None or retain_sparsity,
             )
         result = BCSRMatrix(
             name=(c.name if c is not None else "product"),
             index=c_index, data=out_data, sym=SYM_NONE,
         )
+        # final norm filter (the reference's multrec_filtering)
+        if filter_eps is not None and not retain_sparsity:
+            from ..ops.arithmetic import filter_blocks
+
+            result = filter_blocks(result, filter_eps)
         stats = get_stats()
         stats.num_multiplications += 1
         stats.total_flops += symb.eff_flops
@@ -652,6 +699,45 @@ def multiply(
     if return_flops:
         return result, symb.eff_flops
     return result
+
+
+def _symbolic_plan(a, ta, b, tb, m_sizes, n_sizes, filter_eps, cfg, *,
+                   need_index: bool):
+    """(symbolic product, product index) of op(A)·op(B), through the plan
+    cache. Unfiltered plans are keyed by the operand patterns. A filtered
+    plan depends on the data (block norms), so it is recomputed each call;
+    its product index is interned by the surviving pattern's content, so
+    repeated calls over a converged pattern share one index object and
+    every cache derived from it (store layout, block info, masks)."""
+    pcache = get_plan_cache()
+    if filter_eps is None:
+        key = pcache.key(a.index, ta, b.index, tb)
+        cached = pcache.get(key)
+        if cached is not None:
+            return cached
+        symb = symbolic_product(a.index, ta, b.index, tb)
+        prod_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
+        pcache.put(key, (symb, prod_index))
+        return symb, prod_index
+    from ..ops.norms import block_norms_sq
+
+    symb = symbolic_product(
+        a.index, ta, b.index, tb,
+        a_norms_sq=block_norms_sq(a), b_norms_sq=block_norms_sq(b),
+        filter_eps=filter_eps, per_row_eps=cfg.per_row_eps,
+    )
+    if not need_index:
+        return symb, None
+    fkey = pcache.key(
+        a.index, ta, b.index, tb,
+        extra=("filtered_prod", array_fingerprint(symb.rows, symb.cols)),
+    )
+    cached = pcache.get(fkey)
+    if cached is not None:
+        return symb, cached[0]
+    prod_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
+    pcache.put(fkey, (prod_index,))
+    return symb, prod_index
 
 
 def build_multiply_executor(

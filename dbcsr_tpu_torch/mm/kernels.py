@@ -14,7 +14,8 @@ Precision is fixed by the input dtype, never by ambient torch state:
 float32 inputs are multiplied in IEEE float32 (the kernel runs FFMA; the
 plain version turns TF32 off around its ``bmm``); bfloat16 inputs are
 widened to float32 first, so every product is exact and only the float32
-sums round; float64 runs in float64 (CPU only here).
+sums round. float64 stacks take their own kernel (``f64_stack.py``); the
+plain version here sums float64 in float64.
 """
 from __future__ import annotations
 
@@ -115,22 +116,16 @@ def _check_stores(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     return int(a.shape[1])
 
 
-def check_kernel_operands(a, b, index_tensors, out_dtype, what: str) -> int:
-    """Checks shared by the CUDA wrappers: device, dtype, tile edge and
-    contiguity; returns the kernel's dtype code."""
+def check_cuda_operands(a, b, index_tensors, what: str, dtypes) -> int:
+    """Checks shared by the CUDA wrappers: device, dtype (one of
+    ``dtypes``), tile edge and contiguity of the stores and the plan
+    arrays; returns the tile edge."""
     tile = _check_stores(a, b, what)
     if a.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {a.device}")
-    if a.dtype == torch.float64:
-        raise NotImplementedError(
-            f"{what}: float64 stacks need the native-FP64 stack kernel, "
-            "K6 in ROADMAP Queue 2 (the port of "
-            "dbcsr_tpu/mm/ozaki_panel.py:_ozaki_panel_kernel)"
-        )
-    if a.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{what}: no kernel for dtype {a.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: output dtype {out_dtype} not supported")
+    if a.dtype not in dtypes:
+        hint = " (float64 stacks take mm/f64_stack.py)" if a.dtype == torch.float64 else ""
+        raise TypeError(f"{what}: no kernel for dtype {a.dtype}{hint}")
     if tile not in KERNEL_TILES:
         raise ValueError(f"{what}: tile edge {tile} not in {KERNEL_TILES}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -140,6 +135,15 @@ def check_kernel_operands(a, b, index_tensors, out_dtype, what: str) -> int:
             raise ValueError(
                 f"{what}: plan arrays must be contiguous int32 on {a.device}"
             )
+    return tile
+
+
+def check_kernel_operands(a, b, index_tensors, out_dtype, what: str) -> int:
+    """``check_cuda_operands`` for K1/K2 (float32 or bfloat16 inputs, float32
+    or bfloat16 output); returns the kernel's dtype code."""
+    check_cuda_operands(a, b, index_tensors, what, _DTYPE_CODE)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: output dtype {out_dtype} not supported")
     return _DTYPE_CODE[a.dtype]
 
 
@@ -197,9 +201,10 @@ def tile_stack_matmul(
     a: torch.Tensor, b: torch.Tensor, stack: DeviceStack, *, out_dtype=None,
 ) -> torch.Tensor:
     """K1: ``[n_c, T, T]`` tile store of the stack product. CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise (float64:
-    NotImplementedError naming K6; other dtypes, tile edges outside
-    ``KERNEL_TILES``, non-contiguous stores: TypeError/ValueError)."""
+    the plain version; CUDA tensors launch the kernel or raise (dtypes other
+    than float32/bfloat16 — float64 has ``f64_stack.tile_stack_matmul_f64``
+    — tile edges outside ``KERNEL_TILES``, non-contiguous stores:
+    TypeError/ValueError)."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return tile_stack_matmul_plain(a, b, stack, out_dtype=out_dtype)

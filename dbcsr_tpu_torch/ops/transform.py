@@ -1,29 +1,113 @@
-"""The part of ``dbcsr_tpu/ops/transform.py`` the local multiply needs.
+"""Structural transformations: transpose, desymmetrize, fold, copy, dense
+conversion.
 
-``desymmetrize`` passes non-symmetric matrices through and raises on
-symmetric ones: expanding the stored triangle is not ported yet.
+Port of the single-device part of ``dbcsr_tpu/ops/transform.py``
+(reference ``src/ops/dbcsr_transformations.F:101-150``). On the tile-store
+layout, transpose is a tile permutation plus a per-tile transpose (no
+element maps), and desymmetrize is the transposed store selected on the
+strict-lower global triangle by a coordinate mask. Stores are real (complex
+is not ported), so hermitian storage behaves as symmetric.
 ``make_dense``/``make_undense`` convert between block structures through
 the dense matrix (``dbcsr_make_dense``/``dbcsr_make_undense``).
 """
 from __future__ import annotations
 
-import numpy as np
+from dataclasses import replace
+from typing import Optional
 
-from ..block.bcsr import BCSRMatrix, SYM_NONE
+import numpy as np
+import torch
+
+from ..block.bcsr import BCSRMatrix, SYM_ANTISYMMETRIC, SYM_NONE, SYM_SYMMETRIC
+from ..block.index import build_index
+from ..block.store import store_layout
+from ..block.tileops import (
+    coord_mask,
+    take_tiles,
+    tile_align_map,
+    transpose_store,
+    valid_mask,
+)
+from ..core.errors import dbcsr_assert
 from ..core.timing import timed
 
-__all__ = ["desymmetrize", "make_dense", "make_undense"]
+__all__ = [
+    "transpose", "desymmetrize", "fold_symmetric", "copy", "make_dense",
+    "make_undense",
+]
+
+
+def fold_symmetric(m: BCSRMatrix, sym: str = SYM_SYMMETRIC) -> BCSRMatrix:
+    """Fold a full matrix into symmetric upper-triangle storage (the inverse
+    of :func:`desymmetrize`; the reference's canonical-index fold for
+    symmetric product matrices, ``dbcsr_make_index_canonical``). The
+    strictly-lower blocks are DISCARDED — callers assert the matrix is
+    actually (anti)symmetric, as in the reference."""
+    if m.sym != SYM_NONE:
+        return m
+    with timed("fold_symmetric"):
+        keep = m.index.blk_rows <= m.index.col_idx
+        new_index, _ = build_index(
+            m.index.blk_rows[keep], m.index.col_idx[keep],
+            m.index.row_block_sizes, m.index.col_block_sizes,
+        )
+        keys = store_layout(new_index, m.tile).tile_keys()
+        data = take_tiles(
+            m.data, tile_align_map(keys, m.layout.tile_keys()), m.tile
+        ) * valid_mask(new_index, m.tile, m.device).to(m.dtype)
+        return BCSRMatrix(name=m.name, index=new_index, data=data, sym=sym)
+
+
+def transpose(m: BCSRMatrix, *, conjugate: bool = False) -> BCSRMatrix:
+    """Deep transpose (``dbcsr_new_transposed``): tile permutation +
+    per-tile transpose. Symmetric inputs are expanded first; the result has
+    symmetry 'N'. ``conjugate`` is the identity on the port's real stores."""
+    m = desymmetrize(m)
+    with timed("transpose"):
+        new_index, _ = m.index.transposed()
+        data, coords_t = transpose_store(m.index, m.tile, m.data)
+        dbcsr_assert(
+            np.array_equal(store_layout(new_index, m.tile).tile_coords, coords_t),
+            "transposed tile sets must agree",
+        )
+        return BCSRMatrix(name=m.name + "^T", index=new_index, data=data,
+                          sym=SYM_NONE)
 
 
 def desymmetrize(m: BCSRMatrix) -> BCSRMatrix:
-    """``m`` itself when it is stored in full ('N'). Symmetric storage
-    raises: the desymmetrizing expansion is not ported yet."""
-    if m.sym != SYM_NONE:
-        raise NotImplementedError(
-            f"symmetric operands (sym={m.sym!r}) are not ported yet: "
-            "desymmetrize comes with the rest of ops/ (ROADMAP Queue 1 item 4)"
+    """Expand a symmetric/antisymmetric/hermitian matrix into full 'N'
+    storage (``dbcsr_desymmetrize_deep``): the strictly-lower global
+    triangle is the (signed) transposed store, selected by a coordinate
+    mask — this also reflects the interior of diagonal blocks, matching the
+    reference's convention that stored strictly-lower elements of diagonal
+    blocks are shadowed by the upper triangle."""
+    if m.sym == SYM_NONE:
+        return m
+    with timed("desymmetrize"):
+        rows_u = m.index.blk_rows
+        cols_u = m.index.col_idx
+        off_diag = rows_u != cols_u
+        new_index, _ = build_index(
+            np.concatenate([rows_u, cols_u[off_diag]]),
+            np.concatenate([cols_u, rows_u[off_diag]]),
+            m.index.row_block_sizes, m.index.col_block_sizes,
         )
-    return m
+        new_lay = store_layout(new_index, m.tile)
+        keys = new_lay.tile_keys()
+        up = take_tiles(m.data, tile_align_map(keys, m.layout.tile_keys()), m.tile)
+        refl_store, coords_t = transpose_store(m.index, m.tile, m.data)
+        keys_t = coords_t[:, 0].astype(np.int64) * new_lay.ntc + coords_t[:, 1]
+        refl = take_tiles(refl_store, tile_align_map(keys, keys_t), m.tile)
+        if m.sym == SYM_ANTISYMMETRIC:
+            refl = -refl
+        lower = coord_mask(new_lay, lambda r, c: r > c, m.device)
+        return BCSRMatrix(name=m.name, index=new_index,
+                          data=torch.where(lower, refl, up), sym=SYM_NONE)
+
+
+def copy(m: BCSRMatrix, *, name: Optional[str] = None) -> BCSRMatrix:
+    """A new matrix sharing ``m``'s index and store (both are immutable)."""
+    return replace(m, name=name or m.name)
 
 
 def make_dense(m: BCSRMatrix) -> BCSRMatrix:

@@ -1,9 +1,10 @@
 """Parity harness: carry a JAX-package matrix into the port.
 
 A test builds a matrix in ``dbcsr_tpu``, hands its parts over as numpy
-arrays (``np.asarray(m.data)``, the index arrays) and gets the port's
-``BCSRMatrix`` with the same index and a bit-identical tile store; results
-of both packages are then compared as numpy arrays. This module does not
+arrays (``np.asarray(m.data)``, the index arrays, ``m.sym``) and gets the
+port's ``BCSRMatrix`` with the same index, symmetry and a bit-identical
+tile store — float64 stays float64 — so one numpy description reaches both
+packages; results are then compared as numpy arrays. This module does not
 import jax: the caller does the ``np.asarray``.
 """
 from __future__ import annotations
@@ -25,7 +26,9 @@ def matrix_from_arrays(
 ) -> BCSRMatrix:
     """The port's matrix with block sizes, block coordinates ``rows`` /
     ``cols`` (in the JAX matrix's canonical order: ``index.blk_rows``,
-    ``index.col_idx``) and tile store ``data_np`` [n_tiles, T, T]."""
+    ``index.col_idx``), tile store ``data_np`` [n_tiles, T, T] in its own
+    dtype, and symmetry ``sym`` (symmetric storage holds the upper block
+    triangle only, as the JAX package's builder requires)."""
     data_np = np.asarray(data_np)
     dbcsr_assert(data_np.ndim == 3, "data must be a [n_tiles, T, T] store")
     index, order = build_index(rows, cols, row_block_sizes, col_block_sizes)
@@ -33,15 +36,18 @@ def matrix_from_arrays(
         np.array_equal(order, np.arange(len(order))),
         "block coordinates must be in canonical (row, col) order",
     )
+    dbcsr_assert(
+        sym == SYM_NONE or bool(np.all(index.blk_rows <= index.col_idx)),
+        f"symmetric storage (sym={sym!r}) holds only blocks with row <= col",
+    )
     lay = store_layout(index, int(data_np.shape[1]))
     dbcsr_assert(
         lay.n_tiles == data_np.shape[0],
         f"store has {data_np.shape[0]} tiles, the index needs {lay.n_tiles}",
     )
     return BCSRMatrix(
-        name=name, index=index,
+        name=name, index=index, sym=sym,
         data=torch.tensor(data_np, device=device),  # a copy: JAX arrays are read-only
-        sym=sym,
     )
 
 

@@ -1,5 +1,6 @@
-"""The port's kernels on the card: K1 and K2 against their plain versions,
-the executors' routes, and the wrappers' refusals.
+"""The port's kernels on the card: K1, K2 and the float64 stack kernel
+against their plain versions, the executors' routes (the filtered executor
+included), and the wrappers' refusals.
 
 Every test needs a CUDA GPU and skips without one. This file imports no
 jax (the GPU machine has none), so run it there without the suite's
@@ -7,9 +8,11 @@ conftest, which imports jax:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-5 relative to the largest reference entry: kernel and plain
-version both accumulate in float32 (bf16 inputs are widened, so products
-are exact), in different orders, over at most 40·T terms.
+Tolerance relative to the largest reference entry: 1e-5 for K1/K2 (kernel
+and plain version both accumulate in float32 — bf16 inputs are widened, so
+products are exact — in different orders, over at most 40·T terms); 1e-12
+for the float64 kernel (float64 sums of the same products in another
+order).
 """
 import numpy as np
 import pytest
@@ -17,6 +20,10 @@ import torch
 
 import dbcsr_tpu_torch as dtt
 from dbcsr_tpu_torch.core.config import config_override
+from dbcsr_tpu_torch.mm.f64_stack import (
+    tile_stack_matmul_f64,
+    tile_stack_matmul_f64_plain,
+)
 from dbcsr_tpu_torch.mm.kernels import (
     device_stack,
     tile_stack_matmul,
@@ -30,6 +37,7 @@ from dbcsr_tpu_torch.mm.panel import (
 )
 
 RTOL = 1e-5
+RTOL_F64 = 1e-12
 pytestmark = pytest.mark.cuda
 
 
@@ -94,12 +102,39 @@ def test_k2_matches_plain_and_k1_bitwise(dev, tile, dtype):
     assert torch.equal(got, flat)
 
 
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_f64_kernel_matches_plain(dev, tile):
+    """Runs of random length, runs of 1 and runs of 40 (K6 admits <= 8)."""
+    rng = np.random.default_rng(tile)
+    a = torch.randn(12, tile, tile, device=dev, dtype=torch.float64)
+    b = torch.randn(12, tile, tile, device=dev, dtype=torch.float64)
+    c_long = np.repeat(np.arange(3), 40)
+    cases = [random_stack(rng), random_stack(rng, n_c=30, s=30),
+             (np.stack([c_long, rng.integers(0, 12, 120), rng.integers(0, 12, 120)],
+                       axis=1).astype(np.int32), 3)]
+    for stack, n_c in cases:
+        ds = device_stack(stack, n_c, dev)
+        before = tile_stack_matmul_f64.launches
+        got = tile_stack_matmul_f64(a, b, ds)
+        assert tile_stack_matmul_f64.launches == before + 1
+        assert got.dtype == torch.float64
+        assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
+        assert torch.equal(got, tile_stack_matmul_f64(a, b, ds))  # deterministic
+
+
 def test_wrappers_reject_bad_input(dev):
     stack, n_c = random_stack(np.random.default_rng(0))
     ds = device_stack(stack, n_c, dev)
     a = torch.randn(12, 32, 32, device=dev)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(TypeError, match="float64"):
         tile_stack_matmul(a.double(), a.double(), ds)
+    with pytest.raises(TypeError):
+        tile_stack_matmul_f64(a, a, ds)
+    a8 = torch.randn(12, 8, 8, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tile_stack_matmul_f64(a8, a8, ds)
+    with pytest.raises(IndexError):
+        tile_stack_matmul_f64(a.double()[:2], a.double()[:2], ds)
     with pytest.raises(TypeError):
         tile_stack_matmul(a.half(), a.half(), ds)
     a8 = torch.randn(12, 8, 8, device=dev)
@@ -111,13 +146,14 @@ def test_wrappers_reject_bad_input(dev):
         tile_stack_matmul(a[:2], a[:2], ds)  # stack slots beyond the stores
     stack2, n = banded_stack()
     plan = plan_panel_stack(stack2, n, n, n, c_win=16, a_cap=48, b_cap=48, chunk=4)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(TypeError, match="float64"):
         tile_stack_matmul_panel(a.double(), a.double(), device_panel_plan(plan, dev))
 
 
 def test_executors_on_the_card(dev):
     """auto takes K2 on a banded pattern, stack takes K1; both match the
-    same multiply on CPU tensors; float64 stacks raise naming K6."""
+    same multiply on CPU tensors; float64 takes the float64 kernel under
+    every sparse driver, and the filtered executor matches its CPU run."""
     rng = np.random.default_rng(1)
     rbs = dtt.random_block_sizes(300, [3, 5, 7], rng)
     n = len(rbs)
@@ -139,7 +175,18 @@ def test_executors_on_the_card(dev):
                 out = dtt.multiply("N", "N", 1.0, ag, ag)
                 assert counter.launches == before + 1
             assert rel_err(out.to_dense(), ref) <= RTOL
-        a64 = ag.astype(torch.float64)
-        with config_override(mm_driver="stack"):
-            with pytest.raises(NotImplementedError, match="K6"):
-                dtt.multiply("N", "N", 1.0, a64, a64)
+        a64, g64 = a.astype(torch.float64), ag.astype(torch.float64)
+        ref64 = dtt.multiply("N", "N", 1.0, a64, a64, filter_eps=1e-3)
+        for driver in ("auto", "stack", "panel"):
+            with config_override(mm_driver=driver):
+                before = tile_stack_matmul_f64.launches
+                out = dtt.multiply("N", "N", 1.0, g64, g64, filter_eps=1e-3)
+                assert tile_stack_matmul_f64.launches == before + 1
+            np.testing.assert_array_equal(out.index.col_idx, ref64.index.col_idx)
+            assert rel_err(out.to_dense(), ref64.to_dense()) <= RTOL_F64
+        ex_cpu = dtt.build_filtered_executor("N", "N", a64, a64, 1e-3)
+        ex_gpu = dtt.build_filtered_executor("N", "N", g64, g64, 1e-3)
+        c_cpu, k_cpu, _ = ex_cpu.step(a64.data, a64.data)
+        c_gpu, k_gpu, _ = ex_gpu.step(g64.data, g64.data)
+        assert torch.equal(k_gpu.cpu(), k_cpu)
+        assert rel_err(c_gpu, c_cpu) <= RTOL_F64

@@ -246,8 +246,8 @@ def test_import_does_not_load_jax():
 
 
 @pytest.mark.parametrize("what", [
-    "band", "grouped", "xla", "runlen", "reorder", "filter_eps", "limits",
-    "dist", "k_dist", "symmetric", "complex",
+    "band", "grouped", "xla", "runlen", "reorder", "f64_slices", "limits",
+    "dist", "k_dist", "complex",
 ])
 def test_unported_options_raise(what):
     _, at = pair("random", 13, np.float64, 8)
@@ -258,16 +258,12 @@ def test_unported_options_raise(what):
         cfg["panel_runlen"] = 2
     elif what == "reorder":
         cfg["reorder"] = "auto"
-    elif what == "filter_eps":
-        kw["filter_eps"] = 1e-6
+    elif what == "f64_slices":
+        cfg["f64_slices"] = 4
     elif what == "limits":
         kw["limits"] = {"rows": (0, 1)}
     elif what in ("dist", "k_dist"):
         kw[what] = object()
-    elif what == "symmetric":
-        rbs = np.full(4, 3, np.int32)
-        at = dtt.random_matrix(rbs, rbs, 0.5, np.random.default_rng(0),
-                               dtype=np.float64, sym="S", device="cpu", tile=8)
     elif what == "complex":
         at = at.with_data(at.data.to(torch.complex128))
     # every message names where the option comes from: the ROADMAP item
@@ -293,7 +289,8 @@ def test_bad_arguments():
             dtt.multiply("N", "N", 1.0, at, at)
     with pytest.raises(KeyError):
         dtt.set_config(nonsense=1)
-    _, rt = pair("random", 15, np.float64, 8)
+    # float32: float64 stacks take the float64 kernel under every driver
+    _, rt = pair("random", 15, np.float32, 8)
     with torch_override(tile_size=8, mm_driver="panel"):
         with pytest.raises(dtt.DbcsrError, match="panel-admissible"):
             dtt.build_multiply_executor("N", "N", rt, rt)
