@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py            # every phase, one GPU
-    python3 chip_smoke.py --quick    # phases 1, 2, 3, 5 and 8 (no 400k-row run)
+    python3 chip_smoke.py --quick    # phases 1, 2, 3, 5 and 8 (no large run)
 
 Phases (any failure exits non-zero before the final line):
 
@@ -16,7 +16,12 @@ Phases (any failure exits non-zero before the final line):
    per C tile and a banded panel plan with a clamped last group; the
    float64 stack kernel (the port of K6) at T=128/64/32 on runs of 48, runs
    of 1 and a banded stack, against its plain version and a host float64
-   recomputation of sampled C tiles;
+   recomputation of sampled C tiles; K5 (band), K4 (grouped) and K3
+   (run-fused panel) at T=128/64/32/16 with f32, bf16 and (K4, K5) f64
+   inputs, against their plain versions and a host float64 recomputation,
+   two launches bitwise equal, on small plans that hit their traps (negative
+   ``off_a`` on rectangular grids, group splits, ``runlen`` 2 and 4 with all
+   three tiers, the clamped last group);
 4. the main path at a real size: the banded linear-scaling SCF pattern of
    ``bench.py`` (blocks of 5/13/23, band of ±12 blocks at 50% fill, T=128)
    at 400,000 rows through ``build_multiply_executor`` — ``auto`` must run
@@ -40,10 +45,34 @@ Phases (any failure exits non-zero before the final line):
 8. the McWeeny purification loop of ``tests/test_purification.py`` on the
    card (T=16, ``mm_driver="stack"``, so every product takes the float64
    kernel) with that test's assertions, against the same loop on CPU
-   tensors.
+   tensors;
+9. the further drivers at the phase-4 shape (float32, "highest") through
+   ``build_multiply_executor``: ``driver="band"`` (K5), ``driver="grouped"``
+   (K4) and ``panel_runlen=4`` under ``driver="panel"`` (K3), each against
+   its plain version, a float64 host recomputation of sampled tiles and
+   phase 4's panel result, with CUDA-event medians and the plan figures;
+   then the RCM reordering on clustered-but-scrambled patterns: bench.py's
+   ``clustered`` chain (blocks 5/13/23, coupling exp(-d/4) out to 15 blocks,
+   numbering scrambled) at 60,000 rows with ``reorder`` "off" and "auto" and
+   at the block level (``locality_block_permutation`` + ``permute_blocks``:
+   the product of the permuted matrices is the permuted product), and a
+   scrambled band of 128-blocks (the tile pattern is the block pattern) at
+   512,000 rows, where ``reorder="auto"`` must take the panel route and
+   agree with the flat kernel's result under ``reorder="off"``: ±2 blocks
+   with every knob at its default, ±3 blocks under ``panel_cache=64``.
 
-The kernel summary is one JSON line, then the ``nvidia-smi`` line, then the
-final line ``{"ok": true, "device": {...}}``.
+10. the library yardstick: ``torch.sparse.mm`` (CSR × CSR, cuSPARSE
+    SpGEMM), the one PyTorch call that computes the same product, beside
+    the executor at 40,000 and 400,000 rows of the banded SCF shape, with
+    phase 4's float32 operands and phase 7's float64 operands; where
+    cuSPARSE refuses the product for want of resources, ``library_ms`` is
+    null; any other error fails the run.
+
+Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
+The kernel summary is one JSON line (six kernels; ``bound_ms`` is computed
+from this run's tile and product counts against NVIDIA's H100 SXM data-sheet
+peaks), then the ``nvidia-smi`` line, then the final line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -83,6 +112,40 @@ F64_RTOL = 1e-12
 DECAY = 1.5
 FILTER_EPS = 1e-5
 N_VARIANTS = 3
+#: phase 9: rows of the scrambled chain (bench.py's clustered leg stops at
+#: 24,000). Scrambled, nearly every block lands in a tile of its own: 60,000
+#: rows are ≈ 34,600 blocks in ≈ 32,000 tiles of 64 KiB (2.1 GB per operand)
+#: on a 469² tile grid, whose tile-level product is dense (≈ 220,000 C tiles,
+#: 14.4 GB out of the kernel)
+SCRAMBLED_ROWS = 60_000
+#: phase 9: block rows of the scrambled bands of 128-blocks, 512,000 rows:
+#: ±2 blocks, 5 tiles a row, 20,000 tiles (1.3 GB) per operand; ±3 blocks, 7
+#: tiles a row, 28,000 tiles (1.8 GB) per operand. The store
+#: layout keeps an int64 element map on the host (8 bytes per stored
+#: element: 3.7 GB per operand here, 6.8 GB for C), and past a 4096² tile
+#: grid its numpy path's temporaries exhausted a 96 GiB host at 5,500 block
+#: rows, so the grid stays at 4000²
+TILE_BAND_BLOCKS = 4_000
+#: phase 10: the smaller size of the library yardstick, bench.py's own
+#: ``banded`` row count (cuSPARSE SpGEMM needs ~30 GB of work space there)
+LIBRARY_ROWS = 40_000
+#: NVIDIA H100 SXM data sheet, dense rates: HBM3 bytes/s; float32 outside
+#: the tensor cores (IEEE float32 has no tensor-core route; the kernels widen
+#: bf16 inputs to float32 too); float64 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+
+
+def kernel_bound(n_a: int, n_b: int, n_c: int, n_products: int, tile: int,
+                 in_bytes: int, out_bytes: int, peak: str) -> tuple:
+    """The least time (ms) the card could take for a stack product: the
+    larger of its compulsory bytes (each A and B tile read once, each C tile
+    written once) over the HBM rate and the tile products this run's data
+    needs (2·T³ flops each) over the peak rate; and which of the two."""
+    t_bytes = (((n_a + n_b) * in_bytes + n_c * out_bytes) * tile * tile
+               / HBM_BYTES_PER_S * 1e3)
+    t_ops = 2.0 * n_products * tile**3 / PEAK_FLOPS[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
 def fail(msg: str) -> None:
@@ -95,13 +158,24 @@ def log(msg: str) -> None:
 
 
 def rel_err(got, ref) -> tuple:
+    """(max |got - ref|, that over max |ref|), taken in float64 over slices
+    of the leading dimension so that two stores of several GB need no
+    float64 copies of their own; (inf, inf) if ``got`` is not finite."""
     import torch
 
-    got, ref = got.double(), ref.double()
-    if not bool(torch.isfinite(got).all()):
+    if got.shape != ref.shape:
         return float("inf"), float("inf")
-    err = float((got - ref).abs().max()) if ref.numel() else 0.0
-    scale = float(ref.abs().max()) if ref.numel() else 1.0
+    if got.dim() == 0 or got.numel() == 0:
+        got, ref = got.reshape(1, -1), ref.reshape(1, -1)
+    err = scale = 0.0
+    step = max(1, (1 << 26) // max(got[0].numel(), 1))  # 64 Mi elements a slice
+    for s in range(0, got.shape[0], step):
+        g, r = got[s:s + step].double(), ref[s:s + step].double()
+        if not bool(torch.isfinite(g).all()):
+            return float("inf"), float("inf")
+        if g.numel():
+            err = max(err, float((g - r).abs().max()))
+            scale = max(scale, float(r.abs().max()))
     return err, err / (scale or 1.0)
 
 
@@ -282,6 +356,133 @@ def phase_kernels_f64(dev) -> float:
     return worst
 
 
+def band_tile_coords(nrows: int, ncols: int, lo: int, hi: int, rng, fill: float):
+    """Row-major tile coords with lo <= col - row <= hi inside the grid; the
+    two extreme diagonals are full, the others hold a share ``fill``."""
+    r, c = np.meshgrid(np.arange(nrows), np.arange(ncols), indexing="ij")
+    d = c - r
+    keep = (d >= lo) & (d <= hi) & ((d == lo) | (d == hi) | (rng.random(d.shape) < fill))
+    return np.stack([r[keep], c[keep]], axis=1).astype(np.int64)
+
+
+def check_new_kernel(name, label, tile, dtype, kernel, plain, stack, a, b, rng, worst):
+    """One case of K3/K4/K5: the kernel twice (bitwise equal), against its
+    plain version and against a host float64 recomputation of 6 sampled C
+    tiles of the c-sorted ``stack`` it computes."""
+    import torch
+
+    f64 = dtype == torch.float64
+    rtol = F64_RTOL if f64 else KERNEL_RTOL
+    got, again, ref = kernel(), kernel(), plain()
+    sync(a.device)
+    n_c = got.shape[0]
+    if got.dtype != (torch.float64 if f64 else torch.float32) or got.shape != ref.shape:
+        fail(f"{name} output {tuple(got.shape)} {got.dtype} ({label}, T={tile})")
+    err, rel = rel_err(got, ref)
+    picks = np.sort(rng.choice(n_c, size=min(6, n_c), replace=False))
+    herr, hrel = rel_err(got[picks].cpu(), torch.as_tensor(host_f64_tiles(a, b, stack, picks)))
+    worst[name] = max(worst.get(name, 0.0), err, herr)
+    same = bool(torch.equal(got, again))
+    log(f"  {name} T={tile:3d} {str(dtype)[6:]:8s} {label:26s} max_abs_err={err:.3e} rel={rel:.2e}; "
+        f"vs host float64 rel={hrel:.2e} (bound {rtol:.0e}); two launches bitwise equal: {same}")
+    if not (rel <= rtol and hrel <= rtol and same):
+        fail(f"{name} disagrees ({label}, T={tile}, {dtype})")
+
+
+def phase_kernels_new(dev) -> dict:
+    """K5 (band), K4 (grouped) and K3 (run-fused panel) against their plain
+    versions and a host float64 recomputation, at every tile edge, on small
+    plans that hit each kernel's traps; returns the worst absolute errors."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.band import (
+        band_matmul, band_matmul_plain, device_band_plan, plan_band,
+    )
+    from dbcsr_tpu_torch.mm.kernels import (
+        device_group_plan, tile_stack_matmul_grouped, tile_stack_matmul_grouped_plain,
+    )
+    from dbcsr_tpu_torch.mm.panel import (
+        device_panel_run_plan, plan_panel_runs, tile_stack_matmul_panel_runs,
+        tile_stack_matmul_panel_runs_plain,
+    )
+    from dbcsr_tpu_torch.mm.tileplan import plan_tile_stacks_stores
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    worst = {}
+
+    def stores(n_a, n_b, tile, dtype):
+        wide = torch.float64 if dtype == torch.float64 else torch.float32
+        return tuple(
+            torch.randn((n, tile, tile), generator=gen, device=dev, dtype=wide).to(dtype)
+            for n in (n_a, n_b))
+
+    # K5: (Mt, Kt, Nt, A diagonals, B diagonals, fill) — off_a < 0 on a
+    # rectangular grid where k = m + off_a + d1 runs off both ends; off_a > 0;
+    # a square band with holes
+    band_cases = [("rect, off_a=-3", 12, 20, 15, (-3, 5), (-6, 2), 0.7),
+                  ("rect tall, off_a=2", 21, 9, 14, (2, 4), (-5, -1), 1.0),
+                  ("square with holes", 40, 40, 40, (-2, 2), (-2, 2), 0.5)]
+    # K4: group/cache small enough to split C runs; the engine's defaults
+    stack_long = long_run_stack(rng, n_c=30, run=40, n_a=96, n_b=96)
+    bstack, n_band = banded_tile_stack(mt=60, w=2)
+    group_cases = [("runs of 40, group 4 cache 16", stack_long, 30, 96, 96, 4, 16),
+                   ("runs of 40, group 8 cache 128", stack_long, 30, 96, 96, 8, 128),
+                   ("banded, group 8 cache 8", bstack, n_band, n_band, n_band, 8, 8)]
+    # K3: the banded stack with its column-major B numbering; n_c = 294 slots
+    # in windows of 16 clamps the last group
+    bc = np.asarray([(r, c) for r in range(60) for c in range(max(0, r - 2), min(60, r + 3))])
+    cm = np.argsort(bc[:, 1] * 60 + bc[:, 0]).astype(np.int32)
+
+    for tile in (128, 64, 32, 16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            for label, mt, kt, nt, (alo, ahi), (blo, bhi), fill in band_cases:
+                ac = band_tile_coords(mt, kt, alo, ahi, rng, fill)
+                bcd = band_tile_coords(kt, nt, blo, bhi, rng, fill)
+                tp = plan_tile_stacks_stores(ac, (mt, kt), bcd, (kt, nt))
+                bp = plan_band(ac, (mt, kt), bcd, (kt, nt), tp.c_tile_keys, tile=tile)
+                if bp is None or (label.startswith("rect,") and bp.off_a >= 0):
+                    fail(f"band case {label!r} did not plan as intended")
+                dp = device_band_plan(bp, dev)
+                a, b = stores(len(ac), len(bcd), tile, dtype)
+                check_new_kernel(
+                    "K5", f"{label} Wa={bp.wa} Wb={bp.wb}", tile, dtype,
+                    lambda: band_matmul(a, b, dp, out_dtype=None if dtype == torch.float64 else torch.float32),
+                    lambda: band_matmul_plain(a, b, bp, out_dtype=None if dtype == torch.float64 else torch.float32),
+                    tp.stack, a, b, rng, worst)
+            for label, st, n_c, n_a, n_b, group, cache in group_cases:
+                gp = device_group_plan(st, n_c, n_b, dev, group=group, cache=cache)
+                if cache < 128 and gp.split_runs == 0:
+                    fail(f"grouped case {label!r} split no C run")
+                a, b = stores(n_a, n_b, tile, dtype)
+                out_dt = None if dtype == torch.float64 else torch.float32
+                check_new_kernel(
+                    "K4", f"{label} splits={gp.split_runs}", tile, dtype,
+                    lambda: tile_stack_matmul_grouped(a, b, gp, out_dtype=out_dt),
+                    lambda: tile_stack_matmul_grouped_plain(a, b, gp, out_dtype=out_dt),
+                    st, a, b, rng, worst)
+            if dtype == torch.float64:
+                continue  # K3 takes float32 and bfloat16, as K2
+            for runlen in (2, 4):
+                rp = plan_panel_runs(bstack, n_band, n_band, n_band, b_cm_perm=cm,
+                                     c_win=16, a_cap=64, b_cap=64, chunk=4, runlen=runlen)
+                if rp is None or rp.gstart[-1] % rp.c_win == 0:
+                    fail("the banded case must give a run plan with a clamped last group")
+                tiers = (rp.n_quads, rp.n_pairs, rp.n_singles)
+                if runlen == 4 and min(tiers) == 0 or runlen == 2 and (rp.n_pairs or not rp.n_quads):
+                    fail(f"run plan tiers {tiers} at runlen={runlen}")
+                dp = device_panel_run_plan(rp, dev)
+                a, b = stores(n_band, n_band, tile, dtype)
+                check_new_kernel(
+                    "K3", f"banded runlen={runlen} q/p/s={tiers[0]}/{tiers[1]}/{tiers[2]}",
+                    tile, dtype,
+                    lambda: tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32),
+                    lambda: tile_stack_matmul_panel_runs_plain(a, b, rp, out_dtype=torch.float32),
+                    bstack, a, b, rng, worst)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at 400,000 rows
 # ---------------------------------------------------------------------------
@@ -336,17 +537,29 @@ def plain_of(plan, a_data, b_data):
     """The plain version of the executor's kernel on the same inputs."""
     import torch
 
+    from dbcsr_tpu_torch.mm.band import band_matmul_plain
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64_plain
-    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul_plain
-    from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel_plain
+    from dbcsr_tpu_torch.mm.kernels import (
+        tile_stack_matmul_grouped_plain, tile_stack_matmul_plain,
+    )
+    from dbcsr_tpu_torch.mm.panel import (
+        tile_stack_matmul_panel_plain, tile_stack_matmul_panel_runs_plain,
+    )
 
-    a_in, b_in = a_data.to(plan.in_dtype), b_data.to(plan.in_dtype)
+    a_st, b_st = plan.op_stores(a_data, b_data)
+    a_in, b_in = a_st.to(plan.in_dtype), b_st.to(plan.in_dtype)
+    f32 = torch.float32
     if plan.route == "f64_stack":
         return tile_stack_matmul_f64_plain(a_in, b_in, plan.stack)
     if plan.route == "panel":
-        return tile_stack_matmul_panel_plain(
-            a_in, b_in, plan.panel.plan, out_dtype=torch.float32)
-    return tile_stack_matmul_plain(a_in, b_in, plan.stack, out_dtype=torch.float32)
+        return tile_stack_matmul_panel_plain(a_in, b_in, plan.panel.plan, out_dtype=f32)
+    if plan.route == "panel_runs":
+        return tile_stack_matmul_panel_runs_plain(a_in, b_in, plan.panel.plan, out_dtype=f32)
+    if plan.route == "band":
+        return band_matmul_plain(a_in, b_in, plan.band.plan, out_dtype=f32)
+    if plan.route == "grouped":
+        return tile_stack_matmul_grouped_plain(a_in, b_in, plan.grouped, out_dtype=f32)
+    return tile_stack_matmul_plain(a_in, b_in, plan.stack, out_dtype=f32)
 
 
 def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
@@ -355,16 +568,16 @@ def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
     import torch
 
     from dbcsr_tpu_torch.block.store import store_layout
-    from dbcsr_tpu_torch.block.tileops import tile_align_map
 
     tp = plan.tile_plan
     c_keys = store_layout(c_index, a_data.shape[1]).tile_keys()
-    pos_of = tile_align_map(tp.c_tile_keys, c_keys)  # product tile -> C slot
-    present = np.flatnonzero(pos_of >= 0)
-    picks = np.random.default_rng(seed).choice(
-        present, size=min(n_samples, len(present)), replace=False)
-    ref = host_f64_tiles(a_data, b_data, tp.stack, picks, plan.in_dtype)
-    return rel_err(out[pos_of[picks]].cpu(), torch.as_tensor(ref))
+    prod_of = plan.align_map(c_keys)  # C slot -> product tile of the plan
+    present = np.flatnonzero(prod_of >= 0)
+    picks = np.sort(np.random.default_rng(seed).choice(
+        present, size=min(n_samples, len(present)), replace=False))
+    a_st, b_st = plan.op_stores(a_data, b_data)  # as the plan's stack indexes them
+    ref = host_f64_tiles(a_st, b_st, tp.stack, prod_of[picks], plan.in_dtype)
+    return rel_err(out[picks].cpu(), torch.as_tensor(ref))
 
 
 def phase_main_path(dev, nrows: int):
@@ -372,7 +585,7 @@ def phase_main_path(dev, nrows: int):
 
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch.block.store import store_layout
-    from dbcsr_tpu_torch.block.tileops import take_tiles, tile_align_map
+    from dbcsr_tpu_torch.block.tileops import take_tiles
     from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
     from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel
 
@@ -427,8 +640,7 @@ def phase_main_path(dev, nrows: int):
         # the product tiles, aligned to C's tiles as the executor aligns them
         ref = take_tiles(
             plain_of(fn.plan, a.data, b.data),
-            tile_align_map(store_layout(c_index, 128).tile_keys(), fn.plan.prod_keys),
-            128,
+            fn.plan.align_map(store_layout(c_index, 128).tile_keys()), 128,
         )
         sync(dev)
         err, rel = rel_err(out, ref)
@@ -440,7 +652,7 @@ def phase_main_path(dev, nrows: int):
         if not (rel <= KERNEL_RTOL and srel <= KERNEL_RTOL):
             fail(f"main path {key} disagrees with its references")
         del ref
-    return a, b, execs, launches, errs
+    return a, b, execs, launches, errs, outs[("highest", "auto")]
 
 
 # ---------------------------------------------------------------------------
@@ -488,15 +700,25 @@ def kernel_of(plan):
     kernel's input dtype (no conversion, no alignment)."""
     import torch
 
+    from dbcsr_tpu_torch.mm.band import band_matmul
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
-    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
-    from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel
+    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul, tile_stack_matmul_grouped
+    from dbcsr_tpu_torch.mm.panel import (
+        tile_stack_matmul_panel, tile_stack_matmul_panel_runs,
+    )
 
+    f32 = torch.float32
     if plan.route == "f64_stack":
         return lambda x, y: tile_stack_matmul_f64(x, y, plan.stack)
     if plan.route == "panel":
-        return lambda x, y: tile_stack_matmul_panel(x, y, plan.panel, out_dtype=torch.float32)
-    return lambda x, y: tile_stack_matmul(x, y, plan.stack, out_dtype=torch.float32)
+        return lambda x, y: tile_stack_matmul_panel(x, y, plan.panel, out_dtype=f32)
+    if plan.route == "panel_runs":
+        return lambda x, y: tile_stack_matmul_panel_runs(x, y, plan.panel, out_dtype=f32)
+    if plan.route == "band":
+        return lambda x, y: band_matmul(x, y, plan.band, out_dtype=f32)
+    if plan.route == "grouped":  # the kernel and the join of its padded rows
+        return lambda x, y: tile_stack_matmul_grouped(x, y, plan.grouped, out_dtype=f32)
+    return lambda x, y: tile_stack_matmul(x, y, plan.stack, out_dtype=f32)
 
 
 def phase_times(a, b, execs, card: str) -> dict:
@@ -531,22 +753,27 @@ def phase_times(a, b, execs, card: str) -> dict:
 # phase 7: the filtered SCF path (float64, then float32)
 # ---------------------------------------------------------------------------
 
-def reset_launches() -> None:
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper (each counts its launches), by kernel."""
+    from dbcsr_tpu_torch.mm.band import band_matmul
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
-    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
-    from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel
+    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul, tile_stack_matmul_grouped
+    from dbcsr_tpu_torch.mm.panel import (
+        tile_stack_matmul_panel, tile_stack_matmul_panel_runs,
+    )
 
-    for k in (tile_stack_matmul, tile_stack_matmul_panel, tile_stack_matmul_f64):
+    return {"K1": tile_stack_matmul, "K2": tile_stack_matmul_panel,
+            "K3": tile_stack_matmul_panel_runs, "K4": tile_stack_matmul_grouped,
+            "K5": band_matmul, "K6": tile_stack_matmul_f64}
+
+
+def reset_launches() -> None:
+    for k in kernel_wrappers().values():
         k.launches = 0
 
 
 def read_launches() -> dict:
-    from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
-    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
-    from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel
-
-    return {"K1": tile_stack_matmul.launches, "K2": tile_stack_matmul_panel.launches,
-            "K6": tile_stack_matmul_f64.launches}
+    return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
 def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dict:
@@ -559,7 +786,7 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
 
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch.block.store import store_layout
-    from dbcsr_tpu_torch.block.tileops import apply_tile_gather, tile_align_map, tile_gather
+    from dbcsr_tpu_torch.block.tileops import apply_tile_gather, tile_gather
 
     f64 = a.dtype == torch.float64
     name = "float64" if f64 else "float32"
@@ -575,7 +802,7 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
     if plan.route != ("f64_stack" if f64 else "panel"):
         fail(f"{name} filtered executor took route {plan.route}")
     gather = tile_gather(
-        tile_align_map(store_layout(ex.c_index, 128).tile_keys(), plan.prod_keys),
+        plan.align_map(store_layout(ex.c_index, 128).tile_keys()),
         len(plan.prod_keys), dev,
     )
     plain_ex = replace(ex, fn=lambda x, y: apply_tile_gather(plain_of(plan, x, y), gather))
@@ -586,8 +813,9 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
     sync(dev)
     launches = read_launches()
     log(f"  {name} main-path launches over {len(variants)} steps: {launches}")
-    want, others = ("K6", ("K1", "K2")) if f64 else ("K2", ("K1", "K6"))
-    if launches[want] != len(variants) or any(launches[k] for k in others):
+    want = "K6" if f64 else "K2"
+    if launches[want] != len(variants) or any(
+            n for k, n in launches.items() if k != want):
         fail(f"{name} filtered steps: launches {launches}, expected {want} only")
 
     worst, shares = 0.0, []
@@ -641,8 +869,10 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
         fail(f"{name} compact() disagrees with the one-shot filtered multiply")
     del steps, c, keep, comp, one
 
+    tp = plan.tile_plan
     out = {"route": plan.route, "launches": launches[want], "max_abs_err": worst,
-           "share": float(np.mean(shares)), "one_shot_s": one_s}
+           "share": float(np.mean(shares)), "one_shot_s": one_s,
+           "counts": (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))}
     if not timing:
         return out
     kern = kernel_of(plan)
@@ -742,9 +972,392 @@ def phase_mcweeny(dev) -> int:
         fail("McWeeny on the card missed the reference test's assertions")
     if not (iters == it_cpu and same and rel <= 1e-10):
         fail("McWeeny on the card differs from the same loop on CPU tensors")
-    if launches["K6"] == 0 or launches["K1"] or launches["K2"]:
+    if launches["K6"] == 0 or any(n for k, n in launches.items() if k != "K6"):
         fail(f"McWeeny products should run the float64 kernel only: {launches}")
     return launches["K6"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the band, grouped and run-fused panel drivers; RCM reordering
+# ---------------------------------------------------------------------------
+
+def timed_plain_kernel_exec(fn, a, b, reps: int = 10) -> tuple:
+    """CUDA-event medians (ms) of an executor, its kernel alone and the
+    kernel's plain version, in the order plain, kernel, executor, kernel,
+    plain, so that they are compared within one call."""
+    plan = fn.plan
+    a_st, b_st = plan.op_stores(a.data, b.data)
+    a_in, b_in = a_st.to(plan.in_dtype), b_st.to(plan.in_dtype)
+    kern = kernel_of(plan)
+    p1 = cuda_median_ms(lambda: plain_of(plan, a.data, b.data), reps=3, warmup=1)
+    k1 = cuda_median_ms(lambda: kern(a_in, b_in), reps=reps)
+    ex = cuda_median_ms(lambda: fn(a.data, b.data), reps=reps)
+    k2 = cuda_median_ms(lambda: kern(a_in, b_in), reps=reps)
+    p2 = cuda_median_ms(lambda: plain_of(plan, a.data, b.data), reps=3, warmup=1)
+    return ex, float(np.median([k1, k2])), float(np.median([p1, p2])), (k1, k2, p1, p2)
+
+
+def phase_new_drivers(dev, a, b, panel_out) -> dict:
+    """``driver="band"`` (K5), ``driver="grouped"`` (K4) and
+    ``panel_runlen=4`` under ``driver="panel"`` (K3) at the phase-4 shape,
+    float32 at "highest"; ``panel_out`` is phase 4's panel result."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import take_tiles
+
+    cases = {"K5": ("band", {}), "K4": ("grouped", {}), "K3": ("panel", {"panel_runlen": 4})}
+    routes = {"K5": "band", "K4": "grouped", "K3": "panel_runs"}
+    execs = {}
+    for k, (driver, cfg) in cases.items():
+        t0 = time.perf_counter()
+        with dt.config_override(matmul_precision="highest", **cfg):
+            fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b, driver=driver)
+        secs = time.perf_counter() - t0
+        plan = fn.plan
+        if plan.route != routes[k]:
+            fail(f"driver={driver!r} {cfg} took route {plan.route}, expected {routes[k]}")
+        tp = plan.tile_plan
+        if k == "K5":
+            bp = plan.band.plan
+            cells = bp.wa * bp.wb * bp.mt
+            note = (f"Wa={bp.wa} Wb={bp.wb} off_a={bp.off_a} Mt={bp.mt}: {cells} padded "
+                    f"diagonal cells, {len(tp.stack)} present ({cells / len(tp.stack):.2f}x), "
+                    f"A band {int((bp.a_pack >= 0).sum())} of {len(bp.a_pack)} tiles present; "
+                    f"hw_flops {plan.hw_flops / 1e9:.1f} GFLOP (padded), products done "
+                    f"{2.0 * len(tp.stack) * 128**3 / 1e9:.1f} GFLOP")
+        elif k == "K4":
+            gp = plan.grouped
+            note = (f"{gp.n_groups} groups of {gp.group} (cache {gp.cache}), "
+                    f"{gp.n_groups * gp.group - gp.n_c} padding rows, {gp.split_runs} split C runs, "
+                    f"{len(tp.stack)} entries load {gp.aload.numel()} A tiles "
+                    f"(reuse {len(tp.stack) / max(gp.aload.numel(), 1):.2f}); "
+                    f"join: {type(gp.join).__name__}")
+        else:
+            rp = plan.panel.plan
+            note = (f"{rp.n_groups} groups of {rp.c_win}, runlen {rp.runlen}: quads/pairs/singles "
+                    f"{rp.n_quads}/{rp.n_pairs}/{rp.n_singles}, issue_ratio {rp.issue_ratio:.3f}, "
+                    f"traffic ratio {rp.traffic_ratio:.3f}, caps a={rp.a_cap} b={rp.b_cap}")
+        log(f"  {k} executor driver={driver} {cfg or ''}: route={plan.route}, plan {secs:.2f} s; {note}")
+        execs[k] = (fn, c_index, eff)
+
+    # --- this path's main-path run: counts set to 0 just before, read just after
+    reset_launches()
+    outs = {k: fn(a.data, b.data) for k, (fn, _, _) in execs.items()}
+    sync(dev)
+    launches = read_launches()
+    log(f"  main-path launches: {launches}")
+    if any(launches[k] != 1 for k in cases) or any(launches[k] for k in ("K1", "K2", "K6")):
+        fail(f"each new driver must launch its own kernel once: {launches}")
+
+    rows = {}
+    for k, (fn, c_index, eff) in execs.items():
+        out, plan = outs[k], fn.plan
+        c_keys = store_layout(c_index, 128).tile_keys()
+        if tuple(out.shape) != (len(c_keys), 128, 128) or out.dtype != torch.float32:
+            fail(f"{k}: output {tuple(out.shape)} {out.dtype}")
+        ref = take_tiles(plain_of(plan, a.data, b.data), plan.align_map(c_keys), 128)
+        sync(dev)
+        err, rel = rel_err(out, ref)
+        del ref
+        serr, srel = sampled_f64_check(plan, out, c_index, a.data, b.data)
+        perr, prel = rel_err(out, panel_out)
+        log(f"  {k} ({plan.route}): vs plain max_abs_err={err:.3e} rel={rel:.2e}; vs float64 "
+            f"(64 tiles) rel={srel:.2e}; vs the panel route's result max_abs_err={perr:.3e} "
+            f"rel={prel:.2e} (bound {KERNEL_RTOL:.0e})")
+        if not (rel <= KERNEL_RTOL and srel <= KERNEL_RTOL and prel <= KERNEL_RTOL):
+            fail(f"{k} ({plan.route}) disagrees with its references")
+        ex, km, pm, runs = timed_plain_kernel_exec(fn, a, b)
+        tp = plan.tile_plan
+        done = 2.0 * len(tp.stack) * 128**3
+        log(f"  {k} times: executor {ex:.3f} ms, kernel {km:.3f} ms "
+            f"({done / km / 1e9:.1f} TFLOP/s of products done), plain {pm:.3f} ms "
+            f"[kernel runs {runs[0]:.3f}/{runs[1]:.3f}, plain runs {runs[2]:.3f}/{runs[3]:.3f}]")
+        if k == "K4" and plan.grouped.join is not None:
+            from dbcsr_tpu_torch.mm.kernels import _join_groups
+
+            gp = plan.grouped
+            padded = torch.empty((gp.n_groups * gp.group, 128, 128), device=dev)
+            jm = cuda_median_ms(lambda: _join_groups(padded, gp, torch.float32), reps=10)
+            log(f"  K4 kernel time = launch {km - jm:.3f} ms + join of the padded rows {jm:.3f} ms")
+            del padded
+        rows[k] = {"launches": launches[k], "max_abs_err": max(err, serr), "ms": km,
+                   "plain_ms": pm, "exec_ms": ex,
+                   "counts": (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))}
+    return rows
+
+
+def store_matrix(rows, cols, sizes, dev, seed: int, name: str, scale: float = 1.0):
+    """A float32 matrix with the given blocks, its data made in store form
+    on the device (random, zero outside the blocks)."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import valid_mask
+
+    idx, _ = dt.build_index(rows, cols, sizes, sizes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data = torch.randn((store_layout(idx, 128).n_tiles, 128, 128), generator=gen, device=dev)
+    return dt.BCSRMatrix(name=name, index=idx, data=data * (scale * valid_mask(idx, 128, dev)))
+
+
+def phase_scrambled_chain(dev, nrows: int) -> None:
+    """bench.py's ``clustered`` leg: a hidden 1-D chain (blocks 5/13/23,
+    coupling probability exp(-d/4) out to 15 blocks), block numbering
+    scrambled by one random permutation. The executor with ``reorder`` "off"
+    and "auto" (tile-level RCM), then the block level."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.autotune import coords_bandedness
+    from dbcsr_tpu_torch.mm.reorder import locality_reorder_plan
+
+    rng = np.random.default_rng(0)
+    rbs = dt.random_block_sizes(nrows, [5, 13, 23], rng)
+    n, dmax = len(rbs), 15
+    i = np.repeat(np.arange(n, dtype=np.int64), 2 * dmax + 1)
+    off = np.tile(np.arange(-dmax, dmax + 1, dtype=np.int64), n)
+    j = i + off
+    keep = (j >= 0) & (j < n) & (rng.random(len(j)) < np.exp(-np.abs(off) / 4.0))
+    sig = rng.permutation(n).astype(np.int64)
+    rbs_s = np.empty(n, np.int32)
+    rbs_s[sig] = rbs  # sizes follow their blocks through the scramble
+    sr, sc = sig[i[keep]], sig[j[keep]]
+    t0 = time.perf_counter()
+    a0 = store_matrix(sr, sc, rbs_s, dev, 0, "A0")
+    b0 = a0.with_data(a0.data * 0.5)
+    sync(dev)
+    lay = a0.layout
+    log(f"  scrambled chain: {nrows} rows, {n} block rows, {a0.nblks} blocks in "
+        f"{lay.n_tiles} tiles of a {lay.ntr}x{lay.ntc} grid "
+        f"({a0.data.numel() * 4 / 1e9:.2f} GB per operand); set-up {time.perf_counter() - t0:.1f} s")
+
+    fns = {}
+    for mode in ("off", "auto"):
+        t0 = time.perf_counter()
+        with dt.config_override(reorder=mode):
+            fns[mode] = dt.build_multiply_executor("N", "N", a0, b0)
+        plan = fns[mode][0].plan
+        tp = plan.tile_plan
+        log(f"  reorder={mode!r}: route={plan.route} (reordered: {plan.reorder is not None}), "
+            f"S={len(tp.stack)} ({2.0 * len(tp.stack) * 128**3 / 1e12:.2f} TFLOP), planned C tiles "
+            f"{tp.n_c_tiles} ({tp.n_c_tiles * 65536 / 1e9:.1f} GB), plan {time.perf_counter() - t0:.1f} s")
+    if fns["off"][0].plan.route != "stack":
+        fail("the scrambled chain must decline the panel route with reorder='off'")
+    p_auto = fns["auto"][0].plan
+    if p_auto.route != "stack" or p_auto.reorder is not None:
+        fail(f"the scrambled chain under reorder='auto': route {p_auto.route}, reordered "
+             f"{p_auto.reorder is not None}; expected the gate to decline (flat kernel)")
+    t0 = time.perf_counter()
+    rp = locality_reorder_plan(lay.tile_coords, (lay.ntr, lay.ntc), lay.tile_coords,
+                               (lay.ntr, lay.ntc))
+    rcm_s = time.perf_counter() - t0
+    log(f"  tile-level RCM plan: {rcm_s:.3f} s; bandedness of the tile coords "
+        f"{coords_bandedness(lay.tile_coords[:, 0], lay.tile_coords[:, 1], lay.ntr):.3f} -> "
+        f"{coords_bandedness(rp.a_coords[:, 0], rp.a_coords[:, 1], lay.ntr):.3f} after "
+        f"renumbering (gate 0.05): at T=128 a tile row holds blocks of unrelated chain positions")
+    if coords_bandedness(rp.a_coords[:, 0], rp.a_coords[:, 1], lay.ntr) >= 0.05:
+        fail("the renumbered chain passes the bandedness gate, yet reorder='auto' declined")
+
+    fn, c_index, eff = fns["off"]
+    reset_launches()
+    out = fn(a0.data, b0.data)
+    sync(dev)
+    launches = read_launches()
+    serr, srel = sampled_f64_check(fn.plan, out, c_index, a0.data, b0.data, n_samples=16)
+    ms = cuda_median_ms(lambda: fn(a0.data, b0.data), reps=3, warmup=0)
+    done = 2.0 * len(fn.plan.tile_plan.stack) * 128**3
+    log(f"  reorder='off' executor (flat kernel, launches {launches}): {ms:.1f} ms "
+        f"({done / ms / 1e9:.1f} TFLOP/s of tile products, {eff / ms / 1e6:.1f} GFLOP/s effective); "
+        f"vs float64 (16 tiles) rel={srel:.2e} (bound {KERNEL_RTOL:.0e})")
+    if launches["K1"] != 1 or not srel <= KERNEL_RTOL:
+        fail("the scrambled chain's flat-kernel product is wrong or did not run K1")
+    fn_on = fns["auto"][0]
+    out_on = fn_on(a0.data, b0.data)
+    sync(dev)
+    err, rel = rel_err(out_on, out)
+    log(f"  reorder='auto' executor (route {fn_on.plan.route}) vs reorder='off': "
+        f"max_abs_err={err:.3e} rel={rel:.2e} (bound {KERNEL_RTOL:.0e})")
+    if not rel <= KERNEL_RTOL:
+        fail("reorder='auto' and reorder='off' disagree on the scrambled chain")
+    del out_on, fns, fn_on
+    c0 = dt.BCSRMatrix(name="C0", index=c_index, data=out)
+    del out
+
+    # the block level, as bench.py's leg does it
+    t0 = time.perf_counter()
+    pm, _, _ = dt.locality_block_permutation(a0.index)
+    perm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ap, bp = dt.permute_blocks(a0, pm, pm), dt.permute_blocks(b0, pm, pm)
+    sync(dev)
+    log(f"  block-level RCM: permutation {perm_s:.3f} s, permute_blocks of A and B "
+        f"{time.perf_counter() - t0:.1f} s; tiles {a0.layout.n_tiles} -> {ap.layout.n_tiles} "
+        f"({a0.layout.n_tiles / ap.layout.n_tiles:.1f}x fewer)")
+    fnp, cip, effp = dt.build_multiply_executor("N", "N", ap, bp)
+    if fnp.plan.route != "panel":
+        fail(f"the block-permuted chain took route {fnp.plan.route}, expected panel")
+    reset_launches()
+    outp = fnp(ap.data, bp.data)
+    sync(dev)
+    launches = read_launches()
+    msp = cuda_median_ms(lambda: fnp(ap.data, bp.data), reps=10)
+    t0 = time.perf_counter()
+    want = dt.permute_blocks(c0, pm, pm)
+    same = (np.array_equal(want.index.row_ptr, cip.row_ptr)
+            and np.array_equal(want.index.col_idx, cip.col_idx))
+    err, rel = rel_err(outp, want.data) if same else (float("inf"),) * 2
+    log(f"  permuted operands: route=panel (launches {launches}), S={len(fnp.plan.tile_plan.stack)}, "
+        f"executor {msp:.3f} ms ({ms / msp:.0f}x faster than scrambled); product of the permuted "
+        f"matrices vs the permuted product ({c0.nblks} blocks, permute_blocks of C "
+        f"{time.perf_counter() - t0:.1f} s): same pattern {same}, max_abs_err={err:.3e} "
+        f"rel={rel:.2e} (bound {KERNEL_RTOL:.0e})")
+    if launches["K2"] != 1 or not (same and rel <= KERNEL_RTOL):
+        fail("the product of the permuted matrices is not the permuted product")
+
+
+def phase_scrambled_tile_band(dev, n: int, w: int, **knobs) -> None:
+    """A band of 128-blocks (|i-j| <= w) scrambled by three hidden
+    permutations, as tests/test_reorder.py: the tile pattern is the block
+    pattern, so the executor's tile-level RCM can recover it. At w = 2 the
+    renumbered band's column spans (32 tiles) fit the default
+    ``panel_cache`` of 48; at w = 3 they need 56, so that width runs under
+    ``panel_cache=64`` given as ``knobs``."""
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.core.timing import timer_stats
+
+    rng = np.random.default_rng(1)
+    i = np.repeat(np.arange(n, dtype=np.int64), 2 * w + 1)
+    j = i + np.tile(np.arange(-w, w + 1, dtype=np.int64), n)
+    keep = (j >= 0) & (j < n)
+    i, j = i[keep], j[keep]
+    sig_m, sig_k, sig_n = (rng.permutation(n).astype(np.int64) for _ in range(3))
+    sizes = np.full(n, 128, np.int32)
+    a = store_matrix(sig_m[i], sig_k[j], sizes, dev, 1, "A")
+    b = store_matrix(sig_k[i], sig_n[j], sizes, dev, 2, "B", 0.5)
+    sync(dev)
+    log(f"  scrambled band of 128-blocks, +-{w}, knobs {knobs or 'default'}: {n * 128} rows, "
+        f"{n} block rows, A/B {a.data.shape[0]} tiles ({a.data.numel() * 4 / 1e9:.2f} GB each)")
+    res = {}
+    for mode in ("off", "auto"):
+        stat = timer_stats().get("multiply/reorder")
+        rcm0 = stat.total_time if stat else 0.0
+        t0 = time.perf_counter()
+        with dt.config_override(reorder=mode, **knobs):
+            fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b)
+        secs = time.perf_counter() - t0
+        plan = fn.plan
+        reset_launches()
+        out = fn(a.data, b.data)
+        sync(dev)
+        launches = read_launches()
+        serr, srel = sampled_f64_check(plan, out, c_index, a.data, b.data)
+        ex, km, pm, _ = timed_plain_kernel_exec(fn, a, b, reps=5)
+        tp = plan.tile_plan
+        extra = ""
+        if plan.reorder is not None:
+            pp = plan.panel.plan
+            rcm = timer_stats()["multiply/reorder"].total_time - rcm0
+            extra = (f"; RCM plan, replan and panel plan {rcm:.2f} s of the plan time: "
+                     f"{pp.n_groups} groups, traffic ratio {pp.traffic_ratio:.3f}, "
+                     f"caps a={pp.a_cap} b={pp.b_cap}")
+        log(f"  reorder={mode!r}: route={plan.route} (reordered: {plan.reorder is not None}), "
+            f"S={len(tp.stack)}, C tiles {tp.n_c_tiles}, plan {secs:.2f} s, launches {launches}; "
+            f"executor {ex:.3f} ms, kernel {km:.3f} ms, plain {pm:.3f} ms; vs float64 (64 tiles) "
+            f"rel={srel:.2e} (bound {KERNEL_RTOL:.0e}){extra}")
+        if not srel <= KERNEL_RTOL:
+            fail(f"scrambled band, reorder={mode!r}: the product disagrees with float64")
+        res[mode] = (plan, out, launches, c_index)
+    p_off, o_off, l_off, ci_off = res["off"]
+    p_on, o_on, l_on, ci_on = res["auto"]
+    if p_off.route != "stack" or l_off["K1"] != 1 or l_off["K2"]:
+        fail(f"reorder='off' must run the flat kernel: route {p_off.route}, launches {l_off}")
+    if p_on.route != "panel" or p_on.reorder is None or l_on["K2"] != 1 or l_on["K1"]:
+        fail(f"reorder='auto' must take the panel route through the RCM plan: route "
+             f"{p_on.route}, launches {l_on}")
+    same = np.array_equal(ci_off.col_idx, ci_on.col_idx)
+    err, rel = rel_err(o_on, o_off)
+    log(f"  reorder='auto' (panel) vs reorder='off' (flat): same C index {same}, "
+        f"max_abs_err={err:.3e} rel={rel:.2e} (bound {KERNEL_RTOL:.0e})")
+    if not (same and rel <= KERNEL_RTOL):
+        fail("the reordered panel product disagrees with the flat product")
+
+
+# ---------------------------------------------------------------------------
+# the library yardstick: one PyTorch call for the same product
+# ---------------------------------------------------------------------------
+
+def element_csr(m):
+    """The matrix as an element-level torch CSR tensor on its device (what
+    ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
+    import torch
+
+    from dbcsr_tpu_torch.block.tileops import valid_mask
+
+    lay = m.layout
+    t = m.tile
+    mask = valid_mask(m.index, t, m.device) > 0.5
+    ti, i, j = mask.nonzero(as_tuple=True)
+    tc = torch.as_tensor(lay.tile_coords.astype(np.int64), device=m.device)
+    idx = torch.stack([tc[ti, 0] * t + i, tc[ti, 1] * t + j])
+    coo = torch.sparse_coo_tensor(idx, m.data[mask], (lay.ntr * t, lay.ntc * t),
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()  # coalesce sorts: the store is tile-major
+
+
+def phase_library(dev, sizes) -> dict:
+    """``torch.sparse.mm`` (CSR × CSR) on the banded SCF shape beside the
+    port's executor, in one call each way: the only single PyTorch call that
+    computes the same product. Float32 operands as phase 4's (K1-K5), then
+    float64 operands as phase 7's (the float64 kernel). It is timed here and
+    used nowhere in the port. Returns {(type name, rows): ms or None}: None
+    where cuSPARSE refuses the product for want of resources (its message
+    is logged); any other error ends the run, and after a refusal the
+    executor must still reproduce its earlier result bitwise."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    out = {}
+    for dtype, decay in ((torch.float32, 0.0), (torch.float64, DECAY)):
+        name = str(dtype)[6:]
+        for nrows in sizes:
+            a, b, _ = banded_scf_matrices(nrows, dev, dtype=dtype, decay=decay)
+            fn, c_index, _ = dt.build_multiply_executor("N", "N", a, b)
+            ac, bc = element_csr(a), element_csr(b)
+            first = fn(a.data, b.data)
+            ex = cuda_median_ms(lambda: fn(a.data, b.data), reps=5)
+            head = (f"  {name}, {nrows} rows ({ac._nnz()} stored elements, route "
+                    f"{fn.plan.route}): executor {ex:.3f} ms")
+            try:
+                lib = cuda_median_ms(lambda: torch.sparse.mm(ac, bc), reps=3, warmup=1)
+            except RuntimeError as e:
+                msg = str(e)
+                if "insufficient resources" not in msg or "cusparseSpGEMM" not in msg:
+                    raise
+                # the yardstick's refusal is a result, not the port's
+                sync(dev)
+                if not torch.equal(fn(a.data, b.data), first):
+                    fail(f"the executor changed its result after cuSPARSE's refusal "
+                         f"({name}, {nrows} rows)")
+                out[(name, nrows)] = None
+                log(f"{head}; torch.sparse.mm fails: {msg.splitlines()[0][:160]}")
+            else:
+                c = torch.sparse.mm(ac, bc)
+                got = float(first.double().square().sum())
+                ref = float(c.values().double().square().sum())
+                log(f"{head}, torch.sparse.mm (CSR x CSR) {lib:.3f} ms "
+                    f"({lib / ex:.1f}x the executor), |C|_F² {got:.6e} vs {ref:.6e}")
+                if not abs(got - ref) <= 1e-4 * abs(ref):
+                    fail(f"torch.sparse.mm and the executor disagree ({name}, {nrows} rows)")
+                out[(name, nrows)] = lib
+                del c
+            del a, b, ac, bc, first, fn
+            torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -773,16 +1386,25 @@ def main() -> int:
     # 2. build
     info = _build.build_kernels(verbose=True)
     log(f"[2] built {os.path.relpath(info.path, REPO)} in {info.seconds:.1f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("    " + line.strip())
+    regs = [int(w) for line in info.log.splitlines() if "registers" in line
+            for w in line.split("Used ")[1].split()[:1]]
+    spills = [line for line in info.log.splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    log(f"    ptxas: {len(regs)} kernel instantiations, {min(regs)}-{max(regs)} registers, "
+        f"{len(spills)} with spills")
+    for line in spills:
+        log("    " + line.strip())
     from dbcsr_tpu_torch.native import native_available
-    log(f"    native host planner: {'built' if native_available() else 'numpy fallback'}")
+    if not native_available():
+        fail("the native host planner (dbcsr_tpu_torch/native/stackbuild.cpp, g++) "
+             "did not build: the numpy planner would change the set-up times")
+    log("    native host planner: built")
 
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions on the card")
     phase_kernels(dev)
     f64_err = phase_kernels_f64(dev)
+    new_err = phase_kernels_new(dev)
     if args.quick:
         log("[5] one-shot multiply through the dense path")
         phase_dense(dev)
@@ -793,7 +1415,7 @@ def main() -> int:
 
     # 4. main path
     log("[4] main path: banded SCF shape through build_multiply_executor")
-    a, b, execs, launches, errs = phase_main_path(dev, MAIN_ROWS)
+    a, b, execs, launches, errs, panel_out = phase_main_path(dev, MAIN_ROWS)
 
     # 5. dense one-shot multiply
     log("[5] one-shot multiply through the dense path")
@@ -803,7 +1425,25 @@ def main() -> int:
     log("[6] times (CUDA-event medians)")
     rows = phase_times(a, b, execs, card)
     log(f"    peak device memory so far {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    del a, b, execs
+    counts14 = {k: (a.data.shape[0], b.data.shape[0], fn.plan.tile_plan.n_c_tiles,
+                    len(fn.plan.tile_plan.stack))
+                for k, (fn, _, _) in execs.items()}
+    del execs
+
+    # 9. the further drivers at the same shape, then the scrambled patterns
+    log("[9] band, grouped and run-fused panel drivers at the phase-4 shape")
+    new_rows = phase_new_drivers(dev, a, b, panel_out)
+    del a, b, panel_out
+    torch.cuda.empty_cache()
+    log(f"[9] RCM reordering: the scrambled chain of bench.py's clustered leg at "
+        f"{SCRAMBLED_ROWS} rows")
+    phase_scrambled_chain(dev, SCRAMBLED_ROWS)
+    torch.cuda.empty_cache()
+    log(f"[9] RCM reordering: scrambled bands of 128-blocks, {TILE_BAND_BLOCKS} block rows")
+    phase_scrambled_tile_band(dev, TILE_BAND_BLOCKS, 2)  # every knob at its default
+    torch.cuda.empty_cache()
+    phase_scrambled_tile_band(dev, TILE_BAND_BLOCKS, 3, panel_cache=64)
+    log(f"    peak device memory so far {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     torch.cuda.empty_cache()
 
     # 7. the filtered SCF path, float64 (the float64 kernel), then float32 (K2)
@@ -826,26 +1466,52 @@ def main() -> int:
     log("[8] McWeeny purification on the card")
     phase_mcweeny(dev)
     log(f"    peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-        f"(whole run)")
+        f"(phases 1-9)")
 
-    def entry(kname, source, replaces, key, route_key):
+    # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
+    log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")
+    torch.cuda.empty_cache()
+    library = phase_library(dev, (LIBRARY_ROWS, MAIN_ROWS))
+
+    def entry(kname, source, replaces, launched, err, ms, plain_ms, counts, dtype="float32"):
+        size = 8 if dtype == "float64" else 4
+        bound_ms, bound_by = kernel_bound(*counts, 128, size, size, dtype)
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": err, "ms": round(ms, 4),
+                "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
+                "bound_by": bound_by,
+                # torch.sparse.mm at this kernel's shape and input type (None:
+                # cuSPARSE refused the product there, in this run)
+                "library_ms": (None if library[(dtype, MAIN_ROWS)] is None
+                               else round(library[(dtype, MAIN_ROWS)], 4))}
+
+    def entry14(kname, source, replaces, key, route_key):
         r = rows[("highest", route_key)]
-        return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[key],
-                "max_abs_err": max(errs[("highest", route_key)], errs[("default", route_key)]),
-                "ms": round(r["kernel_ms"], 4), "plain_ms": round(r["plain_ms"], 4)}
+        return entry(kname, source, replaces, launches[key],
+                     max(errs[("highest", route_key)], errs[("default", route_key)]),
+                     r["kernel_ms"], r["plain_ms"], counts14[("highest", route_key)])
+
+    def entry9(kname, source, replaces, key):
+        r = new_rows[key]
+        return entry(kname, source, replaces, r["launches"],
+                     max(r["max_abs_err"], new_err[key]), r["ms"], r["plain_ms"], r["counts"])
 
     r64 = filtered[torch.float64]
     print(json.dumps({"kernels": [
-        entry("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
-              "dbcsr_tpu/mm/kernels.py:76", "K1", "stack"),
-        entry("panel_matmul (K2)", "dbcsr_tpu_torch/csrc/panel_matmul.cu",
-              "dbcsr_tpu/mm/panel.py:297", "K2", "auto"),
-        {"name": "stack_matmul_f64 (K6)", "route": "cuda",
-         "source": "dbcsr_tpu_torch/csrc/stack_matmul_f64.cu",
-         "replaces": "dbcsr_tpu/mm/ozaki_panel.py:222", "launches": r64["launches"],
-         "max_abs_err": max(f64_err, r64["max_abs_err"]),
-         "ms": round(r64["kernel_ms"], 4), "plain_ms": round(r64["plain_ms"], 4)},
+        entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
+                "dbcsr_tpu/mm/kernels.py:76", "K1", "stack"),
+        entry14("panel_matmul (K2)", "dbcsr_tpu_torch/csrc/panel_matmul.cu",
+                "dbcsr_tpu/mm/panel.py:297", "K2", "auto"),
+        entry9("panel_runs_matmul (K3)", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu",
+               "dbcsr_tpu/mm/panel.py:757", "K3"),
+        entry9("grouped_matmul (K4)", "dbcsr_tpu_torch/csrc/grouped_matmul.cu",
+               "dbcsr_tpu/mm/kernels.py:419", "K4"),
+        entry9("band_matmul (K5)", "dbcsr_tpu_torch/csrc/band_matmul.cu",
+               "dbcsr_tpu/mm/band.py:257", "K5"),
+        entry("stack_matmul_f64 (K6)", "dbcsr_tpu_torch/csrc/stack_matmul_f64.cu",
+              "dbcsr_tpu/mm/ozaki_panel.py:222", r64["launches"],
+              max(f64_err, r64["max_abs_err"]), r64["kernel_ms"], r64["plain_ms"],
+              r64["counts"], "float64"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

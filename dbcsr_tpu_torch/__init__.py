@@ -41,6 +41,7 @@ from .core import (
 )
 from .mm.engine import build_multiply_executor, multiply
 from .mm.filtered import FilteredExecutor, build_filtered_executor
+from .mm.reorder import locality_block_permutation, permute_blocks
 from .ops.arithmetic import (
     ELEMENT_FUNCTIONS,
     add,

@@ -29,7 +29,10 @@ __all__ = [
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("stack_matmul.cu", "panel_matmul.cu", "stack_matmul_f64.cu")
+_SOURCES = (
+    "stack_matmul.cu", "panel_matmul.cu", "stack_matmul_f64.cu",
+    "band_matmul.cu", "grouped_matmul.cu", "panel_runs_matmul.cu",
+)
 _HEADERS = ("tile_product.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -142,6 +145,26 @@ def kernels() -> ctypes.CDLL:
             #  tile, dtype, device, stream)
             lib.dbcsr_torch_panel_matmul.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp,
+            ]
+            lib.dbcsr_torch_band_matmul.restype = i32
+            # (a, b, c, a_pack, b_pack, c_unpack, n_c, wa, wb, mt, kt, off_a,
+            #  tile, dtype, device, stream)
+            lib.dbcsr_torch_band_matmul.argtypes = [
+                vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32,
+                i32, i32, vp,
+            ]
+            lib.dbcsr_torch_grouped_matmul.restype = i32
+            # (a, b, c, lbounds, abounds, aload, entries, n_rows, group,
+            #  tile, dtype, device, stream)
+            lib.dbcsr_torch_grouped_matmul.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp,
+            ]
+            lib.dbcsr_torch_panel_runs_matmul.restype = i32
+            # (a, b, c, gstart, a_lo, b_lo, obq, qent, obp, pent, obs, sent,
+            #  cm_perm, n_cells, c_win, runlen, tile, dtype, device, stream)
+            lib.dbcsr_torch_panel_runs_matmul.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32,
+                i32, i32, i32, i32, vp,
             ]
             lib.dbcsr_torch_error_string.restype = ctypes.c_char_p
             lib.dbcsr_torch_error_string.argtypes = [i32]

@@ -4,8 +4,10 @@ The subset of ``dbcsr_tpu/autotune.py`` the engine's driver selection
 reads: the bandedness gate of panel admission (``BANDED_GATE``,
 ``coords_bandedness``, ``workload_features``) and ``tuned_stack_params``.
 There is no tuned table for this card yet, so the lookup returns None and
-every knob keeps its configured value; the sweep that writes a table is
-ROADMAP Queue 1 item 6.
+every knob keeps its configured value: under ``mm_driver="auto"`` the
+grouped driver is never chosen (it needs a tuned preference) and the band
+driver only by its flop rule. The sweep that writes a table is ROADMAP
+Queue 1 item 6.
 """
 from __future__ import annotations
 

@@ -35,8 +35,8 @@ class Config:
 
     #: tile edge of the tile stores (the CUDA kernels take 16, 32, 64, 128)
     tile_size: int = 128
-    #: local driver: "auto" | "dense" | "stack" | "panel"; "band",
-    #: "grouped" and "xla" are JAX-package drivers not ported yet
+    #: local driver: "auto" | "dense" | "stack" | "panel" | "band" |
+    #: "grouped"; "xla" is the JAX package's XLA twin and is not ported
     mm_driver: str = "auto"
     #: tile-level occupancy at or above which "auto" takes the dense path
     dense_threshold: float = 0.30
@@ -51,12 +51,21 @@ class Config:
     panel_cache: int = 48
     panel_chunk: int = 8
     panel_admit: float = 0.85
-    #: k-run fusion of the panel plan (0 = off); >= 2 is not ported yet
+    #: k-run fusion length R of the panel plan (0 = off): runs of R
+    #: consecutive (A slot, column-major B slot) pairs become one entry of
+    #: the run-fused panel kernel (``mm/panel.py``)
     panel_runlen: int = 0
     #: at "default" precision, feed bf16 tiles to the panel kernel
     panel_bf16_inputs: bool = False
-    #: locality reordering pre-pass; only "off" is ported
-    reorder: str = "off"
+    #: locality tile-reordering pre-pass (``mm/reorder.py``): "auto" tries
+    #: an RCM tile renumbering when the panel plan is otherwise
+    #: inadmissible (plan-once executor only); "off" disables it
+    reorder: str = "auto"
+    #: band driver admission under "auto": the most Wa·Wb diagonal products,
+    #: and how far the padded band work (Wa·Wb·Mt tile products) may exceed
+    #: the stack's tile-triple count
+    band_max_products: int = 128
+    band_flop_factor: float = 0.75
     #: on-the-fly filtering with per-row thresholds (eps/row_count)²
     #: like dbcsr_mm_cannon.F:1100-1113 (else a flat eps² block filter)
     per_row_eps: bool = True

@@ -49,35 +49,6 @@ panel_matmul_kernel(const In* __restrict__ A, const In* __restrict__ B,
         });
 }
 
-template <typename In, int T>
-static int launch(const void* a, const void* b, void* c, const int* gstart,
-                  const int* a_lo, const int* b_lo, const int* obounds,
-                  const int* entries, long long n_slots, int c_win,
-                  cudaStream_t stream)
-{
-    const long long blocks = n_slots * SubTile<T>::kPerTile;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    panel_matmul_kernel<In, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        static_cast<const In*>(a), static_cast<const In*>(b),
-        static_cast<float*>(c), gstart, a_lo, b_lo, obounds, entries, c_win);
-    return (int)cudaGetLastError();
-}
-
-template <typename In>
-static int dispatch_tile(int tile, const void* a, const void* b, void* c,
-                         const int* gs, const int* al, const int* bl,
-                         const int* ob, const int* en, long long n_slots,
-                         int c_win, cudaStream_t s)
-{
-    switch (tile) {
-        case 16: return launch<In, 16>(a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-        case 32: return launch<In, 32>(a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-        case 64: return launch<In, 64>(a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-        case 128: return launch<In, 128>(a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
 }  // namespace dbcsr_torch
 
 // n_slots = n_groups · c_win (the plan's obounds has n_slots + 1 entries).
@@ -97,9 +68,14 @@ extern "C" int dbcsr_torch_panel_matmul(
     const int* ob = static_cast<const int*>(obounds);
     const int* en = static_cast<const int*>(entries);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == kF32)
-        return dispatch_tile<float>(tile, a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-    if (dtype == kBF16)
-        return dispatch_tile<__nv_bfloat16>(tile, a, b, c, gs, al, bl, ob, en, n_slots, c_win, s);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(dtype, tile, [&](auto in_tag, auto tile_tag) {
+        using In = typename decltype(in_tag)::type;
+        constexpr int T = decltype(tile_tag)::value;
+        const unsigned blocks = tile_grid<T>(n_slots);
+        if (!blocks) return (int)cudaErrorInvalidConfiguration;
+        panel_matmul_kernel<In, T><<<blocks, kThreads, 0, s>>>(
+            static_cast<const In*>(a), static_cast<const In*>(b),
+            static_cast<float*>(c), gs, al, bl, ob, en, c_win);
+        return (int)cudaGetLastError();
+    });
 }

@@ -38,33 +38,6 @@ stack_matmul_kernel(const In* __restrict__ A, const In* __restrict__ B,
         [=](int e) { return make_int2(a_idx[e], b_idx[e]); });
 }
 
-template <typename In, int T>
-static int launch(const void* a, const void* b, void* c, const int* c_ptr,
-                  const int* a_idx, const int* b_idx, long long n_c,
-                  cudaStream_t stream)
-{
-    const long long blocks = n_c * SubTile<T>::kPerTile;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    stack_matmul_kernel<In, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        static_cast<const In*>(a), static_cast<const In*>(b),
-        static_cast<float*>(c), c_ptr, a_idx, b_idx);
-    return (int)cudaGetLastError();
-}
-
-template <typename In>
-static int dispatch_tile(int tile, const void* a, const void* b, void* c,
-                         const int* c_ptr, const int* a_idx, const int* b_idx,
-                         long long n_c, cudaStream_t s)
-{
-    switch (tile) {
-        case 16: return launch<In, 16>(a, b, c, c_ptr, a_idx, b_idx, n_c, s);
-        case 32: return launch<In, 32>(a, b, c, c_ptr, a_idx, b_idx, n_c, s);
-        case 64: return launch<In, 64>(a, b, c, c_ptr, a_idx, b_idx, n_c, s);
-        case 128: return launch<In, 128>(a, b, c, c_ptr, a_idx, b_idx, n_c, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
 }  // namespace dbcsr_torch
 
 extern "C" int dbcsr_torch_stack_matmul(
@@ -80,9 +53,16 @@ extern "C" int dbcsr_torch_stack_matmul(
     const int* ai = static_cast<const int*>(a_idx);
     const int* bi = static_cast<const int*>(b_idx);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == kF32) return dispatch_tile<float>(tile, a, b, c, cp, ai, bi, n_c, s);
-    if (dtype == kBF16) return dispatch_tile<__nv_bfloat16>(tile, a, b, c, cp, ai, bi, n_c, s);
-    return (int)cudaErrorInvalidValue;
+    return dispatch<false>(dtype, tile, [&](auto in_tag, auto tile_tag) {
+        using In = typename decltype(in_tag)::type;
+        constexpr int T = decltype(tile_tag)::value;
+        const unsigned blocks = tile_grid<T>(n_c);
+        if (!blocks) return (int)cudaErrorInvalidConfiguration;
+        stack_matmul_kernel<In, T><<<blocks, kThreads, 0, s>>>(
+            static_cast<const In*>(a), static_cast<const In*>(b),
+            static_cast<float*>(c), cp, ai, bi);
+        return (int)cudaGetLastError();
+    });
 }
 
 extern "C" const char* dbcsr_torch_error_string(int code)

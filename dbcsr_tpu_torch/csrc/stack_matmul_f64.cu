@@ -51,18 +51,6 @@ stack_matmul_f64_kernel(const double* __restrict__ A, const double* __restrict__
         [=](int e) { return make_int2(a_idx[e], b_idx[e]); });
 }
 
-template <int T>
-static int launch(const double* a, const double* b, double* c, const int* c_ptr,
-                  const int* a_idx, const int* b_idx, long long n_c,
-                  cudaStream_t stream)
-{
-    const long long blocks = n_c * SubTile<T>::kPerTile;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    stack_matmul_f64_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        a, b, c, c_ptr, a_idx, b_idx);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace dbcsr_torch
 
 extern "C" int dbcsr_torch_stack_matmul_f64(
@@ -81,11 +69,11 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     const int* ai = static_cast<const int*>(a_idx);
     const int* bi = static_cast<const int*>(b_idx);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (tile) {
-        case 16: return launch<16>(A, B, C, cp, ai, bi, n_c, s);
-        case 32: return launch<32>(A, B, C, cp, ai, bi, n_c, s);
-        case 64: return launch<64>(A, B, C, cp, ai, bi, n_c, s);
-        case 128: return launch<128>(A, B, C, cp, ai, bi, n_c, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return dispatch_tile<double>(tile, [&](auto, auto tile_tag) {
+        constexpr int T = decltype(tile_tag)::value;
+        const unsigned blocks = tile_grid<T>(n_c);
+        if (!blocks) return (int)cudaErrorInvalidConfiguration;
+        stack_matmul_f64_kernel<T><<<blocks, kThreads, 0, s>>>(A, B, C, cp, ai, bi);
+        return (int)cudaGetLastError();
+    });
 }

@@ -1,6 +1,8 @@
 // One device routine shared by the stack kernels (stack_matmul.cu,
-// panel_matmul.cu, stack_matmul_f64.cu): for one C tile, sum A[i]·B[j] over
-// a contiguous run of (i, j) pairs, in run order, and write the sum once.
+// panel_matmul.cu, stack_matmul_f64.cu, band_matmul.cu, grouped_matmul.cu,
+// panel_runs_matmul.cu): for one C tile, sum A[i]·B[j] over a contiguous run
+// of (i, j) pairs, in run order, and write the sum once. A pair with a
+// negative slot is an absent tile (a zero tile) and is skipped.
 //
 // Tile stores are [n, T, T] row-major. A block of 256 threads owns one
 // BM×BM sub-tile of one C tile (BM = min(T, 64)), so a C tile is (T/BM)²
@@ -40,7 +42,8 @@ __device__ __forceinline__ double fma_acc(double a, double b, double c) { return
 
 // BM×BM sub-tile (rows r0.., cols c0..) of one C tile `out`:
 //   out[r0:r0+BM, c0:c0+BM] = Σ_{e in [e0, e1)} A[ia(e)] @ B[ib(e)]
-// restricted to those rows/cols; `pair(e)` returns (ia, ib) as int2.
+// restricted to those rows/cols; `pair(e)` returns (ia, ib) as int2, either
+// negative for an absent tile (the same for every thread of the block).
 template <typename In, int T, int BM, typename PairFn>
 __device__ __forceinline__ void tile_run(
     const In* __restrict__ A, const In* __restrict__ B,
@@ -64,6 +67,7 @@ __device__ __forceinline__ void tile_run(
 
     for (int e = e0; e < e1; ++e) {
         const int2 ij = pair(e);
+        if (ij.x < 0 || ij.y < 0) continue;  // block-uniform: no barrier is split
         // 64-bit tile offsets: idx·T·T overflows int32 past 131,072 tiles at T=128
         const In* a = A + (int64_t)ij.x * (T * T) + (int64_t)r0 * T;
         const In* b = B + (int64_t)ij.y * (T * T) + c0;
@@ -106,7 +110,46 @@ struct SubTile {
     static constexpr int kPerTile = (T / BM) * (T / BM);
 };
 
-enum DType : int { kF32 = 0, kBF16 = 1 };  // inputs of K1/K2 (f64 has its own entry point)
+// input types of the entry points that take a dtype code (K6's port has an
+// entry point of its own and takes none)
+enum DType : int { kF32 = 0, kBF16 = 1, kF64 = 2 };
+
+// Tile-edge and input-type dispatch for entry points that take both as run
+// time codes: `f(TypeTag<In>{}, TileTag<T>{})` is called with the matching
+// instantiation and its int result (a cudaError_t) returned.
+template <typename In> struct TypeTag { using type = In; };
+template <int T> struct TileTag { static constexpr int value = T; };
+
+template <typename In, typename F>
+static int dispatch_tile(int tile, F&& f)
+{
+    switch (tile) {
+        case 16: return f(TypeTag<In>{}, TileTag<16>{});
+        case 32: return f(TypeTag<In>{}, TileTag<32>{});
+        case 64: return f(TypeTag<In>{}, TileTag<64>{});
+        case 128: return f(TypeTag<In>{}, TileTag<128>{});
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <bool WithF64, typename F>
+static int dispatch(int dtype, int tile, F&& f)
+{
+    if (dtype == kF32) return dispatch_tile<float>(tile, f);
+    if (dtype == kBF16) return dispatch_tile<__nv_bfloat16>(tile, f);
+    if constexpr (WithF64) {
+        if (dtype == kF64) return dispatch_tile<double>(tile, f);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// Grid of one block per (output tile, sub-tile); 0 blocks when it overflows.
+template <int T>
+static unsigned tile_grid(long long n_tiles)
+{
+    const long long blocks = n_tiles * SubTile<T>::kPerTile;
+    return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
+}
 
 }  // namespace dbcsr_torch
 

@@ -9,24 +9,38 @@ operand TILE STORES → tile-level alignment into the result's store.
 Local execution is a small DRIVER REGISTRY. A driver turns the host
 description of one product (``_Problem``) into a ``LocalPlan``: the
 product tiles it returns and how to compute them from the op(A)/op(B) tile
-stores. Ported drivers:
+stores. Drivers:
 
 - ``dense``: scatter tiles into full padded panels and run one matmul (the
   ``make_dense`` fast path); plain torch, as the JAX package left it to XLA;
+- ``band``: the tile-diagonal convolution and kernel K5 (``band.py``);
 - ``panel``: the panel plan and kernel K2 (``panel.py``), for banded and
-  clustered patterns;
+  clustered patterns; with ``panel_runlen >= 2`` the run-fused plan and
+  kernel K3 (route name ``"panel_runs"``), falling back to the per-entry
+  plan when the column-major spans break admission;
+- ``grouped``: the group plan and kernel K4 (``kernels.py``);
 - ``stack``: the flat stack kernel K1 (``kernels.py``).
 
-``mm_driver="auto"`` picks as the JAX package's untuned auto does: dense at
-or above ``dense_threshold`` tile occupancy, else the panel plan when the
-pattern is banded and the plan is admitted, else the flat stack. It has no
-band candidate until K5 is ported; the band, grouped and run-fused panel
-drivers plug into ``_DRIVERS`` later without touching the rest.
+``mm_driver="auto"`` picks as the JAX package's auto does: dense at or above
+``dense_threshold`` tile occupancy; else band when its padded work stays
+within ``band_flop_factor`` of the stack's (times 0.125 unless the precision
+is "default") or a tuned table prefers it; else the panel plan when the
+pattern is banded and the plan is admitted; else grouped when a tuned table
+prefers it; else the flat stack. No tuned table exists for this card
+(``autotune.py``), so under "auto" grouped is never chosen and band only by
+its flop rule.
 
-float64 data: every sparse product ("auto", "stack" or "panel") takes the
-float64 stack kernel, the port of K6 (``f64_stack.py``), as the JAX package
-never gives float64 to its f32 panel or flat kernels; the dense class stays
-a float64 ``torch.mm``.
+``build_multiply_executor`` also tries the RCM tile reordering
+(``reorder.py``, config ``reorder``, default "auto") when the panel plan is
+inadmissible under "auto" or "panel": if the renumbered pattern passes the
+bandedness gate and its replan is admitted, the plan runs on the renumbered
+stack and gathers the operand stores into the new slot order on each call.
+The one-shot ``multiply`` does not reorder, as in the JAX package.
+
+float64 data: "auto", "stack" and "panel" take the float64 stack kernel, the
+port of K6 (``f64_stack.py``), as the JAX package never gives float64 to its
+f32 panel or flat kernels; an explicit "band" or "grouped" runs that
+driver's kernel in float64; the dense class stays a float64 ``torch.mm``.
 
 ``multiply(filter_eps=...)`` is the reference's on-the-fly filtering:
 operand block norms → the filtered symbolic product (``plan.py``) → the
@@ -44,7 +58,7 @@ arithmetic is fixed by their input dtype (see ``kernels.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,17 +78,32 @@ from ..core.config import config_fingerprint, get_config
 from ..core.errors import DbcsrError, dbcsr_assert
 from ..core.stats import get_stats
 from ..core.timing import timed
+from .band import DeviceBandPlan, band_matmul, device_band_plan, plan_band
 from .f64_stack import tile_stack_matmul_f64
-from .kernels import DeviceStack, device_stack, tf32_matmul, tile_stack_matmul
+from .kernels import (
+    DeviceGroupPlan,
+    DeviceStack,
+    device_group_plan,
+    device_stack,
+    tf32_matmul,
+    tile_stack_matmul,
+    tile_stack_matmul_grouped,
+)
 from .panel import (
     DevicePanelPlan,
+    DevicePanelRunPlan,
     PanelPlan,
+    PanelRunPlan,
     device_panel_plan,
+    device_panel_run_plan,
+    plan_panel_runs,
     plan_panel_stack,
     tile_stack_matmul_panel,
+    tile_stack_matmul_panel_runs,
 )
 from .plan import symbolic_product
 from .plancache import array_fingerprint, get_plan_cache
+from .reorder import ReorderPlan, locality_reorder_plan
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
 __all__ = ["multiply", "build_multiply_executor", "LocalPlan"]
@@ -94,10 +123,6 @@ def _effective_trans(trans: str) -> Tuple[bool, bool]:
 # ---------------------------------------------------------------------------
 
 _UNPORTED_DRIVERS = {
-    "band": "mm_driver='band' needs the band kernel, K5 in ROADMAP Queue 2 "
-            "(Queue 1 item 6)",
-    "grouped": "mm_driver='grouped' needs the grouped kernel, K4 in ROADMAP "
-               "Queue 2 (Queue 1 item 6)",
     "xla": "mm_driver='xla' selects the JAX package's XLA twin; the port "
            "runs its plain versions only for CPU tensors (use 'stack')",
 }
@@ -126,16 +151,6 @@ def _check_config(cfg, driver: str) -> None:
         raise NotImplementedError(_UNPORTED_DRIVERS[driver])
     if driver != "auto" and driver not in _DRIVERS:
         raise DbcsrError(f"unknown mm_driver {driver!r}")
-    if cfg.panel_runlen >= 2:
-        raise NotImplementedError(
-            "panel_runlen >= 2 (k-run fusion) needs the run-fused panel "
-            "kernel, K3 in ROADMAP Queue 2 (Queue 1 item 6)"
-        )
-    if cfg.reorder != "off":
-        raise NotImplementedError(
-            f"reorder={cfg.reorder!r}: the RCM locality reordering is not "
-            "ported yet (ROADMAP Queue 1 item 5); use reorder='off'"
-        )
     if cfg.f64_slices != 0:
         raise NotImplementedError(
             f"f64_slices={cfg.f64_slices}: the port multiplies float64 "
@@ -275,12 +290,15 @@ def _tuned_driver(cfg, a_index, b_index) -> Optional[str]:
     return best.get("mm_driver") if best else None
 
 
-def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int]:
-    """Panel plan parameters: user/env-set config wins; defaults defer to
-    the tuned per-class table (none exists for this card yet)."""
+def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int, int]:
+    """Panel plan parameters (c_win, cache, chunk, runlen): user/env-set
+    config wins; defaults defer to the tuned per-class table (none exists
+    for this card yet)."""
     c_win, cache, chunk = cfg.panel_c_win, cfg.panel_cache, cfg.panel_chunk
+    runlen = cfg.panel_runlen
     provs = tuple(
-        cfg.provenance(n) for n in ("panel_c_win", "panel_cache", "panel_chunk")
+        cfg.provenance(n)
+        for n in ("panel_c_win", "panel_cache", "panel_chunk", "panel_runlen")
     )
     if "D" in provs:
         from ..autotune import tuned_stack_params
@@ -293,28 +311,53 @@ def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int]:
                 cache = int(best.get("panel_cache", cache))
             if provs[2] == "D":
                 chunk = int(best.get("panel_chunk", chunk))
-    return c_win, cache, chunk
+            if provs[3] == "D":
+                runlen = int(best.get("panel_runlen", runlen))
+    return c_win, cache, chunk, runlen
 
 
 def _maybe_panel_plan(
     cfg, tplan: TileStackPlan, a_index, b_index, n_a, n_b, driver, tuned,
-) -> Optional[PanelPlan]:
-    """PanelPlan when the panel kernel should execute this stack, else None.
+    banded_hint: Optional[float] = None,
+    b_coords: Optional[np.ndarray] = None,
+) -> Union[PanelPlan, PanelRunPlan, None]:
+    """The plan when a panel kernel should execute this stack, else None.
     Explicit ``mm_driver="panel"`` (or a tuned preference) skips the
     traffic test; untuned "auto" first gates on the cheap bandedness
     feature, then requires the span traffic to undercut the flat kernel's
-    2 tiles/entry by ``panel_admit``."""
+    2 tiles/entry by ``panel_admit``. ``banded_hint`` overrides the
+    block-index bandedness: the reorder replan passes the bandedness of the
+    REORDERED tile coords, since the user's block numbering no longer
+    reflects the pattern the kernel will see. With ``panel_runlen >= 2``
+    and ``b_coords`` the run-fused plan is tried first, on the column-major
+    B numbering, and the per-entry plan is the fallback."""
     if driver == "panel" or (driver == "auto" and tuned == "panel"):
         admit = None
     elif driver == "auto" and tuned is None:
         from ..autotune import BANDED_GATE, workload_features
 
-        if workload_features(a_index, b_index)[3] < BANDED_GATE:
+        banded = (
+            banded_hint if banded_hint is not None
+            else workload_features(a_index, b_index)[3]
+        )
+        if banded < BANDED_GATE:
             return None
         admit = cfg.panel_admit
     else:
         return None
-    c_win, cache, chunk = _panel_knobs(cfg, a_index, b_index)
+    c_win, cache, chunk, runlen = _panel_knobs(cfg, a_index, b_index)
+    if runlen >= 2 and b_coords is not None:
+        kt_b = int(b_coords[:, 0].max()) + 1 if len(b_coords) else 1
+        cm = np.argsort(
+            b_coords[:, 1].astype(np.int64) * kt_b + b_coords[:, 0]
+        ).astype(np.int32)
+        rplan = plan_panel_runs(
+            tplan.stack, tplan.n_c_tiles, n_a, n_b, b_cm_perm=cm,
+            c_win=c_win, a_cap=cache, b_cap=cache, chunk=chunk,
+            runlen=runlen, admit_ratio=admit,
+        )
+        if rplan is not None:
+            return rplan
     return plan_panel_stack(
         tplan.stack, tplan.n_c_tiles, n_a, n_b,
         c_win=c_win, a_cap=cache, b_cap=cache, chunk=chunk, admit_ratio=admit,
@@ -323,11 +366,14 @@ def _maybe_panel_plan(
 
 def _cached_panel_plan(
     cfg, tplan, a_index, b_index, ta, tb, tile, n_a, n_b, driver, tuned,
-) -> Optional[PanelPlan]:
+    b_coords,
+) -> Union[PanelPlan, PanelRunPlan, None]:
     """Panel planning is O(S log S) host work; iterative callers repeat it
     on identical patterns. Cache the outcome — including the None
     "inadmissible" verdict — keyed by operand content, orientation, tile,
-    store sizes, driver and the config WITH provenance."""
+    store sizes, driver and the config WITH provenance (``panel_runlen``
+    is one of its fields; ``b_coords`` follows from B's index, ``tb`` and
+    the tile)."""
     pcache = get_plan_cache()
     key = pcache.key(
         a_index, ta, b_index, tb,
@@ -338,7 +384,8 @@ def _cached_panel_plan(
     if cached is not None:
         return cached[0]
     plan = _maybe_panel_plan(
-        cfg, tplan, a_index, b_index, n_a, n_b, driver, tuned
+        cfg, tplan, a_index, b_index, n_a, n_b, driver, tuned,
+        b_coords=b_coords,
     )
     pcache.put(key, (plan,))
     return plan
@@ -366,6 +413,9 @@ class _Problem:
     nt: int
     cfg: object
     driver: str
+    #: the caller plans once and may fold a tile renumbering into the plan
+    #: (``build_multiply_executor``; the one-shot ``multiply`` does not)
+    may_reorder: bool = False
     _tplan: Optional[TileStackPlan] = None
 
     def tile_plan(self) -> TileStackPlan:
@@ -383,30 +433,56 @@ class LocalPlan:
     b_data)`` gives the product tiles whose row-major keys are
     ``prod_keys``. Everything it reads besides the data — the op(A)/op(B)
     store permutations, the stack or panel plan — is resident on the
-    operands' device."""
+    operands' device.
 
-    route: str  # the driver that planned it
+    A plan on a renumbered tile grid (``reorder``, the panel route of the
+    plan-once executor) also gathers the op stores into the new slot order
+    (``a_gather``/``b_gather``; for a transposed operand the gather is
+    folded into ``a_perm``/``b_perm``), and its ``prod_keys`` and
+    ``tile_plan`` are in the NEW numbering: align through ``align_map``."""
+
+    route: str  # the driver that planned it ("panel_runs": K3 under "panel")
     prod_keys: np.ndarray
     hw_flops: float
     product: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # op stores -> tiles
     in_dtype: Optional[torch.dtype] = None  # what a stack kernel consumes
     tile_plan: Optional[TileStackPlan] = None
     stack: Optional[DeviceStack] = None
-    panel: Optional[DevicePanelPlan] = None
+    panel: Union[DevicePanelPlan, DevicePanelRunPlan, None] = None
+    band: Optional[DeviceBandPlan] = None
+    grouped: Optional[DeviceGroupPlan] = None
     a_perm: Optional[torch.Tensor] = None
     b_perm: Optional[torch.Tensor] = None
+    reorder: Optional[ReorderPlan] = None
+    a_gather: Optional[torch.Tensor] = None
+    b_gather: Optional[torch.Tensor] = None
+    nt: int = 0  # tile columns of the product grid (for ``align_map``)
+
+    def op_stores(self, a_data: torch.Tensor, b_data: torch.Tensor):
+        """The op(A), op(B) tile stores as the plan's kernel reads them."""
+        a_st = _op_store(a_data, self.a_perm)
+        b_st = _op_store(b_data, self.b_perm)
+        if self.a_gather is not None:
+            a_st = a_st.index_select(0, self.a_gather)
+        if self.b_gather is not None:
+            b_st = b_st.index_select(0, self.b_gather)
+        return a_st, b_st
 
     def run(self, a_data: torch.Tensor, b_data: torch.Tensor) -> torch.Tensor:
-        return self.product(
-            _op_store(a_data, self.a_perm), _op_store(b_data, self.b_perm)
-        )
+        return self.product(*self.op_stores(a_data, b_data))
+
+    def align_map(self, c_keys: np.ndarray) -> np.ndarray:
+        """For each row-major C tile key (in the caller's numbering), the
+        product tile holding it, or -1."""
+        if self.reorder is not None:
+            c_keys = self.reorder.c_slot_keys(c_keys, self.nt)
+        return tile_align_map(c_keys, self.prod_keys)
 
 
 _DRIVERS: Dict[str, Callable[[_Problem, bool], Optional[LocalPlan]]] = {}
 
-#: sparse candidates "auto" tries in order (the band driver goes first once
-#: K5 is ported, as in the JAX package)
-_AUTO_SPARSE_ORDER = ("panel", "stack")
+#: sparse candidates "auto" tries in order, as the JAX package does
+_AUTO_SPARSE_ORDER = ("band", "panel", "grouped", "stack")
 
 
 def _driver(name: str):
@@ -446,26 +522,130 @@ def _dense_route(p: _Problem, explicit: bool) -> LocalPlan:
     )
 
 
+@_driver("band")
+def _band_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
+    """Banded tile patterns as the tile-diagonal convolution (``band.py``).
+    An explicit request or a tuned preference skips the flop test; else the
+    padded band work must stay within ``band_flop_factor`` of the stack's
+    tile-triple count — times 0.125 unless the precision is "default", the
+    JAX package's rule and constants, kept so that both packages choose the
+    same route on the same input."""
+    cfg = p.cfg
+    tplan = p.tile_plan()
+    prec = cfg.matmul_precision
+    force = explicit or _tuned_driver(cfg, p.a_index, p.b_index) == "band"
+    bplan = plan_band(
+        p.a_op.coords, (p.mt, p.kt), p.b_op.coords, (p.kt, p.nt),
+        tplan.c_tile_keys, tile=p.tile,
+        n_stack=None if force else len(tplan.stack),
+        max_products=cfg.band_max_products,
+        flop_factor=cfg.band_flop_factor * (1.0 if prec == "default" else 0.125),
+    )
+    if bplan is None:
+        if explicit:
+            raise DbcsrError("pattern not band-suitable (see mm/band.py)")
+        return None
+    dplan = device_band_plan(bplan, p.device)
+
+    def run(a_st, b_st):
+        return band_matmul(a_st, b_st, dplan, tile=p.tile, precision=prec)
+
+    return LocalPlan(
+        "band", tplan.c_tile_keys, bplan.hw_flops, run,
+        in_dtype=_maybe_bf16(p.dtype, prec, cfg), tile_plan=tplan, band=dplan,
+    )
+
+
+def _reordered_panel_plan(p: _Problem, driver: str, tuned):
+    """Clustered-but-scrambled patterns: an RCM tile renumbering
+    (``reorder.py``) can make the panel plan admissible. Returns
+    ``(reorder plan, replanned stack, panel plan)`` or None. A cheap
+    O(n_tiles) bandedness gate on the renumbered coords comes before the
+    O(S) replan: uniform-random stays uniform under any renumbering."""
+    from ..autotune import BANDED_GATE, coords_bandedness
+
+    rp = locality_reorder_plan(
+        p.a_op.coords, (p.mt, p.kt), p.b_op.coords, (p.kt, p.nt)
+    )
+    if rp is None:
+        return None
+    banded_r = coords_bandedness(
+        rp.a_coords[:, 0], rp.a_coords[:, 1], max(p.mt, p.kt, 1)
+    )
+    if banded_r < BANDED_GATE:
+        return None
+    tplan_r = plan_tile_stacks_stores(
+        rp.a_coords, (p.mt, p.kt), rp.b_coords, (p.kt, p.nt)
+    )
+    # gated on the REORDERED pattern's bandedness: the block index is
+    # scrambled by construction here, so its feature would always reject
+    pplan_r = _maybe_panel_plan(
+        p.cfg, tplan_r, p.a_index, p.b_index, len(p.a_op.coords),
+        len(p.b_op.coords), driver, tuned, banded_hint=banded_r,
+        b_coords=rp.b_coords,
+    )
+    if pplan_r is None:
+        return None
+    return rp, tplan_r, pplan_r
+
+
 @_driver("panel")
 def _panel_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
     cfg = p.cfg
     tplan = p.tile_plan()
     tuned = None if explicit else _tuned_driver(cfg, p.a_index, p.b_index)
+    driver = "panel" if explicit else "auto"
     pplan = _cached_panel_plan(
         cfg, tplan, p.a_index, p.b_index, p.ta, p.tb, p.tile,
-        len(p.a_op.coords), len(p.b_op.coords),
-        "panel" if explicit else "auto", tuned,
+        len(p.a_op.coords), len(p.b_op.coords), driver, tuned,
+        p.b_op.coords,
     )
+    rp = None
+    if (pplan is None and p.may_reorder and cfg.reorder != "off"
+            and (explicit or tuned in (None, "panel"))):
+        with timed("multiply/reorder"):
+            found = _reordered_panel_plan(p, driver, tuned)
+        if found is not None:
+            rp, tplan, pplan = found
     if pplan is None:
         if explicit:
             raise DbcsrError("pattern not panel-admissible (see mm/panel.py)")
         return None
-    dplan = device_panel_plan(pplan, p.device)
     in_dt = _maybe_panel_bf16(p.dtype, cfg.matmul_precision, cfg)
+    if isinstance(pplan, PanelRunPlan):
+        route, kernel = "panel_runs", tile_stack_matmul_panel_runs
+        dplan = device_panel_run_plan(pplan, p.device)
+    else:
+        route, kernel = "panel", tile_stack_matmul_panel
+        dplan = device_panel_plan(pplan, p.device)
+    lp = LocalPlan(
+        route, tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3,
+        _kernel_run(kernel, dplan, p.dtype, in_dt),
+        in_dtype=in_dt, tile_plan=tplan, panel=dplan, nt=p.nt,
+    )
+    if rp is not None:
+        lp.reorder = rp
+        lp.a_gather = torch.as_tensor(rp.a_gather.astype(np.int64), device=p.device)
+        lp.b_gather = torch.as_tensor(rp.b_gather.astype(np.int64), device=p.device)
+    return lp
+
+
+@_driver("grouped")
+def _grouped_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
+    """The grouped kernel K4: on explicit request, or under "auto" when a
+    tuned table prefers it (after the panel route declined)."""
+    cfg = p.cfg
+    if not explicit and _tuned_driver(cfg, p.a_index, p.b_index) != "grouped":
+        return None
+    tplan = p.tile_plan()
+    dplan = device_group_plan(
+        tplan.stack, tplan.n_c_tiles, len(p.b_op.coords), p.device
+    )
+    in_dt = _maybe_bf16(p.dtype, cfg.matmul_precision, cfg)
     return LocalPlan(
-        "panel", tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3,
-        _kernel_run(tile_stack_matmul_panel, dplan, p.dtype, in_dt),
-        in_dtype=in_dt, tile_plan=tplan, panel=dplan,
+        "grouped", tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3,
+        _kernel_run(tile_stack_matmul_grouped, dplan, p.dtype, in_dt),
+        in_dtype=in_dt, tile_plan=tplan, grouped=dplan,
     )
 
 
@@ -519,7 +699,7 @@ def _select_route(p: _Problem) -> LocalPlan:
             return _dense_route(p, False)
     if len(tplan.stack) == 0:
         return _empty_route(p)
-    if p.dtype == torch.float64:
+    if p.dtype == torch.float64 and p.driver in ("auto", "stack", "panel"):
         return _f64_route(p)
     if p.driver != "auto":
         return _DRIVERS[p.driver](p, True)
@@ -531,7 +711,7 @@ def _select_route(p: _Problem) -> LocalPlan:
 
 
 def _plan_local(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, cfg,
-                driver: str) -> LocalPlan:
+                driver: str, *, may_reorder: bool = False) -> LocalPlan:
     dbcsr_assert(a.tile == b.tile, "operand tile sizes differ")
     dbcsr_assert(a.dtype == b.dtype, f"operand dtypes differ ({a.dtype}, {b.dtype})")
     dbcsr_assert(a.device == b.device, f"operands on {a.device} and {b.device}")
@@ -541,13 +721,21 @@ def _plan_local(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, cfg,
     p = _Problem(
         a_index=a.index, b_index=b.index, ta=ta, tb=tb, tile=a.tile,
         dtype=a.dtype, device=a.device, a_op=a_op, b_op=b_op,
-        mt=mt, kt=kt, nt=nt, cfg=cfg, driver=driver,
+        mt=mt, kt=kt, nt=nt, cfg=cfg, driver=driver, may_reorder=may_reorder,
     )
     with timed("multiply/route"):
         plan = _select_route(p)
-    for op, name in ((a_op, "a_perm"), (b_op, "b_perm")):
+    for op, name, gname, gather in (
+        (a_op, "a_perm", "a_gather", plan.reorder and plan.reorder.a_gather),
+        (b_op, "b_perm", "b_gather", plan.reorder and plan.reorder.b_gather),
+    ):
         if op.perm is not None:
-            setattr(plan, name, torch.as_tensor(op.perm.astype(np.int64), device=a.device))
+            perm = op.perm.astype(np.int64)
+            if gather is not None:
+                # one gather for both: the transpose order, then the renumbering
+                perm = perm[gather]
+                setattr(plan, gname, None)
+            setattr(plan, name, torch.as_tensor(perm, device=a.device))
     return plan
 
 
@@ -582,7 +770,7 @@ def _execute_local(a, ta, b, tb, c, c_index, alpha, beta, cfg, *,
     prod = lp.run(a.data, b.data)
     get_stats().hardware_flops += lp.hw_flops
     c_keys = store_layout(c_index, tile).tile_keys()
-    prod = take_tiles(prod, tile_align_map(c_keys, lp.prod_keys), tile).to(a.dtype)
+    prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
     if mask_result and len(c_keys):
         prod = prod * valid_mask(c_index, tile, prod.device).to(prod.dtype)
     old = _align_old_c(c, c_index, tile)
@@ -752,9 +940,11 @@ def build_multiply_executor(
     ``fn(a_store, b_store) -> c_store`` computes op(A)·op(B) for NEW DATA
     with the SAME sparsity patterns, on the operands' device (the analog of
     the reference's batched-multiply state machine). All host planning —
-    symbolic product, tile stack, driver choice, panel plan — and every
-    index upload happen here; a call is the device work alone.
-    ``fn.plan`` is the ``LocalPlan`` (its ``route`` names the driver)."""
+    symbolic product, tile stack, driver choice, band/panel/group plan, the
+    RCM tile renumbering when it makes the panel plan admissible (config
+    ``reorder``) — and every index upload happen here; a call is the device
+    work alone. ``fn.plan`` is the ``LocalPlan`` (its ``route`` names the
+    driver)."""
     _reject_unported(a, b, None)
     cfg = get_config()
     drv = driver or cfg.mm_driver
@@ -770,10 +960,8 @@ def build_multiply_executor(
     symb = symbolic_product(a.index, ta, b.index, tb)
     c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
     c_keys = store_layout(c_index, a.tile).tile_keys()
-    lp = _plan_local(a, ta, b, tb, cfg, drv)
-    gather = tile_gather(
-        tile_align_map(c_keys, lp.prod_keys), len(lp.prod_keys), a.device
-    )
+    lp = _plan_local(a, ta, b, tb, cfg, drv, may_reorder=True)
+    gather = tile_gather(lp.align_map(c_keys), len(lp.prod_keys), a.device)
 
     def fn(a_data: torch.Tensor, b_data: torch.Tensor) -> torch.Tensor:
         return apply_tile_gather(lp.run(a_data, b_data), gather)

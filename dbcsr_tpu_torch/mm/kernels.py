@@ -1,4 +1,5 @@
-"""K1, the flat tile-stack kernel: wrapper, plain version and CUDA binding.
+"""K1, the flat tile-stack kernel, and K4, the grouped kernel: wrappers,
+plain versions and CUDA bindings.
 
 ``tile_stack_matmul`` computes ``C[c] = Σ A[a]·B[b]`` over a stack of
 (c, a, b) tile triples sorted by c — the port of
@@ -16,12 +17,26 @@ plain version turns TF32 off around its ``bmm``); bfloat16 inputs are
 widened to float32 first, so every product is exact and only the float32
 sums round. float64 stacks take their own kernel (``f64_stack.py``); the
 plain version here sums float64 in float64.
+
+``tile_stack_matmul_grouped`` computes the same product by the group plan
+of ``dbcsr_tpu/mm/kernels.py:_plan_groups`` (copied here): groups of at most
+``group`` C tiles whose distinct A tiles fit ``cache`` slots, entries packed
+``[out_local:3][a_slot:8][b_tile:20]``, a padded ``[n_groups·group, T, T]``
+output, and a segment sum that joins C runs split across groups — the port
+of ``tile_stack_matmul_grouped`` there. CUDA tensors launch
+``csrc/grouped_matmul.cu`` (one block per output row and sub-tile walking
+that row's contiguous entries in stack order) or raise; the join is the
+ordered segment sum of ``block/tileops.py``, never ``index_add_``, and is
+skipped when no run was split. CPU tensors run
+``tile_stack_matmul_grouped_plain``. The grouped kernel also takes float64
+stores (float64 sums), for an explicit ``mm_driver="grouped"`` on float64
+data.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,11 +48,17 @@ __all__ = [
     "tf32_matmul",
     "tile_stack_matmul",
     "tile_stack_matmul_plain",
+    "DeviceGroupPlan",
+    "device_group_plan",
+    "tile_stack_matmul_grouped",
+    "tile_stack_matmul_grouped_plain",
 ]
 
 #: tile edges the CUDA kernels are instantiated for
 KERNEL_TILES = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype codes of the kernels that are also instantiated for float64 (K4, K5)
+DTYPE_CODE_F64 = {**_DTYPE_CODE, torch.float64: 2}
 #: stack entries gathered per step of the plain version (bounds its scratch:
 #: 3 · 8192 · T² floats, 1.6 GB at T=128)
 PLAIN_CHUNK = 8192
@@ -232,3 +253,244 @@ def tile_stack_matmul(
 
 #: launches of the K1 kernel since the last reset (set it to 0 to reset)
 tile_stack_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the grouped kernel
+# ---------------------------------------------------------------------------
+
+# int32 entry packing: [out_local:3][a_cache_slot:8][b_tile:20] (the top bit
+# stays clear)
+_GROUP_MAX = 8     # out_local < 8
+_CACHE_MAX = 256   # a cache slot < 256
+_B_BITS = 20       # b tile index < 2^20
+
+
+def _plan_groups(
+    stack_np: np.ndarray, n_c_tiles: int, group: int, cache: int
+):
+    """Host grouping pass: split the c-sorted stack into groups of up to
+    ``group`` output rows whose distinct A tiles fit the ``cache``-slot
+    panel. A c-run larger than one group's budget is split across groups
+    (its partial sums are segment-summed on device afterwards).
+
+    Returns (ebounds, abounds, aload, packed_entries, seg, n_groups) where
+    ``seg[n_groups*group]`` maps each padded output row to its c slot
+    (n_c_tiles for padding rows)."""
+    S = len(stack_np)
+    ebounds = [0]
+    abounds = [0]
+    aload: list = []
+    seg: list = []
+    e_packed = np.empty(S, dtype=np.int32)
+    cache_map: dict = {}
+    locals_used = 0
+    cur_c = -1
+    cur_local = -1
+    st = stack_np
+
+    def flush(pos):
+        nonlocal cache_map, locals_used, cur_c, cur_local
+        aload.extend(cache_map.keys())
+        abounds.append(len(aload))
+        ebounds.append(pos)
+        seg.extend([n_c_tiles] * (group - locals_used))  # padding rows
+        cache_map = {}
+        locals_used = 0
+        cur_c = -1
+        cur_local = -1
+
+    for pos in range(S):
+        c = int(st[pos, 0])
+        aa = int(st[pos, 1])
+        bb = int(st[pos, 2])
+        need_local = c != cur_c
+        new_a = aa not in cache_map
+        if (need_local and locals_used == group) or (
+            new_a and len(cache_map) == cache
+        ):
+            flush(pos)
+            need_local = True
+            new_a = True
+        if new_a:
+            cache_map[aa] = len(cache_map)
+        if need_local:
+            cur_local = locals_used
+            locals_used += 1
+            seg.append(c)
+            cur_c = c
+        e_packed[pos] = np.int32(
+            (cur_local << (_B_BITS + 8)) | (cache_map[aa] << _B_BITS) | bb
+        )
+    if locals_used or cache_map:
+        flush(S)
+
+    n_groups = len(ebounds) - 1
+    return (
+        np.asarray(ebounds, dtype=np.int32),
+        np.asarray(abounds, dtype=np.int32),
+        np.asarray(aload, dtype=np.int32),
+        e_packed,
+        np.asarray(seg, dtype=np.int32),
+        n_groups,
+    )
+
+
+@dataclass(frozen=True)
+class DeviceGroupPlan:
+    """A group plan resident on one device (built once per plan by
+    ``device_group_plan``): ``_plan_groups``' arrays, the per-output-row
+    entry bounds ``lbounds`` the kernel walks (a group's entries are
+    c-sorted, so one row's entries are contiguous), and the join of the
+    padded rows into the C store: None when every C slot was produced
+    exactly once, in order, with no padding row (the rows are the store: no
+    copy of C is made); a plain tile gather when no
+    C run was split (one row per C slot, padding rows dropped); else the
+    ordered segment sum that adds a split run's partial sums in row order."""
+
+    n_c: int
+    n_groups: int
+    group: int
+    cache: int
+    seg_host: np.ndarray      # int32 [n_groups*group] row -> c slot (n_c = padding)
+    lbounds: torch.Tensor     # int32 [n_groups*group+1]
+    abounds: torch.Tensor     # int32 [n_groups+1]
+    aload: torch.Tensor       # int32 [n_aload]
+    entries: torch.Tensor     # int32 [S]
+    join: Optional[object]    # None, a TileGather or an OrderedSegmentSum
+    a_end: int
+    b_end: int
+
+    @property
+    def split_runs(self) -> int:
+        """C slots whose run was split across groups."""
+        seg = self.seg_host[self.seg_host < self.n_c]
+        return int(len(seg) - len(np.unique(seg)))
+
+    def entry_slots(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(row bounds, A store slot per entry, B store slot per entry) on
+        the host, int64, decoded from the arrays the kernel reads: what the
+        plain version walks."""
+        lb = self.lbounds.cpu().numpy().astype(np.int64)
+        ent = self.entries.cpu().numpy().astype(np.int64)
+        if not len(ent):
+            return lb, ent, ent
+        g_of_entry = np.repeat(np.arange(len(lb) - 1), np.diff(lb)) // self.group
+        a_slot = self.aload.cpu().numpy().astype(np.int64)[
+            self.abounds.cpu().numpy().astype(np.int64)[g_of_entry]
+            + ((ent >> _B_BITS) & 0xFF)
+        ]
+        return lb, a_slot, ent & ((1 << _B_BITS) - 1)
+
+
+def device_group_plan(
+    stack_np: np.ndarray, n_c_tiles: int, n_b_tiles: int, device, *,
+    group: int = 8, cache: int = 128,
+) -> DeviceGroupPlan:
+    """Plan the grouped kernel for a host stack (int32 [S, 3], sorted by c)
+    and upload it. Raises ValueError beyond the entry packing's limits
+    (``n_b_tiles`` < 2^20, ``group`` ≤ 8, ``cache`` ≤ 256)."""
+    from ..block.tileops import ordered_segment_sum, tile_gather
+
+    if n_b_tiles >= (1 << _B_BITS) or group > _GROUP_MAX or cache > _CACHE_MAX:
+        raise ValueError("grouped kernel limits exceeded")
+    stack = np.asarray(stack_np).reshape(-1, 3)
+    if len(stack) and int(stack[:, 2].max()) >= n_b_tiles:
+        raise IndexError("grouped plan: stack b slot beyond n_b_tiles")
+    ebounds, abounds, aload, entries, seg, n_groups = _plan_groups(
+        stack, n_c_tiles, group, cache
+    )
+    n_rows = n_groups * group
+    ent = entries.astype(np.int64)
+    g_of_entry = np.repeat(np.arange(n_groups, dtype=np.int64), np.diff(ebounds))
+    row = g_of_entry * group + (ent >> (_B_BITS + 8))
+    lbounds = np.searchsorted(row, np.arange(n_rows + 1))
+    real = np.flatnonzero(seg < n_c_tiles)
+    if len(seg) == n_c_tiles and np.array_equal(seg, np.arange(n_c_tiles)):
+        join = None
+    elif len(np.unique(seg[real])) == len(real):
+        # no run was split: C slot -> its one row (-1: a slot with no entry)
+        slot_map = np.full(n_c_tiles, -1, dtype=np.int64)
+        slot_map[seg[real]] = real
+        join = tile_gather(slot_map, n_rows, device)
+    else:
+        join = ordered_segment_sum(seg, n_c_tiles, device)
+
+    def up(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
+
+    return DeviceGroupPlan(
+        n_c=int(n_c_tiles), n_groups=n_groups, group=group, cache=cache,
+        seg_host=seg,
+        lbounds=up(lbounds), abounds=up(abounds), aload=up(aload),
+        entries=up(entries),
+        join=join,
+        a_end=int(aload.max(initial=-1)) + 1,
+        b_end=int(stack[:, 2].max()) + 1 if len(stack) else 0,
+    )
+
+
+def _join_groups(rows: torch.Tensor, plan: DeviceGroupPlan, out_dtype) -> torch.Tensor:
+    """Padded group rows -> the [n_c, T, T] store (see ``DeviceGroupPlan``)."""
+    from ..block.tileops import TileGather, apply_tile_gather
+
+    if plan.join is None:
+        out = rows
+    elif isinstance(plan.join, TileGather):
+        out = apply_tile_gather(rows, plan.join)
+    else:
+        out = plan.join(rows)
+    return out.to(out_dtype)
+
+
+def tile_stack_matmul_grouped_plain(
+    a: torch.Tensor, b: torch.Tensor, plan: DeviceGroupPlan, *, out_dtype=None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4 (any device): the same padded rows, each
+    summed over its entries in stack order, then the same join."""
+    _check_stores(a, b, "tile_stack_matmul_grouped_plain")
+    acc = torch.float64 if a.dtype == torch.float64 else torch.float32
+    lbounds, a_slot, b_slot = plan.entry_slots()
+    rows = run_sums_plain(
+        a, b, lbounds, torch.as_tensor(a_slot, device=a.device),
+        torch.as_tensor(b_slot, device=a.device), acc,
+    )
+    return _join_groups(rows, plan, out_dtype or a.dtype)
+
+
+def tile_stack_matmul_grouped(
+    a: torch.Tensor, b: torch.Tensor, plan: DeviceGroupPlan, *, out_dtype=None,
+) -> torch.Tensor:
+    """K4: ``[n_c, T, T]`` tile store of the stack product by the group
+    plan. CPU tensors run the plain version; CUDA tensors launch the kernel
+    or raise (same rules as ``tile_stack_matmul``; float64 is taken)."""
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return tile_stack_matmul_grouped_plain(a, b, plan, out_dtype=out_dtype)
+    tile = check_cuda_operands(
+        a, b, (plan.lbounds, plan.abounds, plan.aload, plan.entries),
+        "tile_stack_matmul_grouped", DTYPE_CODE_F64,
+    )
+    if plan.a_end > a.shape[0] or plan.b_end > b.shape[0]:
+        raise IndexError("tile_stack_matmul_grouped: plan slot beyond the tile stores")
+    from .._build import check_launch, kernels
+
+    acc = torch.float64 if a.dtype == torch.float64 else torch.float32
+    n_rows = plan.n_groups * plan.group
+    rows = torch.empty((n_rows, tile, tile), dtype=acc, device=a.device)
+    if n_rows:
+        lib = kernels()
+        rc = lib.dbcsr_torch_grouped_matmul(
+            a.data_ptr(), b.data_ptr(), rows.data_ptr(), plan.lbounds.data_ptr(),
+            plan.abounds.data_ptr(), plan.aload.data_ptr(),
+            plan.entries.data_ptr(), n_rows, plan.group, tile,
+            DTYPE_CODE_F64[a.dtype], a.device.index,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+        check_launch(lib, rc, "tile_stack_matmul_grouped")
+        tile_stack_matmul_grouped.launches += 1
+    return _join_groups(rows, plan, out_dtype)
+
+
+#: launches of the K4 kernel since the last reset (set it to 0 to reset)
+tile_stack_matmul_grouped.launches = 0

@@ -1,9 +1,9 @@
 """Native (C++) host planner with ctypes bindings.
 
-The port reuses the JAX package's planner source,
-``dbcsr_tpu/native/stackbuild.cpp``, compiled by path (importing
-``dbcsr_tpu.native`` would import the JAX package) with g++ into the port's
-git-ignored build directory on first use. Every entry point returns None
+The planner source ``stackbuild.cpp`` beside this file is the port's own
+copy of the JAX package's (kept byte-identical; a test compares the two),
+compiled with g++ into the port's git-ignored build directory on first use,
+so the port needs no file of the JAX package. Every entry point returns None
 when the library is unavailable or disabled (config ``use_native_planner``,
 env ``DBCSR_USE_NATIVE_PLANNER``), and the callers then take the numpy path
 — the same contract as the JAX package's loader. These are host planners,
@@ -27,10 +27,7 @@ __all__ = [
     "store_layout_native",
 ]
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "dbcsr_tpu", "native", "stackbuild.cpp",
-)
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "stackbuild.cpp")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False

@@ -1,6 +1,7 @@
-"""The port's kernels on the card: K1, K2 and the float64 stack kernel
-against their plain versions, the executors' routes (the filtered executor
-included), and the wrappers' refusals.
+"""The port's kernels on the card: K1, K2, K3 (run-fused panel), K4
+(grouped), K5 (band) and the float64 stack kernel against their plain
+versions, the executors' routes (the filtered executor and the reordered
+panel plan included), and the wrappers' refusals.
 
 Every test needs a CUDA GPU and skips without one. This file imports no
 jax (the GPU machine has none), so run it there without the suite's
@@ -12,7 +13,8 @@ Tolerance relative to the largest reference entry: 1e-5 for K1/K2 (kernel
 and plain version both accumulate in float32 — bf16 inputs are widened, so
 products are exact — in different orders, over at most 40·T terms); 1e-12
 for the float64 kernel (float64 sums of the same products in another
-order).
+order); K3, K4 and K5 take the same bounds (K4 and K5 also run in
+float64).
 """
 import numpy as np
 import pytest
@@ -24,17 +26,31 @@ from dbcsr_tpu_torch.mm.f64_stack import (
     tile_stack_matmul_f64,
     tile_stack_matmul_f64_plain,
 )
+from dbcsr_tpu_torch.mm.band import (
+    band_matmul,
+    band_matmul_plain,
+    device_band_plan,
+    plan_band,
+)
 from dbcsr_tpu_torch.mm.kernels import (
+    device_group_plan,
     device_stack,
     tile_stack_matmul,
+    tile_stack_matmul_grouped,
+    tile_stack_matmul_grouped_plain,
     tile_stack_matmul_plain,
 )
 from dbcsr_tpu_torch.mm.panel import (
     device_panel_plan,
+    device_panel_run_plan,
+    plan_panel_runs,
     plan_panel_stack,
     tile_stack_matmul_panel,
     tile_stack_matmul_panel_plain,
+    tile_stack_matmul_panel_runs,
+    tile_stack_matmul_panel_runs_plain,
 )
+from dbcsr_tpu_torch.mm.tileplan import plan_tile_stacks_stores
 
 RTOL = 1e-5
 RTOL_F64 = 1e-12
@@ -122,6 +138,142 @@ def test_f64_kernel_matches_plain(dev, tile):
         assert torch.equal(got, tile_stack_matmul_f64(a, b, ds))  # deterministic
 
 
+DTYPES3 = [torch.float32, torch.bfloat16, torch.float64]
+
+
+def stores(n_a, n_b, tile, dtype, dev):
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    return (torch.randn(n_a, tile, tile, device=dev, dtype=wide).to(dtype),
+            torch.randn(n_b, tile, tile, device=dev, dtype=wide).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k5_matches_plain(dev, tile, dtype):
+    """A rectangular grid with negative off_a (k runs off both ends) and a
+    band with holes."""
+    rng = np.random.default_rng(tile)
+    mt, kt, nt = 12, 20, 15
+    r, c = np.meshgrid(np.arange(mt), np.arange(kt), indexing="ij")
+    keep = (c - r >= -3) & (c - r <= 5) & ((c - r == -3) | (c - r == 5) | (rng.random(r.shape) < 0.7))
+    ac = np.stack([r[keep], c[keep]], 1).astype(np.int64)
+    r, c = np.meshgrid(np.arange(kt), np.arange(nt), indexing="ij")
+    keep = (c - r >= -6) & (c - r <= 2) & ((c - r == -6) | (c - r == 2) | (rng.random(r.shape) < 0.7))
+    bc = np.stack([r[keep], c[keep]], 1).astype(np.int64)
+    tp = plan_tile_stacks_stores(ac, (mt, kt), bc, (kt, nt))
+    plan = plan_band(ac, (mt, kt), bc, (kt, nt), tp.c_tile_keys, tile=tile)
+    assert plan.off_a < 0
+    a, b = stores(len(ac), len(bc), tile, dtype, dev)
+    out_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    before = band_matmul.launches
+    got = band_matmul(a, b, device_band_plan(plan, dev), out_dtype=out_dt)
+    assert band_matmul.launches == before + 1 and got.dtype == out_dt
+    ref = band_matmul_plain(a, b, plan, out_dtype=out_dt)
+    assert rel_err(got, ref) <= (RTOL_F64 if dtype == torch.float64 else RTOL)
+    assert torch.equal(got, band_matmul(a, b, plan, out_dtype=out_dt))  # host plan, deterministic
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k4_matches_plain(dev, tile, dtype):
+    """Small caches split C runs (the ordered join); padding rows are zero."""
+    stack, n_c = random_stack(np.random.default_rng(tile), n_c=11, s=120, n_tiles=20)
+    a, b = stores(20, 20, tile, dtype, dev)
+    out_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    for group, cache in ((4, 16), (8, 8), (2, 4), (8, 128)):
+        plan = device_group_plan(stack, n_c, 20, dev, group=group, cache=cache)
+        before = tile_stack_matmul_grouped.launches
+        got = tile_stack_matmul_grouped(a, b, plan, out_dtype=out_dt)
+        assert tile_stack_matmul_grouped.launches == before + 1
+        assert got.shape == (n_c, tile, tile) and got.dtype == out_dt
+        ref = tile_stack_matmul_grouped_plain(a, b, plan, out_dtype=out_dt)
+        assert rel_err(got, ref) <= (RTOL_F64 if dtype == torch.float64 else RTOL)
+        assert torch.equal(got, tile_stack_matmul_grouped(a, b, plan, out_dtype=out_dt))
+    assert plan.split_runs == 0 and device_group_plan(
+        stack, n_c, 20, dev, group=2, cache=4).split_runs > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k3_matches_plain(dev, tile, dtype):
+    """runlen 2 (no pair tier) and 4 (all three tiers), the clamped last
+    group, B read through the column-major permutation and without one."""
+    stack, n = banded_stack()
+    coords = np.asarray([(r, c) for r in range(24) for c in range(24) if abs(r - c) <= 2])
+    cm = np.argsort(coords[:, 1] * 24 + coords[:, 0]).astype(np.int32)
+    a, b = stores(n, n, tile, dtype, dev)
+    flat = tile_stack_matmul(a, b, device_stack(stack, n, dev), out_dtype=torch.float32)
+    for runlen, perm in ((2, cm), (4, cm), (4, None)):
+        plan = plan_panel_runs(stack, n, n, n, b_cm_perm=perm, c_win=16, a_cap=64,
+                               b_cap=64, chunk=4, runlen=runlen)
+        assert plan.gstart[-1] % 16  # clamped last group
+        if perm is not None:
+            assert plan.n_quads > 0 and (plan.n_pairs > 0) == (runlen == 4)
+        dp = device_panel_run_plan(plan, dev)
+        before = tile_stack_matmul_panel_runs.launches
+        got = tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32)
+        assert tile_stack_matmul_panel_runs.launches == before + 1
+        ref = tile_stack_matmul_panel_runs_plain(a, b, plan, out_dtype=torch.float32)
+        assert rel_err(got, ref) <= RTOL and rel_err(got, flat) <= RTOL
+        assert torch.equal(got, tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32))
+
+
+def test_new_drivers_and_reordering_on_the_card(dev):
+    """band, grouped and panel_runlen executors launch their own kernels and
+    match the flat route; a scrambled band takes the reordered panel route
+    under reorder="auto" and the flat kernel under "off"."""
+    rng = np.random.default_rng(2)
+    rbs = dtt.random_block_sizes(300, [3, 5, 7], rng)
+    n = len(rbs)
+    i = np.repeat(np.arange(n), 7)
+    j = i + np.tile(np.arange(-3, 4), n)
+    keep = (j >= 0) & (j < n) & (rng.random(len(j)) < 0.6)
+    blocks = [rng.standard_normal((rbs[r], rbs[c])).astype(np.float32)
+              for r, c in zip(i[keep], j[keep])]
+    with config_override(tile_size=16, matmul_precision="highest"):
+        a = dtt.BCSRMatrix.from_blocks(i[keep], j[keep], blocks, rbs, rbs, device=dev)
+        f0, _, _ = dtt.build_multiply_executor("N", "T", a, a, driver="stack")
+        ref = f0(a.data, a.data)
+        for driver, cfg, route, counter in (
+                ("band", {}, "band", band_matmul),
+                ("grouped", {}, "grouped", tile_stack_matmul_grouped),
+                ("panel", {"panel_runlen": 4}, "panel_runs", tile_stack_matmul_panel_runs)):
+            with config_override(**cfg):
+                fn, _, _ = dtt.build_multiply_executor("N", "T", a, a, driver=driver)
+            assert fn.plan.route == route
+            before = counter.launches
+            out = fn(a.data, a.data)
+            assert counter.launches == before + 1
+            assert rel_err(out, ref) <= RTOL
+        for driver in ("band", "grouped"):  # float64: the driver's own kernel
+            a64 = a.astype(torch.float64)
+            fn, _, _ = dtt.build_multiply_executor("N", "N", a64, a64, driver=driver)
+            f64, _, _ = dtt.build_multiply_executor("N", "N", a64, a64, driver="stack")
+            assert fn.plan.route == driver and f64.plan.route == "f64_stack"
+            assert rel_err(fn(a64.data, a64.data), f64(a64.data, a64.data)) <= RTOL_F64
+    nb, w, t = 96, 3, 16
+    i = np.repeat(np.arange(nb, dtype=np.int64), 2 * w + 1)
+    j = i + np.tile(np.arange(-w, w + 1, dtype=np.int64), nb)
+    keep = (j >= 0) & (j < nb)
+    i, j = i[keep], j[keep]
+    sm, sk, sn = (rng.permutation(nb).astype(np.int64) for _ in range(3))
+    sizes = np.full(nb, t, np.int32)
+    with config_override(tile_size=t, panel_cache=64):
+        mats = [dtt.BCSRMatrix.from_blocks(
+            sr[i], sc[j], [rng.standard_normal((t, t)).astype(np.float32) for _ in i],
+            sizes, sizes, device=dev) for sr, sc in ((sm, sk), (sk, sn))]
+        outs = {}
+        for mode, route, counter in (("off", "stack", tile_stack_matmul),
+                                     ("auto", "panel", tile_stack_matmul_panel)):
+            with config_override(reorder=mode):
+                fn, _, _ = dtt.build_multiply_executor("N", "N", *mats)
+            assert fn.plan.route == route and (fn.plan.reorder is not None) == (mode == "auto")
+            before = counter.launches
+            outs[mode] = fn(mats[0].data, mats[1].data)
+            assert counter.launches == before + 1
+        assert rel_err(outs["auto"], outs["off"]) <= RTOL
+
+
 def test_wrappers_reject_bad_input(dev):
     stack, n_c = random_stack(np.random.default_rng(0))
     ds = device_stack(stack, n_c, dev)
@@ -148,6 +300,18 @@ def test_wrappers_reject_bad_input(dev):
     plan = plan_panel_stack(stack2, n, n, n, c_win=16, a_cap=48, b_cap=48, chunk=4)
     with pytest.raises(TypeError, match="float64"):
         tile_stack_matmul_panel(a.double(), a.double(), device_panel_plan(plan, dev))
+    rplan = plan_panel_runs(stack2, n, n, n, c_win=16, a_cap=64, b_cap=64, chunk=4, runlen=2)
+    with pytest.raises(TypeError, match="float64"):  # K3 takes f32/bf16, as K2
+        tile_stack_matmul_panel_runs(a.double(), a.double(), device_panel_run_plan(rplan, dev))
+    with pytest.raises(IndexError):
+        tile_stack_matmul_panel_runs(a[:2], a[:2], device_panel_run_plan(rplan, dev))
+    gplan = device_group_plan(stack, n_c, 12, dev)
+    with pytest.raises(TypeError):
+        tile_stack_matmul_grouped(a.half(), a.half(), gplan)
+    with pytest.raises(IndexError):
+        tile_stack_matmul_grouped(a[:2], a[:2], gplan)
+    with pytest.raises(ValueError):
+        tile_stack_matmul_grouped(a8, a8, gplan)
 
 
 def test_executors_on_the_card(dev):
