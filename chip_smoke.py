@@ -10,12 +10,19 @@ Phases (any failure exits non-zero before the final line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: the CUDA kernels from ``dbcsr_tpu_torch/csrc`` with nvcc into the
-   git-ignored build directory (ptxas register report printed);
+   git-ignored build directory (ptxas register report printed); then the
+   card's own peaks from register-only loops (FFMA, and the FP64 ``mma``
+   shapes m16n8k8 and m8n8k4), so that a share of the data-sheet bound can
+   be read against what this card reaches;
 3. each kernel (K1 flat stack, K2 panel) against its plain PyTorch version
    on the card: f32 and bf16→f32, T=128 and T=32, a stack with one long run
-   per C tile and a banded panel plan with a clamped last group; the
+   per C tile and a banded panel plan with a clamped last group; K2's
+   blocked routine (T=128/64) on runs of 48, runs of 1, a ragged stack with
+   empty C tiles and the banded plan, bitwise against K1 and against itself,
+   and with tile slots past 2³¹ elements of offset; the
    float64 stack kernel (the port of K6) at T=128/64/32 on runs of 48, runs
-   of 1 and a banded stack, against its plain version and a host float64
+   of 1, a ragged stack, a banded stack and far slots, against its plain
+   version and a host float64
    recomputation of sampled C tiles; K5 (band), K4 (grouped) and K3
    (run-fused panel) at T=128/64/32/16 with f32, bf16 and (K4, K5) f64
    inputs, against their plain versions and a host float64 recomputation,
@@ -33,14 +40,20 @@ Phases (any failure exits non-zero before the final line):
    path at the H2O perf shape (``tests/inputs/H2O.perf``: 2208³, 23-blocks,
    80% of blocks stored), checked against a float64 dense product;
 6. CUDA-event medians of the executors, the kernels alone and their plain
-   versions at the phase-4 shape, as GFLOP/s beside the card and its limit;
+   versions at the phase-4 shape, as GFLOP/s beside the card and its limit,
+   each kernel's TFLOP/s and share of its bound, and the steady-state rates
+   of K1, K2 and the float64 kernel on synthetic stacks (runs of 32 and of 1
+   over tiles that stay in L2), which split a kernel's time into its inner
+   loop and its cost per C tile;
 7. the double-precision filtered SCF path at the phase-4 shape in float64,
    with ``bench.py``'s off-diagonal decay exp(-1.5·|bi-bj|) and
    ``filter_eps`` = 1e-5: ``build_filtered_executor`` steps over three data
    variants (the float64 kernel must run, K1/K2 must not), each step against
    the same step through the kernel's plain version, ``compact()`` against
    the one-shot ``multiply(filter_eps=...)``, and CUDA-event medians of the
-   step, its superset product, the kernel alone and its plain version; then
+   step, its superset product, the kernel alone and its plain version, and
+   of the old design on the same stack (the ``band`` route's float64
+   kernel, a DFMA loop; K1 for K2), held to the new kernel's result; then
    the same once in float32, where the step runs K2;
 8. the McWeeny purification loop of ``tests/test_purification.py`` on the
    card (T=16, ``mm_driver="stack"``, so every product takes the float64
@@ -216,6 +229,127 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: what this card reaches from registers alone
+# ---------------------------------------------------------------------------
+
+#: register-only loops: 64 independent FFMA chains a thread; 8 independent
+#: FP64 ``mma`` accumulator tiles a warp, in Hopper's m16n8k8 shape and in
+#: Ampere's m8n8k4. 8 blocks of 256 threads an SM; each result is written so
+#: that nothing is optimised away. rates[0..2] receive TFLOP/s.
+PEAK_RATES_CU = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) ffma_loop(float* out, int iters)
+{
+    float acc[32], a = threadIdx.x * 1e-6f, b = 1.0f + blockIdx.x * 1e-7f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = i;
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = fmaf(a, b, acc[i]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = fmaf(b, acc[i], a);
+    }
+    float s = 0;
+    for (int i = 0; i < 32; ++i) s += acc[i];
+    out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+template <bool Hopper>
+__global__ void __launch_bounds__(256) dmma_loop(double* out, int iters)
+{
+    double d[8][4], a[4], b[2];
+    for (int i = 0; i < 8; ++i)
+        for (int j = 0; j < 4; ++j) d[i][j] = 0;
+    for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * 1e-9 + i;
+    for (int i = 0; i < 2; ++i) b[i] = 1e-9 * (i + 1);
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            if (Hopper)
+                asm volatile(
+                    "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+                    "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                    : "+d"(d[i][0]), "+d"(d[i][1]), "+d"(d[i][2]), "+d"(d[i][3])
+                    : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+            else
+                asm volatile(
+                    "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};"
+                    : "+d"(d[i][0]), "+d"(d[i][1]) : "d"(a[0]), "d"(b[0]));
+        }
+    }
+    double s = 0;
+    for (int i = 0; i < 8; ++i)
+        for (int j = 0; j < 4; ++j) s += d[i][j];
+    out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+template <typename F> static float timed(F launch)
+{
+    cudaEvent_t e0, e1;
+    cudaEventCreate(&e0);
+    cudaEventCreate(&e1);
+    launch();  // warm-up
+    cudaEventRecord(e0);
+    launch();
+    cudaEventRecord(e1);
+    cudaEventSynchronize(e1);
+    float ms = 0;
+    cudaEventElapsedTime(&ms, e0, e1);
+    cudaEventDestroy(e0);
+    cudaEventDestroy(e1);
+    return ms;
+}
+extern "C" int peak_rates(int device, int sms, double* rates)
+{
+    int err = (int)cudaSetDevice(device);
+    if (err) return err;
+    const int blocks = sms * 8, iters = 8192;
+    void* buf = nullptr;
+    err = (int)cudaMalloc(&buf, (size_t)blocks * 256 * sizeof(double));
+    if (err) return err;
+    const double warps = (double)blocks * 8;
+    float ms = timed([&] { ffma_loop<<<blocks, 256>>>((float*)buf, iters); });
+    rates[0] = 2.0 * 64 * iters * blocks * 256 / ms / 1e9;
+    ms = timed([&] { dmma_loop<true><<<blocks, 256>>>((double*)buf, iters); });
+    rates[1] = 2.0 * 16 * 8 * 8 * 8 * iters * warps / ms / 1e9;
+    ms = timed([&] { dmma_loop<false><<<blocks, 256>>>((double*)buf, iters); });
+    rates[2] = 2.0 * 8 * 8 * 4 * 8 * iters * warps / ms / 1e9;
+    err = (int)cudaDeviceSynchronize();
+    cudaFree(buf);
+    return err ? err : (int)cudaGetLastError();
+}
+"""
+
+
+def phase_calibration(dev) -> dict:
+    """Builds ``PEAK_RATES_CU`` with the port's nvcc and flags into the build
+    directory and runs it once: {"ffma", "dmma_m16n8k8", "dmma_m8n8k4"} in
+    TFLOP/s. The data-sheet peaks stay the bound; these say how much of a
+    shortfall is the card's and how much the kernel's."""
+    import ctypes
+
+    import torch
+
+    from dbcsr_tpu_torch import _build
+
+    src = os.path.join(_build.build_dir(), "peak_rates.cu")
+    lib_path = os.path.join(_build.build_dir(), "libpeak_rates.so")
+    with open(src, "w") as f:
+        f.write(PEAK_RATES_CU)
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib_path, src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"nvcc failed for the peak-rate loops:\n{res.stdout}\n{res.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.peak_rates.restype = ctypes.c_int
+    lib.peak_rates.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
+    rates = (ctypes.c_double * 3)()
+    sync(dev)
+    rc = lib.peak_rates(dev.index, torch.cuda.get_device_properties(dev).multi_processor_count, rates)
+    if rc != 0:
+        fail(f"the peak-rate loops returned CUDA error {rc}")
+    return {"ffma": rates[0], "dmma_m16n8k8": rates[1], "dmma_m8n8k4": rates[2]}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -239,6 +373,104 @@ def long_run_stack(rng, n_c: int, run: int, n_a: int, n_b: int):
         [c, rng.integers(0, n_a, len(c)).astype(np.int32),
          rng.integers(0, n_b, len(c)).astype(np.int32)], axis=1,
     )
+
+
+def ragged_stack(rng, n_c: int, n_a: int, n_b: int, max_run: int = 9):
+    """Runs of random length 0..max_run: some C tiles have no entry (their
+    product is a zero tile) and the runs straddle every pipeline depth."""
+    runs = rng.integers(0, max_run + 1, n_c)
+    runs[rng.integers(0, n_c, 3)] = 0
+    c = np.repeat(np.arange(n_c, dtype=np.int32), runs)
+    return np.stack(
+        [c, rng.integers(0, n_a, len(c)).astype(np.int32),
+         rng.integers(0, n_b, len(c)).astype(np.int32)], axis=1,
+    )
+
+
+#: tiles of 128² whose element offsets pass 2³¹: slot 131,072 and beyond
+FAR_TILES = 131_072 + 128
+
+
+def far_stack(rng, n_c: int, run: int):
+    """Every entry reads slots in the last 128 tiles of a FAR_TILES store."""
+    st = long_run_stack(rng, n_c, run, 128, 128)
+    st[:, 1:] += FAR_TILES - 128
+    return st
+
+
+def far_store(gen, dev, dtype):
+    """A [FAR_TILES, 128, 128] store with only its last 128 tiles filled (the
+    far stacks read nothing else): 8.6 GB in float32, 17.2 GB in float64."""
+    import torch
+
+    a = torch.empty((FAR_TILES, 128, 128), device=dev, dtype=dtype)
+    a[-128:] = torch.randn((128, 128, 128), generator=gen, device=dev,
+                           dtype=torch.float64 if dtype == torch.float64 else torch.float32).to(dtype)
+    return a
+
+
+def phase_kernels_k2_blocked(dev) -> float:
+    """K2's blocked routine (T = 128 and 64) where its design could go
+    wrong: runs of 1 (the ring never fills), of 48 (it wraps many times),
+    ragged runs with empty C tiles, the banded plan with a clamped last
+    group, float32 and bf16 slabs, and tile offsets past 2³¹ elements; each
+    against the plain version, bitwise against K1 on the same stack and
+    bitwise against a second launch. Returns the worst absolute error."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.kernels import device_stack, tile_stack_matmul
+    from dbcsr_tpu_torch.mm.panel import (
+        device_panel_plan, plan_panel_stack, tile_stack_matmul_panel,
+        tile_stack_matmul_panel_plain,
+    )
+
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = 0.0
+    f32 = torch.float32
+    bstack, n_band = banded_tile_stack(mt=60, w=2)
+    cases = [("runs of 48", long_run_stack(rng, 37, 48, 96, 96), 37, 96),
+             ("runs of 1", long_run_stack(rng, 69, 1, 96, 96), 69, 96),
+             ("ragged, empty tiles", ragged_stack(rng, 53, 96, 96), 53, 96),
+             ("banded", bstack, n_band, n_band)]
+
+    def check(label, tile, dtype, st, n_c, a, b, n_store):
+        nonlocal worst
+        plan = plan_panel_stack(st, n_c, n_store, n_store, c_win=16, a_cap=n_store,
+                                b_cap=n_store, chunk=1)
+        if plan is None or plan.gstart[-1] % plan.c_win == 0:
+            fail(f"K2 case {label!r} must plan with a clamped last group")
+        dp = device_panel_plan(plan, dev)
+        got = tile_stack_matmul_panel(a, b, dp, out_dtype=f32)
+        again = tile_stack_matmul_panel(a, b, dp, out_dtype=f32)
+        flat = tile_stack_matmul(a, b, device_stack(st, n_c, dev), out_dtype=f32)
+        ref = tile_stack_matmul_panel_plain(a, b, plan, out_dtype=f32)
+        sync(dev)
+        err, rel = rel_err(got, ref)
+        picks = np.sort(rng.choice(n_c, size=6, replace=False))
+        herr, hrel = rel_err(got[picks].cpu(),
+                             torch.as_tensor(host_f64_tiles(a, b, st, picks)))
+        worst = max(worst, err, herr)
+        same, k1 = bool(torch.equal(got, again)), bool(torch.equal(got, flat))
+        log(f"  K2 T={tile:3d} {str(dtype)[6:]:8s} {label:20s} S={len(st):5d} max_abs_err={err:.3e} "
+            f"rel={rel:.2e}; vs host float64 rel={hrel:.2e} (bound {KERNEL_RTOL:.0e}); "
+            f"K1 == K2 bitwise: {k1}; two launches bitwise equal: {same}")
+        if not (rel <= KERNEL_RTOL and hrel <= KERNEL_RTOL and same and k1):
+            fail(f"K2 disagrees ({label}, T={tile}, {dtype})")
+
+    for tile in (128, 64):
+        for dtype in (f32, torch.bfloat16):
+            for label, st, n_c, n_store in cases:
+                a = torch.randn((n_store, tile, tile), generator=gen, device=dev).to(dtype)
+                b = torch.randn((n_store, tile, tile), generator=gen, device=dev).to(dtype)
+                check(label, tile, dtype, st, n_c, a, b, n_store)
+    for dtype in (f32, torch.bfloat16):
+        a = far_store(gen, dev, dtype)
+        check("slots past 2^31", 128, dtype, far_stack(rng, 21, 3), 21, a, a, FAR_TILES)
+        del a
+    torch.cuda.empty_cache()
+    return worst
 
 
 def phase_kernels(dev) -> dict:
@@ -333,8 +565,14 @@ def phase_kernels_f64(dev) -> float:
         b = torch.randn((n_st, tile, tile), generator=gen, device=dev, dtype=torch.float64)
         cases = [("runs of 48", long_run_stack(rng, n_c=32, run=48, n_a=96, n_b=96), 32),
                  ("runs of 1", long_run_stack(rng, n_c=64, run=1, n_a=96, n_b=96), 64),
+                 ("ragged", ragged_stack(rng, 53, 96, 96), 53),
                  ("banded", bstack, n_band)]
+        if tile == 128:  # last: it swaps the stores for one of 17.2 GB
+            cases.append(("far slots", far_stack(rng, 21, 3), 21))
         for label, st, n_c in cases:
+            if label == "far slots":
+                del a, b
+                a = b = far_store(gen, dev, torch.float64)
             ds = device_stack(st, n_c, dev)
             got = tile_stack_matmul_f64(a, b, ds)
             again = tile_stack_matmul_f64(a, b, ds)
@@ -353,6 +591,8 @@ def phase_kernels_f64(dev) -> float:
                 f"(bound {F64_RTOL:.0e}); two launches bitwise equal: {same}")
             if not (rel <= F64_RTOL and hrel <= F64_RTOL and same):
                 fail(f"the float64 kernel disagrees ({label}, T={tile})")
+        del a, b
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -707,18 +947,19 @@ def kernel_of(plan):
         tile_stack_matmul_panel, tile_stack_matmul_panel_runs,
     )
 
-    f32 = torch.float32
+    # the sums' type: float64 stores stay float64 (K4 and K5 take them)
+    acc = torch.float64 if plan.in_dtype == torch.float64 else torch.float32
     if plan.route == "f64_stack":
         return lambda x, y: tile_stack_matmul_f64(x, y, plan.stack)
     if plan.route == "panel":
-        return lambda x, y: tile_stack_matmul_panel(x, y, plan.panel, out_dtype=f32)
+        return lambda x, y: tile_stack_matmul_panel(x, y, plan.panel, out_dtype=acc)
     if plan.route == "panel_runs":
-        return lambda x, y: tile_stack_matmul_panel_runs(x, y, plan.panel, out_dtype=f32)
+        return lambda x, y: tile_stack_matmul_panel_runs(x, y, plan.panel, out_dtype=acc)
     if plan.route == "band":
-        return lambda x, y: band_matmul(x, y, plan.band, out_dtype=f32)
+        return lambda x, y: band_matmul(x, y, plan.band, out_dtype=acc)
     if plan.route == "grouped":  # the kernel and the join of its padded rows
-        return lambda x, y: tile_stack_matmul_grouped(x, y, plan.grouped, out_dtype=f32)
-    return lambda x, y: tile_stack_matmul(x, y, plan.stack, out_dtype=f32)
+        return lambda x, y: tile_stack_matmul_grouped(x, y, plan.grouped, out_dtype=acc)
+    return lambda x, y: tile_stack_matmul(x, y, plan.stack, out_dtype=acc)
 
 
 def phase_times(a, b, execs, card: str) -> dict:
@@ -746,7 +987,54 @@ def phase_times(a, b, execs, card: str) -> dict:
         log(f"  {driver + '@' + prec:16s} {ex:9.3f} {km:10.3f} {pm:9.3f} "
             f"{eff / ex / 1e6:9.1f} {hw / km / 1e6:9.1f} {hw / pm / 1e6:13.1f}"
             f"   [{plan.route}, kernel runs {k1:.3f}/{k2:.3f}, plain runs {p1:.3f}/{p2:.3f}]")
+        log("  " + rate_line(f"{plan.route} kernel", km, plan_counts(a, b, plan), "float32"))
     return rows
+
+
+def plan_counts(a, b, plan) -> tuple:
+    """(A tiles, B tiles, planned C tiles, tile products) of an executor."""
+    tp = plan.tile_plan
+    return a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack)
+
+
+def rate_line(what: str, ms: float, counts: tuple, dtype: str) -> str:
+    """A kernel's TFLOP/s of tile products done and its share of the bound."""
+    size = 8 if dtype == "float64" else 4
+    bound_ms, bound_by = kernel_bound(*counts, 128, size, size, dtype)
+    return (f"{what}: {ms:.3f} ms = {2.0 * counts[3] * 128**3 / ms / 1e9:.1f} TFLOP/s, "
+            f"bound {bound_ms:.3f} ms by {bound_by}: {bound_ms / ms:.1%} of it")
+
+
+def phase_steady_state(dev) -> None:
+    """K1, K2 and the float64 kernel on synthetic stacks whose 64 operand
+    tiles stay in L2: runs of 32 (the inner loop's own rate: prologue and
+    epilogue are 3% of a C tile) against runs of 1 (one tile product a C
+    tile: what a C tile costs beyond its products)."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
+    from dbcsr_tpu_torch.mm.kernels import device_stack, tile_stack_matmul
+    from dbcsr_tpu_torch.mm.panel import (
+        device_panel_plan, plan_panel_stack, tile_stack_matmul_panel,
+    )
+
+    rng = np.random.default_rng(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x32 = torch.randn((64, 128, 128), device=dev)
+    x64 = x32.double()
+    for run, per_sm in ((32, 8), (1, 128)):
+        n_c = sms * per_sm
+        st = long_run_stack(rng, n_c, run, 64, 64)
+        ds = device_stack(st, n_c, dev)
+        dp = device_panel_plan(
+            plan_panel_stack(st, n_c, 64, 64, c_win=16, a_cap=64, b_cap=64, chunk=1), dev)
+        ms = {"K1": cuda_median_ms(lambda: tile_stack_matmul(x32, x32, ds), reps=5),
+              "K2": cuda_median_ms(lambda: tile_stack_matmul_panel(x32, x32, dp), reps=5),
+              "float64": cuda_median_ms(lambda: tile_stack_matmul_f64(x64, x64, ds), reps=5)}
+        flop = 2.0 * len(st) * 128**3
+        log(f"  {n_c} C tiles, runs of {run:2d} over 64 tiles: " + ", ".join(
+            f"{k} {flop / t / 1e9:.1f} TFLOP/s ({t / n_c * sms * 1e3:.2f} us a C tile an SM)"
+            for k, t in ms.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1181,32 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
         f"{hw / pm / 1e6:.1f}; step {ex.eff_flops / st / 1e6:.1f} GFLOP/s effective "
         f"({ex.eff_flops / 1e9:.1f} GFLOP of block products)")
     out.update(kernel_ms=km, plain_ms=pm, step_ms=st, fn_ms=fm)
+
+    # the design this kernel replaced, on the same stack in the same run: the
+    # shared routine of tile_product.cuh, which K1 (float32) and the band
+    # route's float64 instantiation (a DFMA loop) still run
+    old_mode, old_route = ("band", "band") if f64 else ("stack", "stack")
+    fn_old = dt.build_multiply_executor("N", "N", a, b, driver=old_mode)[0]
+    if fn_old.plan.route != old_route or len(fn_old.plan.tile_plan.stack) != len(tp.stack):
+        fail(f"{name}: driver={old_mode!r} took route {fn_old.plan.route}")
+    a_old, b_old = (x.to(fn_old.plan.in_dtype) for x in fn_old.plan.op_stores(a.data, b.data))
+    old = kernel_of(fn_old.plan)
+    err, rel = rel_err(old(a_old, b_old), kern(a_in, b_in))
+    if not rel <= rtol:
+        fail(f"{name}: the {old_route} route's kernel and the new kernel disagree ({rel:.2e})")
+    o1 = cuda_median_ms(lambda: old(a_old, b_old), reps=10)
+    n1 = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
+    n2 = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
+    o2 = cuda_median_ms(lambda: old(a_old, b_old), reps=10)
+    om, nm = float(np.median([o1, o2])), float(np.median([n1, n2]))
+    log(f"  {name} old design on the same stack (driver={old_mode!r}, tile_run): agrees to "
+        f"rel={rel:.2e} (bound {rtol:.0e}); new/old = {nm / om:.3f} "
+        f"[old runs {o1:.3f}/{o2:.3f}, new runs {n1:.3f}/{n2:.3f}]")
+    log("  " + rate_line(f"{name} old design", om, out["counts"], name))
+    log("  " + rate_line(f"{name} new kernel", nm, out["counts"], name))
+    if not nm < om:
+        fail(f"{name}: the redesigned kernel ({nm:.3f} ms) is not faster than the old design ({om:.3f} ms)")
+    out.update(old_ms=om)
     return out
 
 
@@ -1394,15 +1708,30 @@ def main() -> int:
         f"{len(spills)} with spills")
     for line in spills:
         log("    " + line.strip())
+    # the redesigned kernels, each with its registers and spills
+    entry_fn = ""
+    for line in info.log.splitlines():
+        if "Compiling entry function" in line:
+            entry_fn = line.split("'")[1]
+        elif "blocked_kernel" in entry_fn or "mma_kernel" in entry_fn:
+            if "spill" in line or "Used" in line:
+                log(f"    {entry_fn}: {line.strip().replace('ptxas info    : ', '')}")
+            if "Used" in line:
+                entry_fn = ""
     from dbcsr_tpu_torch.native import native_available
     if not native_available():
         fail("the native host planner (dbcsr_tpu_torch/native/stackbuild.cpp, g++) "
              "did not build: the numpy planner would change the set-up times")
     log("    native host planner: built")
+    peaks = phase_calibration(dev)
+    log(f"    this card from registers alone: FFMA {peaks['ffma']:.1f} TFLOP/s (data sheet "
+        f"{PEAK_FLOPS['float32'] / 1e12:.0f}); FP64 mma m16n8k8 {peaks['dmma_m16n8k8']:.1f} TFLOP/s "
+        f"(data sheet {PEAK_FLOPS['float64'] / 1e12:.0f}), m8n8k4 {peaks['dmma_m8n8k4']:.1f}")
 
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions on the card")
-    phase_kernels(dev)
+    k12_err = phase_kernels(dev)
+    k12_err["K2"] = max(k12_err["K2"], phase_kernels_k2_blocked(dev))
     f64_err = phase_kernels_f64(dev)
     new_err = phase_kernels_new(dev)
     if args.quick:
@@ -1424,6 +1753,7 @@ def main() -> int:
     # 6. times
     log("[6] times (CUDA-event medians)")
     rows = phase_times(a, b, execs, card)
+    phase_steady_state(dev)
     log(f"    peak device memory so far {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     counts14 = {k: (a.data.shape[0], b.data.shape[0], fn.plan.tile_plan.n_c_tiles,
                     len(fn.plan.tile_plan.stack))
@@ -1488,7 +1818,7 @@ def main() -> int:
     def entry14(kname, source, replaces, key, route_key):
         r = rows[("highest", route_key)]
         return entry(kname, source, replaces, launches[key],
-                     max(errs[("highest", route_key)], errs[("default", route_key)]),
+                     max(errs[("highest", route_key)], errs[("default", route_key)], k12_err[key]),
                      r["kernel_ms"], r["plain_ms"], counts14[("highest", route_key)])
 
     def entry9(kname, source, replaces, key):

@@ -29,11 +29,17 @@ __all__ = [
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = (
-    "stack_matmul.cu", "panel_matmul.cu", "stack_matmul_f64.cu",
-    "band_matmul.cu", "grouped_matmul.cu", "panel_runs_matmul.cu",
-)
-_HEADERS = ("tile_product.cuh",)
+
+
+def _csrc_files(suffix: str) -> tuple:
+    return tuple(sorted(f for f in os.listdir(_CSRC) if f.endswith(suffix)))
+
+
+#: every translation unit and every header under ``csrc/``, from the
+#: directory itself: a file that is there is compiled (or hashed), so a new
+#: header cannot be left out of the library's name
+_SOURCES = _csrc_files(".cu")
+_HEADERS = _csrc_files(".cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,5 +1,5 @@
 // The float64 stack kernel: C[c] = Σ_{e in run c} A[a_idx[e]] @ B[b_idx[e]]
-// with float64 inputs, float64 products and float64 sums (IEEE DFMA).
+// with float64 inputs, float64 products and float64 sums.
 //
 // Replaces the TPU kernel dbcsr_tpu/mm/ozaki_panel.py:_ozaki_panel_kernel
 // (launched by _ozaki_panel_launch / tile_stack_matmul_ozaki_panel), and with
@@ -10,30 +10,37 @@
 // cascade into three f32 planes; that scheme admits only T = 128 and at most
 // 8 entries per C tile (the f32 exactness bound). The H100 computes float64
 // natively, so none of the slicing carries over: this kernel reads the same
-// c-sorted stack as K1 (run offsets c_ptr[n_c+1], a/b columns) and one block
-// per (C tile, BM×BM sub-tile) walks its whole run in stack order through the
-// shared routine in tile_product.cuh, instantiated for double. It takes every
-// T in KERNEL_TILES and runs of any length. Each C element is summed by one
-// thread in stack order and written once, with no atomics, so the result is
-// bitwise deterministic.
+// c-sorted stack as K1 (run offsets c_ptr[n_c+1], a/b columns), takes every
+// T in KERNEL_TILES and runs of any length. One block owns its output
+// region, walks its run in stack order and writes it once, with no atomics:
+// two launches are bitwise equal.
 //
 // What bounds it on an H100: each stack entry reads one A and one B tile and
-// does 2·T³ flops — at T=128 in f64, 256 KB for 4.2 MFLOP, 16 flop/byte
-// from HBM (above the ~10 flop/byte ridge of DFMA, 34 TFLOP/s over
-// 3.35 TB/s), and neighbouring C tiles of a banded stack share their tiles
-// through the 50 MB L2. So it is compute-bound, and with this design the
-// inner loop is bound by DFMA issue and the shared-memory reads feeding it:
-// per k step a thread reads 4 + 4 doubles for 16 DFMAs (64×64 sub-tile,
-// 256 threads, 4×4 micro-tile strided by 16, 16 double accumulators =
-// 32 registers, 16.6 KB of shared memory per block). The K1/K2 design is
-// kept so the three kernels share one routine; the f64 staging doubles the
-// shared-memory bytes per k step, which is what a later kernel removes:
-// FP64 tensor cores (mma.sync.aligned.m8n8k4.row.col.f64, 67 TFLOP/s dense)
-// fed by cp.async/TMA double buffering.
-#include "tile_product.cuh"
+// does 2·T³ flops — at T=128 in f64, 256 KB for 4.2 MFLOP, 16 flop/byte.
+// That is under the tensor cores' HBM ridge (67 TFLOP/s over 3.35 TB/s = 20
+// flop/byte), but neighbouring C tiles of a banded stack share their tiles
+// through the 50 MB L2, and reading each tile once takes half the time of
+// the operations. So it is bound by operations at the FP64 tensor-core rate,
+// and next by what L2 can deliver (4 TB/s at that rate).
+//
+// T = 128 and T = 64 run on the FP64 tensor cores: one block of 256 threads
+// per C tile, mma.sync m16n8k8 over 64×32 (T = 64: 32×16) warp tiles held in
+// registers, K chunks of 16 brought by cp.async into a four-slot ring of
+// dynamic shared memory that runs across the entries of the run
+// (tile_mma_f64.cuh has the layout; T = 128: 164,864 bytes, 218 registers
+// a thread and one block an SM, T = 64: 82,944 bytes, 91 registers and two;
+// no spills). Sums inside one mma are taken in the
+// hardware's order, so the result agrees with a DFMA chain to rounding
+// (1e-12 of the largest entry), not bitwise.
+//
+// T = 16 and T = 32 keep the DFMA routine tile_run<double> of
+// tile_product.cuh (one block per tile, 16×16 threads, a 1×1 or 2×2
+// micro-tile): a 16-row mma tile spread over 8 warps reuses nothing there.
+#include "tile_mma_f64.cuh"
 
 namespace dbcsr_torch {
 
+// T = 16, 32: DFMA, one block per (C tile, sub-tile) — here one per tile
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 stack_matmul_f64_kernel(const double* __restrict__ A, const double* __restrict__ B,
@@ -41,14 +48,27 @@ stack_matmul_f64_kernel(const double* __restrict__ A, const double* __restrict__
                         const int* __restrict__ a_idx, const int* __restrict__ b_idx)
 {
     using S = SubTile<T>;
-    constexpr int NS = T / S::BM;
-    const int64_t c = blockIdx.x / S::kPerTile;
-    const int sub = blockIdx.x % S::kPerTile;
-    const int r0 = (sub / NS) * S::BM, c0 = (sub % NS) * S::BM;
+    static_assert(S::kPerTile == 1, "the DFMA routine serves T <= 32 here");
+    const int64_t c = blockIdx.x;
     // 64-bit tile offset: c·T² crosses 2³¹ doubles past 131,072 tiles at T=128
     tile_run<double, T, S::BM>(
-        A, B, C + c * (T * T), r0, c0, c_ptr[c], c_ptr[c + 1],
+        A, B, C + c * (T * T), 0, 0, c_ptr[c], c_ptr[c + 1],
         [=](int e) { return make_int2(a_idx[e], b_idx[e]); });
+}
+
+// T = 64, 128: FP64 tensor cores, one block per C tile
+template <int T>
+__global__ void __launch_bounds__(kThreads, T == 128 ? 1 : 2)
+stack_matmul_f64_mma_kernel(const double* __restrict__ A, const double* __restrict__ B,
+                            double* __restrict__ C, const int* __restrict__ c_ptr,
+                            const int* __restrict__ a_idx, const int* __restrict__ b_idx)
+{
+    extern __shared__ __align__(16) unsigned char ring[];
+    const int64_t c = blockIdx.x;
+    tile_run_mma_f64<T>(
+        A, B, C + c * (T * T), c_ptr[c], c_ptr[c + 1],
+        [=](int e) { return make_int2(a_idx[e], b_idx[e]); },
+        reinterpret_cast<double*>(ring));
 }
 
 }  // namespace dbcsr_torch
@@ -62,6 +82,7 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     int err = (int)cudaSetDevice(device);
     if (err) return err;
     if (n_c <= 0) return 0;
+    if (n_c > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     const double* A = static_cast<const double*>(a);
     const double* B = static_cast<const double*>(b);
     double* C = static_cast<double*>(c);
@@ -69,11 +90,19 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     const int* ai = static_cast<const int*>(a_idx);
     const int* bi = static_cast<const int*>(b_idx);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned blocks = (unsigned)n_c;
     return dispatch_tile<double>(tile, [&](auto, auto tile_tag) {
         constexpr int T = decltype(tile_tag)::value;
-        const unsigned blocks = tile_grid<T>(n_c);
-        if (!blocks) return (int)cudaErrorInvalidConfiguration;
-        stack_matmul_f64_kernel<T><<<blocks, kThreads, 0, s>>>(A, B, C, cp, ai, bi);
+        if constexpr (T >= 64) {
+            constexpr int smem = MmaF64<T>::kSmemBytes;
+            // above the 48 KB static limit: opt in (per device, so on every call)
+            err = (int)cudaFuncSetAttribute(stack_matmul_f64_mma_kernel<T>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err) return err;
+            stack_matmul_f64_mma_kernel<T><<<blocks, kThreads, smem, s>>>(A, B, C, cp, ai, bi);
+        } else {
+            stack_matmul_f64_kernel<T><<<blocks, kThreads, 0, s>>>(A, B, C, cp, ai, bi);
+        }
         return (int)cudaGetLastError();
     });
 }

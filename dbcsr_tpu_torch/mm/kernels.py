@@ -137,10 +137,21 @@ def _check_stores(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     return int(a.shape[1])
 
 
+def check_store_alignment(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    """The kernels copy 16 bytes at a time (``cp.async``, 128-bit loads), so
+    a tile store must be contiguous and start on a 16-byte boundary: every
+    row of a tile then does too. Stores from ``torch.empty`` always do; a
+    view that starts inside another tensor may not."""
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: tile stores must be contiguous")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{what}: tile stores must start on a 16-byte boundary")
+
+
 def check_cuda_operands(a, b, index_tensors, what: str, dtypes) -> int:
     """Checks shared by the CUDA wrappers: device, dtype (one of
-    ``dtypes``), tile edge and contiguity of the stores and the plan
-    arrays; returns the tile edge."""
+    ``dtypes``), tile edge, contiguity and 16-byte alignment of the stores
+    and contiguity of the plan arrays; returns the tile edge."""
     tile = _check_stores(a, b, what)
     if a.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {a.device}")
@@ -149,8 +160,7 @@ def check_cuda_operands(a, b, index_tensors, what: str, dtypes) -> int:
         raise TypeError(f"{what}: no kernel for dtype {a.dtype}{hint}")
     if tile not in KERNEL_TILES:
         raise ValueError(f"{what}: tile edge {tile} not in {KERNEL_TILES}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"{what}: tile stores must be contiguous")
+    check_store_alignment(a, b, what)
     for t in index_tensors:
         if t.device != a.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(

@@ -1,0 +1,91 @@
+"""The port's kernel build, as far as a machine without nvcc can hold it:
+every file under ``dbcsr_tpu_torch/csrc/`` is compiled or hashed into the
+library's name and ships as package data, an edited header changes the
+name (so a stale library cannot load), and the wrappers' 16-byte alignment
+rule for tile stores (the kernels copy with ``cp.async`` and 128-bit loads).
+"""
+import fnmatch
+import os
+import shutil
+
+import pytest
+import torch
+
+from dbcsr_tpu_torch import _build
+from dbcsr_tpu_torch.mm.kernels import check_cuda_operands, check_store_alignment
+
+try:
+    import tomllib
+except ImportError:  # Python < 3.11
+    tomllib = None
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_every_csrc_file_is_built_or_hashed():
+    files = sorted(os.listdir(_build._CSRC))
+    assert files, "csrc/ is empty"
+    assert sorted(_build._SOURCES + _build._HEADERS) == files
+    assert all(f.endswith(".cu") for f in _build._SOURCES)
+    assert all(f.endswith(".cuh") for f in _build._HEADERS)
+    # the headers of the redesigned kernels are among them
+    assert {"tile_product.cuh", "tile_ring.cuh", "tile_product_f32.cuh",
+            "tile_mma_f64.cuh"} <= set(_build._HEADERS)
+
+
+@pytest.mark.skipif(tomllib is None, reason="tomllib needs Python 3.11")
+def test_every_csrc_file_is_package_data():
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]["dbcsr_tpu_torch"]
+    for name in os.listdir(_build._CSRC):
+        assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in data), name
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(_build._CSRC)))
+def test_editing_a_file_changes_the_library_name(name, tmp_path, monkeypatch):
+    """One byte more in any source or header, on a copy of csrc/, gives
+    another ``_library_path()``."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, copy)
+    monkeypatch.setattr(_build, "_CSRC", str(copy))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    before = _build._library_path()
+    assert before == _build._library_path()  # stable for unchanged files
+    with open(copy / name, "ab") as f:
+        f.write(b"\n")
+    after = _build._library_path()
+    assert after != before and os.path.dirname(after) == str(tmp_path / "_build")
+
+
+def test_flags_enter_the_library_name(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    before = _build._library_path()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DX=1",))
+    assert _build._library_path() != before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_store_alignment_rule(dtype):
+    """A contiguous view that starts off a 16-byte boundary is refused; the
+    same tiles at the start of a tensor pass."""
+    tile = 16
+    flat = torch.zeros(3 * tile * tile + 8, dtype=dtype)
+    good = flat[: 3 * tile * tile].view(3, tile, tile)
+    check_store_alignment(good, good, "test")
+    shift = 1 if dtype != torch.bfloat16 else 2  # 8 bytes (float64), 4 (float32, bf16)
+    bad = flat[shift: shift + 3 * tile * tile].view(3, tile, tile)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        check_store_alignment(bad, good, "test")
+    with pytest.raises(ValueError, match="16-byte"):
+        check_store_alignment(good, bad, "test")
+    with pytest.raises(ValueError, match="contiguous"):
+        check_store_alignment(good.transpose(1, 2), good, "test")
+
+
+def test_cuda_checks_refuse_cpu_tensors_before_anything_else():
+    """On the CPU the wrappers never reach the CUDA checks (they run the
+    plain versions); called directly, the checks name the device."""
+    a = torch.zeros(2, 16, 16)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        check_cuda_operands(a, a, (), "test", (torch.float32,))

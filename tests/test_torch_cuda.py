@@ -14,7 +14,9 @@ and plain version both accumulate in float32 — bf16 inputs are widened, so
 products are exact — in different orders, over at most 40·T terms); 1e-12
 for the float64 kernel (float64 sums of the same products in another
 order); K3, K4 and K5 take the same bounds (K4 and K5 also run in
-float64).
+float64). Since its redesign the float64 kernel sums inside one ``mma`` in
+the hardware's order, so it is bitwise equal only to itself (two launches);
+K2 in its blocked form remains bitwise equal to K1.
 """
 import numpy as np
 import pytest
@@ -136,6 +138,75 @@ def test_f64_kernel_matches_plain(dev, tile):
         assert got.dtype == torch.float64
         assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
         assert torch.equal(got, tile_stack_matmul_f64(a, b, ds))  # deterministic
+
+
+def run_stack(rng, n_c, run, n_tiles=12):
+    """Every C tile gets one run of ``run`` random (a, b) entries."""
+    c = np.repeat(np.arange(n_c), run)
+    return np.stack([c, rng.integers(0, n_tiles, len(c)),
+                     rng.integers(0, n_tiles, len(c))], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("run", [1, 3, 48])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_f64_mma_kernel_runs(dev, tile, run):
+    """The tensor-core routine (T = 64, 128) on runs shorter than, as long
+    as and far longer than its ring of K chunks: against the plain version
+    at 1e-12 (the order inside one mma is the hardware's, so not bitwise a
+    DFMA chain), and two launches bitwise equal."""
+    rng = np.random.default_rng(tile + run)
+    a = torch.randn(12, tile, tile, device=dev, dtype=torch.float64)
+    b = torch.randn(12, tile, tile, device=dev, dtype=torch.float64)
+    ds = device_stack(run_stack(rng, 21, run), 21, dev)
+    got = tile_stack_matmul_f64(a, b, ds)
+    assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
+    assert torch.equal(got, tile_stack_matmul_f64(a, b, ds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("run", [1, 3, 48])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_k2_blocked_matches_plain_and_k1_bitwise(dev, tile, run, dtype):
+    """The blocked routine (T = 64, 128) under a plan whose last group is
+    clamped: against its plain version, bitwise against K1 on the same stack
+    (one FFMA chain per C element, whatever the blocking) and bitwise
+    against a second launch."""
+    rng = np.random.default_rng(tile + run)
+    n_c = 21  # windows of 16: the last group is clamped to slot 5
+    stack = run_stack(rng, n_c, run)
+    plan = plan_panel_stack(stack, n_c, 12, 12, c_win=16, a_cap=12, b_cap=12, chunk=1)
+    assert plan.gstart[-1] % 16
+    a = torch.randn(12, tile, tile, device=dev).to(dtype)
+    b = torch.randn(12, tile, tile, device=dev).to(dtype)
+    dp = device_panel_plan(plan, dev)
+    got = tile_stack_matmul_panel(a, b, dp, out_dtype=torch.float32)
+    ref = tile_stack_matmul_panel_plain(a, b, plan, out_dtype=torch.float32)
+    assert rel_err(got, ref) <= 1e-4  # 48·128 float32 terms in another order
+    assert torch.equal(got, tile_stack_matmul(a, b, device_stack(stack, n_c, dev),
+                                              out_dtype=torch.float32))
+    assert torch.equal(got, tile_stack_matmul_panel(a, b, dp, out_dtype=torch.float32))
+
+
+def test_wrappers_reject_misaligned_stores(dev):
+    """A contiguous view that starts 8 bytes into its tensor: the kernels
+    copy 16 bytes at a time, so every wrapper refuses it."""
+    stack, n_c = random_stack(np.random.default_rng(0))
+    ds = device_stack(stack, n_c, dev)
+    flat = torch.randn(12 * 32 * 32 + 4, device=dev, dtype=torch.float64)
+    bad = flat[1: 1 + 12 * 32 * 32].view(12, 32, 32)
+    good = flat[: 12 * 32 * 32].view(12, 32, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tile_stack_matmul_f64(bad, good, ds)
+    bad32 = flat.float()[2: 2 + 12 * 32 * 32].view(12, 32, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tile_stack_matmul(bad32, bad32, ds)
+    stack2, n = banded_stack()
+    plan = plan_panel_stack(stack2, n, n, n, c_win=16, a_cap=48, b_cap=48, chunk=4)
+    flat32 = torch.randn(n * 32 * 32 + 4, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        tile_stack_matmul_panel(flat32[1: 1 + n * 32 * 32].view(n, 32, 32),
+                                flat32[: n * 32 * 32].view(n, 32, 32),
+                                device_panel_plan(plan, dev))
 
 
 DTYPES3 = [torch.float32, torch.bfloat16, torch.float64]
