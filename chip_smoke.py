@@ -16,10 +16,11 @@ Phases (any failure exits non-zero before the final line):
    be read against what this card reaches;
 3. each kernel (K1 flat stack, K2 panel) against its plain PyTorch version
    on the card: f32 and bf16→f32, T=128 and T=32, a stack with one long run
-   per C tile and a banded panel plan with a clamped last group; K2's
-   blocked routine (T=128/64) on runs of 48, runs of 1, a ragged stack with
-   empty C tiles and the banded plan, bitwise against K1 and against itself,
-   and with tile slots past 2³¹ elements of offset; the
+   per C tile and a banded panel plan with a clamped last group; the
+   blocked routine (T=128/64) under K1 and K2 on runs of 48, runs of 1, a
+   ragged stack with empty C tiles and the banded plan, each against its
+   plain version, bitwise against the other and against itself, and with
+   tile slots past 2³¹ elements of offset; the
    float64 stack kernel (the port of K6) at T=128/64/32 on runs of 48, runs
    of 1, a ragged stack, a banded stack and far slots, against its plain
    version and a host float64
@@ -27,7 +28,10 @@ Phases (any failure exits non-zero before the final line):
    (run-fused panel) at T=128/64/32/16 with f32, bf16 and (K4, K5) f64
    inputs, against their plain versions and a host float64 recomputation,
    two launches bitwise equal, on small plans that hit their traps (negative
-   ``off_a`` on rectangular grids, group splits, ``runlen`` 2 and 4 with all
+   ``off_a`` on rectangular grids; for K4 each way its rows reach the C
+   store: split C runs joined by the ordered segment sum, the kernel writing
+   the store past padding rows, and C slots that no row produces, which must
+   be zero in a store on NaN-filled memory; ``runlen`` 2 and 4 with all
    three tiers, the clamped last group);
 4. the main path at a real size: the banded linear-scaling SCF pattern of
    ``bench.py`` (blocks of 5/13/23, band of ±12 blocks at 50% fill, T=128)
@@ -52,9 +56,11 @@ Phases (any failure exits non-zero before the final line):
    the same step through the kernel's plain version, ``compact()`` against
    the one-shot ``multiply(filter_eps=...)``, and CUDA-event medians of the
    step, its superset product, the kernel alone and its plain version, and
-   of the old design on the same stack (the ``band`` route's float64
-   kernel, a DFMA loop; K1 for K2), held to the new kernel's result; then
-   the same once in float32, where the step runs K2;
+   of the old design on the same stack (the ``band`` route's kernel K5,
+   which still runs ``tile_run``: a DFMA loop in float64), against which
+   the step's kernel and K4 (``driver="grouped"``, on the FP64 tensor cores
+   in float64) must agree and be faster; then the same once in float32,
+   where the step runs K2 and K1, K2 and K4 must equal K5 bit for bit;
 8. the McWeeny purification loop of ``tests/test_purification.py`` on the
    card (T=16, ``mm_driver="stack"``, so every product takes the float64
    kernel) with that test's assertions, against the same loop on CPU
@@ -63,7 +69,8 @@ Phases (any failure exits non-zero before the final line):
    ``build_multiply_executor``: ``driver="band"`` (K5), ``driver="grouped"``
    (K4) and ``panel_runlen=4`` under ``driver="panel"`` (K3), each against
    its plain version, a float64 host recomputation of sampled tiles and
-   phase 4's panel result, with CUDA-event medians and the plan figures;
+   phase 4's panel result, with CUDA-event medians and the plan figures (K4
+   must write the C store itself there: no join, no padded copy of C);
    then the RCM reordering on clustered-but-scrambled patterns: bench.py's
    ``clustered`` chain (blocks 5/13/23, coupling exp(-d/4) out to 15 blocks,
    numbering scrambled) at 60,000 rows with ``reorder`` "off" and "auto" and
@@ -197,6 +204,19 @@ def sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+_PEAK_BYTES = 0
+
+
+def peak_memory(dev) -> int:
+    """Peak device memory (bytes) of the run so far, kept across a reset of
+    torch's own peak counter."""
+    import torch
+
+    global _PEAK_BYTES
+    _PEAK_BYTES = max(_PEAK_BYTES, torch.cuda.max_memory_allocated(dev))
+    return _PEAK_BYTES
 
 
 def card_line() -> str:
@@ -409,16 +429,19 @@ def far_store(gen, dev, dtype):
     return a
 
 
-def phase_kernels_k2_blocked(dev) -> float:
-    """K2's blocked routine (T = 128 and 64) where its design could go
-    wrong: runs of 1 (the ring never fills), of 48 (it wraps many times),
-    ragged runs with empty C tiles, the banded plan with a clamped last
-    group, float32 and bf16 slabs, and tile offsets past 2³¹ elements; each
-    against the plain version, bitwise against K1 on the same stack and
-    bitwise against a second launch. Returns the worst absolute error."""
+def phase_kernels_k2_blocked(dev) -> dict:
+    """The blocked routine (T = 128 and 64) under K2 and under K1 where its
+    design could go wrong: runs of 1 (the ring never fills), of 48 (it wraps
+    many times), ragged runs with empty C tiles, the banded plan with a
+    clamped last group, float32 and bf16 inputs, and tile offsets past 2³¹
+    elements; each kernel against its plain version and a host float64
+    recomputation, bitwise against the other on the same stack and bitwise
+    against a second launch. Returns the worst absolute error of each."""
     import torch
 
-    from dbcsr_tpu_torch.mm.kernels import device_stack, tile_stack_matmul
+    from dbcsr_tpu_torch.mm.kernels import (
+        device_stack, tile_stack_matmul, tile_stack_matmul_plain,
+    )
     from dbcsr_tpu_torch.mm.panel import (
         device_panel_plan, plan_panel_stack, tile_stack_matmul_panel,
         tile_stack_matmul_panel_plain,
@@ -427,7 +450,7 @@ def phase_kernels_k2_blocked(dev) -> float:
     rng = np.random.default_rng(4)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    worst = 0.0
+    worst = {"K1": 0.0, "K2": 0.0}
     f32 = torch.float32
     bstack, n_band = banded_tile_stack(mt=60, w=2)
     cases = [("runs of 48", long_run_stack(rng, 37, 48, 96, 96), 37, 96),
@@ -444,20 +467,28 @@ def phase_kernels_k2_blocked(dev) -> float:
         dp = device_panel_plan(plan, dev)
         got = tile_stack_matmul_panel(a, b, dp, out_dtype=f32)
         again = tile_stack_matmul_panel(a, b, dp, out_dtype=f32)
-        flat = tile_stack_matmul(a, b, device_stack(st, n_c, dev), out_dtype=f32)
+        ds = device_stack(st, n_c, dev)
+        flat = tile_stack_matmul(a, b, ds, out_dtype=f32)
+        flat_again = tile_stack_matmul(a, b, ds, out_dtype=f32)
         ref = tile_stack_matmul_panel_plain(a, b, plan, out_dtype=f32)
+        ref1 = tile_stack_matmul_plain(a, b, ds, out_dtype=f32)
         sync(dev)
         err, rel = rel_err(got, ref)
+        err1, rel1 = rel_err(flat, ref1)
         picks = np.sort(rng.choice(n_c, size=6, replace=False))
-        herr, hrel = rel_err(got[picks].cpu(),
-                             torch.as_tensor(host_f64_tiles(a, b, st, picks)))
-        worst = max(worst, err, herr)
-        same, k1 = bool(torch.equal(got, again)), bool(torch.equal(got, flat))
-        log(f"  K2 T={tile:3d} {str(dtype)[6:]:8s} {label:20s} S={len(st):5d} max_abs_err={err:.3e} "
-            f"rel={rel:.2e}; vs host float64 rel={hrel:.2e} (bound {KERNEL_RTOL:.0e}); "
-            f"K1 == K2 bitwise: {k1}; two launches bitwise equal: {same}")
-        if not (rel <= KERNEL_RTOL and hrel <= KERNEL_RTOL and same and k1):
-            fail(f"K2 disagrees ({label}, T={tile}, {dtype})")
+        host = torch.as_tensor(host_f64_tiles(a, b, st, picks))
+        herr, hrel = rel_err(got[picks].cpu(), host)
+        herr1, hrel1 = rel_err(flat[picks].cpu(), host)
+        worst["K2"] = max(worst["K2"], err, herr)
+        worst["K1"] = max(worst["K1"], err1, herr1)
+        same = bool(torch.equal(got, again)) and bool(torch.equal(flat, flat_again))
+        k1 = bool(torch.equal(got, flat))
+        log(f"  K1|K2 T={tile:3d} {str(dtype)[6:]:8s} {label:20s} S={len(st):5d} max_abs_err="
+            f"{err1:.3e}|{err:.3e} rel={rel1:.2e}|{rel:.2e}; vs host float64 rel="
+            f"{hrel1:.2e}|{hrel:.2e} (bound {KERNEL_RTOL:.0e}); "
+            f"K1 == K2 bitwise: {k1}; two launches of each bitwise equal: {same}")
+        if not (max(rel, rel1, hrel, hrel1) <= KERNEL_RTOL and same and k1):
+            fail(f"K1 or K2 disagrees ({label}, T={tile}, {dtype})")
 
     for tile in (128, 64):
         for dtype in (f32, torch.bfloat16):
@@ -664,12 +695,19 @@ def phase_kernels_new(dev) -> dict:
     band_cases = [("rect, off_a=-3", 12, 20, 15, (-3, 5), (-6, 2), 0.7),
                   ("rect tall, off_a=2", 21, 9, 14, (2, 4), (-5, -1), 1.0),
                   ("square with holes", 40, 40, 40, (-2, 2), (-2, 2), 0.5)]
-    # K4: group/cache small enough to split C runs; the engine's defaults
+    # K4, each way its rows reach the C store: group/cache small enough to
+    # split C runs (padded rows, then the ordered segment sum); the engine's
+    # defaults on 30 C tiles (the kernel writes the store, 2 padding rows
+    # write nothing); ragged runs with empty C tiles (the kernel writes the
+    # store, the slots no row produces must come out zero)
     stack_long = long_run_stack(rng, n_c=30, run=40, n_a=96, n_b=96)
     bstack, n_band = banded_tile_stack(mt=60, w=2)
-    group_cases = [("runs of 40, group 4 cache 16", stack_long, 30, 96, 96, 4, 16),
-                   ("runs of 40, group 8 cache 128", stack_long, 30, 96, 96, 8, 128),
-                   ("banded, group 8 cache 8", bstack, n_band, n_band, n_band, 8, 8)]
+    stack_ragged = ragged_stack(rng, 53, 96, 96)
+    group_cases = [("runs of 40, group 4 cache 16", stack_long, 30, 96, 96, 4, 16, "split"),
+                   ("runs of 40, group 8 cache 128", stack_long, 30, 96, 96, 8, 128, "padding"),
+                   ("banded, group 8 cache 8", bstack, n_band, n_band, n_band, 8, 8, "split"),
+                   ("ragged, group 8 cache 128", stack_ragged, 53, 96, 96, 8, 128, "unproduced")]
+    on_poison = 0
     # K3: the banded stack with its column-major B numbering; n_c = 294 slots
     # in windows of 16 clamps the last group
     bc = np.asarray([(r, c) for r in range(60) for c in range(max(0, r - 2), min(60, r + 3))])
@@ -691,17 +729,42 @@ def phase_kernels_new(dev) -> dict:
                     lambda: band_matmul(a, b, dp, out_dtype=None if dtype == torch.float64 else torch.float32),
                     lambda: band_matmul_plain(a, b, bp, out_dtype=None if dtype == torch.float64 else torch.float32),
                     tp.stack, a, b, rng, worst)
-            for label, st, n_c, n_a, n_b, group, cache in group_cases:
+            for label, st, n_c, n_a, n_b, group, cache, way in group_cases:
                 gp = device_group_plan(st, n_c, n_b, dev, group=group, cache=cache)
-                if cache < 128 and gp.split_runs == 0:
-                    fail(f"grouped case {label!r} split no C run")
+                n_rows = gp.n_groups * gp.group
+                as_planned = {
+                    "split": gp.split_runs > 0 and gp.join is not None,
+                    "padding": gp.join is None and n_rows > n_c and not len(gp.zero_slots),
+                    "unproduced": gp.join is None and len(gp.zero_slots) > 0,
+                }[way]
+                if not as_planned:
+                    fail(f"grouped case {label!r} did not plan as {way}")
                 a, b = stores(n_a, n_b, tile, dtype)
                 out_dt = None if dtype == torch.float64 else torch.float32
+
+                def k4():
+                    # the kernel's output buffer comes from torch.empty: fill
+                    # a buffer of its size with NaN and free it first, so that
+                    # the allocator hands the kernel that memory and a tile
+                    # it should have written or zeroed shows
+                    nonlocal on_poison
+                    n_out = n_c if gp.join is None else n_rows
+                    poison = torch.full((n_out, tile, tile), float("nan"), device=dev,
+                                        dtype=torch.float64 if dtype == torch.float64 else torch.float32)
+                    ptr = poison.data_ptr()
+                    del poison
+                    out = tile_stack_matmul_grouped(a, b, gp, out_dtype=out_dt)
+                    on_poison += gp.join is None and out.data_ptr() == ptr
+                    return out
+
                 check_new_kernel(
-                    "K4", f"{label} splits={gp.split_runs}", tile, dtype,
-                    lambda: tile_stack_matmul_grouped(a, b, gp, out_dtype=out_dt),
+                    "K4", f"{label} [{way}]", tile, dtype, k4,
                     lambda: tile_stack_matmul_grouped_plain(a, b, gp, out_dtype=out_dt),
                     st, a, b, rng, worst)
+                if way == "unproduced":
+                    out = k4()
+                    if bool(out[gp.zero_slots].any()):
+                        fail(f"K4 left a C slot that no row produces non-zero (T={tile}, {dtype})")
             if dtype == torch.float64:
                 continue  # K3 takes float32 and bfloat16, as K2
             for runlen in (2, 4):
@@ -720,6 +783,9 @@ def phase_kernels_new(dev) -> dict:
                     lambda: tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32),
                     lambda: tile_stack_matmul_panel_runs_plain(a, b, rp, out_dtype=torch.float32),
                     bstack, a, b, rng, worst)
+    log(f"  K4: {on_poison} of its direct-write launches wrote a store on NaN-filled memory")
+    if not on_poison:
+        fail("K4's direct-write cases never ran on NaN-filled memory: the check is vacuous")
     return worst
 
 
@@ -870,6 +936,17 @@ def phase_main_path(dev, nrows: int):
     sync(dev)
     launches = {"K1": tile_stack_matmul.launches, "K2": tile_stack_matmul_panel.launches}
     log(f"  main-path launches: K1 {launches['K1']}, K2 {launches['K2']}")
+    for prec in ("highest", "default"):
+        # one routine, one FFMA chain per C element: the flat and the panel
+        # route agree bit for bit where they take the same input type
+        if execs[(prec, "auto")][0].plan.in_dtype != execs[(prec, "stack")][0].plan.in_dtype:
+            if prec == "highest":
+                fail("the flat and panel routes take different input types at 'highest'")
+            continue
+        same = bool(torch.equal(outs[(prec, "auto")], outs[(prec, "stack")]))
+        log(f"  K1 == K2 bitwise at {nrows} rows @ {prec}: {same}")
+        if not same:
+            fail(f"K1 and K2 differ at {nrows} rows @ {prec}")
 
     errs = {}
     for key, (fn, c_index, _) in execs.items():
@@ -1182,30 +1259,54 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
         f"({ex.eff_flops / 1e9:.1f} GFLOP of block products)")
     out.update(kernel_ms=km, plain_ms=pm, step_ms=st, fn_ms=fm)
 
-    # the design this kernel replaced, on the same stack in the same run: the
-    # shared routine of tile_product.cuh, which K1 (float32) and the band
-    # route's float64 instantiation (a DFMA loop) still run
-    old_mode, old_route = ("band", "band") if f64 else ("stack", "stack")
-    fn_old = dt.build_multiply_executor("N", "N", a, b, driver=old_mode)[0]
-    if fn_old.plan.route != old_route or len(fn_old.plan.tile_plan.stack) != len(tp.stack):
-        fail(f"{name}: driver={old_mode!r} took route {fn_old.plan.route}")
-    a_old, b_old = (x.to(fn_old.plan.in_dtype) for x in fn_old.plan.op_stores(a.data, b.data))
-    old = kernel_of(fn_old.plan)
-    err, rel = rel_err(old(a_old, b_old), kern(a_in, b_in))
-    if not rel <= rtol:
-        fail(f"{name}: the {old_route} route's kernel and the new kernel disagree ({rel:.2e})")
-    o1 = cuda_median_ms(lambda: old(a_old, b_old), reps=10)
-    n1 = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
-    n2 = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
-    o2 = cuda_median_ms(lambda: old(a_old, b_old), reps=10)
-    om, nm = float(np.median([o1, o2])), float(np.median([n1, n2]))
-    log(f"  {name} old design on the same stack (driver={old_mode!r}, tile_run): agrees to "
-        f"rel={rel:.2e} (bound {rtol:.0e}); new/old = {nm / om:.3f} "
-        f"[old runs {o1:.3f}/{o2:.3f}, new runs {n1:.3f}/{n2:.3f}]")
-    log("  " + rate_line(f"{name} old design", om, out["counts"], name))
-    log("  " + rate_line(f"{name} new kernel", nm, out["counts"], name))
-    if not nm < om:
-        fail(f"{name}: the redesigned kernel ({nm:.3f} ms) is not faster than the old design ({om:.3f} ms)")
+    # The design these kernels replaced, on the same stack in the same run:
+    # tile_run of tile_product.cuh, which the band route's kernel (K5) still
+    # runs at T = 128 (FFMA in float32, a DFMA loop in float64). Held
+    # against it: the step's own kernel, K4 through driver="grouped" and, in
+    # float32, K1 through driver="stack". Once K5 and K3 leave tile_run at
+    # T >= 64 too, no old design is left to hold a kernel against and this
+    # yardstick goes with it.
+    def same_stack_kernel(driver):
+        fn = dt.build_multiply_executor("N", "N", a, b, driver=driver)[0]
+        if fn.plan.route != driver or len(fn.plan.tile_plan.stack) != len(tp.stack):
+            fail(f"{name}: driver={driver!r} took route {fn.plan.route}")
+        x, y = (v.to(fn.plan.in_dtype) for v in fn.plan.op_stores(a.data, b.data))
+        k = kernel_of(fn.plan)
+        return lambda: k(x, y)
+
+    old = same_stack_kernel("band")
+    news = {("K6" if f64 else "K2"): lambda: kern(a_in, b_in),
+            "K4": same_stack_kernel("grouped")}
+    if not f64:
+        news["K1"] = same_stack_kernel("stack")
+    old_out = old()
+    first = None
+    for k, new in news.items():
+        got = new()
+        err, rel = rel_err(got, old_out)
+        # float32: one FFMA chain per C element whatever the blocking, so
+        # bitwise; float64: the order inside one mma is the hardware's
+        bitwise = bool(torch.equal(got, old_out))
+        twice = bool(torch.equal(got, new()))
+        first = got if first is None else first
+        peers, prel = bool(torch.equal(got, first)), rel_err(got, first)[1]
+        del got
+        o1 = cuda_median_ms(old, reps=10)
+        n1 = cuda_median_ms(new, reps=10)
+        n2 = cuda_median_ms(new, reps=10)
+        o2 = cuda_median_ms(old, reps=10)
+        om, nm = float(np.median([o1, o2])), float(np.median([n1, n2]))
+        log(f"  {name} {k} vs the old design on the same stack (K5, tile_run): agrees to "
+            f"rel={rel:.2e} (bound {rtol:.0e}), bitwise {bitwise}; equal to the first new kernel "
+            f"bitwise: {peers}; two launches bitwise equal: {twice}; new/old = {nm / om:.3f} "
+            f"[old runs {o1:.3f}/{o2:.3f}, new runs {n1:.3f}/{n2:.3f}]")
+        log("  " + rate_line(f"{name} {k}", nm, out["counts"], name))
+        if not (rel <= rtol and prel <= rtol and twice and (f64 or (bitwise and peers))):
+            fail(f"{name}: {k} and the band route's kernel disagree on the same stack")
+        if not nm < om:
+            fail(f"{name}: {k} ({nm:.3f} ms) is not faster than the old design ({om:.3f} ms)")
+        out[f"{k}_ms"] = nm
+    log("  " + rate_line(f"{name} old design (K5)", om, out["counts"], name))
     out.update(old_ms=om)
     return out
 
@@ -1347,7 +1448,8 @@ def phase_new_drivers(dev, a, b, panel_out) -> dict:
                     f"{gp.n_groups * gp.group - gp.n_c} padding rows, {gp.split_runs} split C runs, "
                     f"{len(tp.stack)} entries load {gp.aload.numel()} A tiles "
                     f"(reuse {len(tp.stack) / max(gp.aload.numel(), 1):.2f}); "
-                    f"join: {type(gp.join).__name__}")
+                    f"rows reach C by: "
+                    f"{'the kernel writing the store' if gp.join is None else type(gp.join).__name__}")
         else:
             rp = plan.panel.plan
             note = (f"{rp.n_groups} groups of {rp.c_win}, runlen {rp.runlen}: quads/pairs/singles "
@@ -1388,14 +1490,30 @@ def phase_new_drivers(dev, a, b, panel_out) -> dict:
         log(f"  {k} times: executor {ex:.3f} ms, kernel {km:.3f} ms "
             f"({done / km / 1e9:.1f} TFLOP/s of products done), plain {pm:.3f} ms "
             f"[kernel runs {runs[0]:.3f}/{runs[1]:.3f}, plain runs {runs[2]:.3f}/{runs[3]:.3f}]")
-        if k == "K4" and plan.grouped.join is not None:
-            from dbcsr_tpu_torch.mm.kernels import _join_groups
-
+        if k == "K4":
+            # no C run is split at this shape, so the kernel must write the C
+            # store itself: no join, and no padded copy of C beside the store
             gp = plan.grouped
-            padded = torch.empty((gp.n_groups * gp.group, 128, 128), device=dev)
-            jm = cuda_median_ms(lambda: _join_groups(padded, gp, torch.float32), reps=10)
-            log(f"  K4 kernel time = launch {km - jm:.3f} ms + join of the padded rows {jm:.3f} ms")
-            del padded
+            if gp.join is not None:
+                fail(f"K4 at the banded SCF shape: {gp.split_runs} split C runs, join "
+                     f"{type(gp.join).__name__}; expected the kernel to write the C store")
+            a_in, b_in = (x.to(plan.in_dtype) for x in plan.op_stores(a.data, b.data))
+            kern = kernel_of(plan)
+            sync(dev)
+            peak_memory(dev)  # keep the run's peak across the reset
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            held = kern(a_in, b_in)
+            sync(dev)
+            grew = torch.cuda.max_memory_allocated(dev) - before
+            store = held.numel() * held.element_size()
+            del held, a_in, b_in
+            log(f"  K4 kernel time = launch {km:.3f} ms + join 0.000 ms (the kernel wrote the C "
+                f"store: {gp.n_groups * gp.group - gp.n_c + len(gp.zero_slots)} padding rows "
+                f"wrote nothing, {len(gp.zero_slots)} C slots zeroed); device memory grew by "
+                f"{grew / 1e9:.3f} GB for a C store of {store / 1e9:.3f} GB")
+            if grew > 1.01 * store + (1 << 22):
+                fail("K4 allocated more than the C store: a padded copy of C is back")
         rows[k] = {"launches": launches[k], "max_abs_err": max(err, serr), "ms": km,
                    "plain_ms": pm, "exec_ms": ex,
                    "counts": (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))}
@@ -1716,6 +1834,8 @@ def main() -> int:
         elif "blocked_kernel" in entry_fn or "mma_kernel" in entry_fn:
             if "spill" in line or "Used" in line:
                 log(f"    {entry_fn}: {line.strip().replace('ptxas info    : ', '')}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                fail(f"the pipelined kernel {entry_fn} spills registers")
             if "Used" in line:
                 entry_fn = ""
     from dbcsr_tpu_torch.native import native_available
@@ -1731,7 +1851,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions on the card")
     k12_err = phase_kernels(dev)
-    k12_err["K2"] = max(k12_err["K2"], phase_kernels_k2_blocked(dev))
+    for k, err in phase_kernels_k2_blocked(dev).items():
+        k12_err[k] = max(k12_err[k], err)
     f64_err = phase_kernels_f64(dev)
     new_err = phase_kernels_new(dev)
     if args.quick:
@@ -1754,7 +1875,7 @@ def main() -> int:
     log("[6] times (CUDA-event medians)")
     rows = phase_times(a, b, execs, card)
     phase_steady_state(dev)
-    log(f"    peak device memory so far {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    log(f"    peak device memory so far {peak_memory(dev) / 1e9:.2f} GB")
     counts14 = {k: (a.data.shape[0], b.data.shape[0], fn.plan.tile_plan.n_c_tiles,
                     len(fn.plan.tile_plan.stack))
                 for k, (fn, _, _) in execs.items()}
@@ -1773,7 +1894,7 @@ def main() -> int:
     phase_scrambled_tile_band(dev, TILE_BAND_BLOCKS, 2)  # every knob at its default
     torch.cuda.empty_cache()
     phase_scrambled_tile_band(dev, TILE_BAND_BLOCKS, 3, panel_cache=64)
-    log(f"    peak device memory so far {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    log(f"    peak device memory so far {peak_memory(dev) / 1e9:.2f} GB")
     torch.cuda.empty_cache()
 
     # 7. the filtered SCF path, float64 (the float64 kernel), then float32 (K2)
@@ -1795,7 +1916,7 @@ def main() -> int:
     # 8. McWeeny on the card
     log("[8] McWeeny purification on the card")
     phase_mcweeny(dev)
-    log(f"    peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+    log(f"    peak device memory {peak_memory(dev) / 1e9:.2f} GB "
         f"(phases 1-9)")
 
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase

@@ -160,10 +160,10 @@ def kernels() -> ctypes.CDLL:
                 i32, i32, vp,
             ]
             lib.dbcsr_torch_grouped_matmul.restype = i32
-            # (a, b, c, lbounds, abounds, aload, entries, n_rows, group,
-            #  tile, dtype, device, stream)
+            # (a, b, c, lbounds, abounds, aload, entries, out_slot, n_rows,
+            #  group, tile, dtype, device, stream)
             lib.dbcsr_torch_grouped_matmul.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp,
+                vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp,
             ]
             lib.dbcsr_torch_panel_runs_matmul.restype = i32
             # (a, b, c, gstart, a_lo, b_lo, obq, qent, obp, pent, obs, sent,

@@ -29,58 +29,36 @@
 // way each C element is one FFMA chain over the run in stack order and
 // ascending k, which is K1's chain: the two kernels agree bitwise on the same
 // stack.
-#include "tile_product_f32.cuh"
+#include "tile_kernel.cuh"
 
 namespace dbcsr_torch {
 
-// entry e of group g -> (A slot, B slot)
-struct PanelPair {
+// Block q is (group g, local slot l) = (q / c_win, q % c_win): it owns C slot
+// gstart[g] + l unless the clamped last group re-covers a slot of its
+// predecessor, walks entries [obounds[q], obounds[q+1]) and decodes entry e
+// as (A slot a_lo[g] + (e >> 16), B slot b_lo[g] + (e & 0xFFFF)).
+struct PanelJob {
+    const int* gstart;
+    const int* a_lo;
+    const int* b_lo;
+    const int* obounds;
     const int* entries;
-    int alo, blo;
-    __device__ __forceinline__ int2 operator()(int e) const
+    int c_win;
+
+    template <typename Run>
+    __device__ __forceinline__ void operator()(int64_t q, Run&& run) const
     {
-        const int packed = entries[e];
-        return make_int2(alo + (packed >> 16), blo + (packed & 0xFFFF));
+        const int g = (int)(q / c_win);
+        const int slot = gstart[g] + (int)(q % c_win);
+        if (slot < g * c_win) return;  // clamped last group: owned by group g-1
+        const int* en = entries;
+        const int alo = a_lo[g], blo = b_lo[g];
+        run(slot, obounds[q], obounds[q + 1], [=](int e) {
+            const int packed = en[e];
+            return make_int2(alo + (packed >> 16), blo + (packed & 0xFFFF));
+        });
     }
 };
-
-// T = 16, 32: one block per (group, local slot)
-template <typename In, int T>
-__global__ void __launch_bounds__(kThreads)
-panel_matmul_kernel(const In* __restrict__ A, const In* __restrict__ B,
-                    float* __restrict__ C, const int* __restrict__ gstart,
-                    const int* __restrict__ a_lo, const int* __restrict__ b_lo,
-                    const int* __restrict__ obounds,
-                    const int* __restrict__ entries, int c_win)
-{
-    static_assert(SubTile<T>::kPerTile == 1, "tile_run serves T <= 32 here");
-    const int64_t q = blockIdx.x;  // (group, local slot)
-    const int g = (int)(q / c_win);
-    const int slot = gstart[g] + (int)(q % c_win);
-    if (slot < g * c_win) return;  // clamped last group: owned by group g-1
-    tile_run<In, T, T>(
-        A, B, C + (int64_t)slot * (T * T), 0, 0, obounds[q], obounds[q + 1],
-        PanelPair{entries, a_lo[g], b_lo[g]});
-}
-
-// T = 64, 128: one block per (group, local slot), the blocked routine
-template <typename In, int T>
-__global__ void __launch_bounds__(kThreads, 2)
-panel_matmul_blocked_kernel(const In* __restrict__ A, const In* __restrict__ B,
-                            float* __restrict__ C, const int* __restrict__ gstart,
-                            const int* __restrict__ a_lo, const int* __restrict__ b_lo,
-                            const int* __restrict__ obounds,
-                            const int* __restrict__ entries, int c_win)
-{
-    extern __shared__ __align__(16) unsigned char ring[];
-    const int64_t q = blockIdx.x;
-    const int g = (int)(q / c_win);
-    const int slot = gstart[g] + (int)(q % c_win);
-    if (slot < g * c_win) return;  // block-uniform, before any barrier
-    tile_run_blocked_f32<In, T>(
-        A, B, C + (int64_t)slot * (T * T), obounds[q], obounds[q + 1],
-        PanelPair{entries, a_lo[g], b_lo[g]}, reinterpret_cast<In*>(ring));
-}
 
 }  // namespace dbcsr_torch
 
@@ -95,33 +73,15 @@ extern "C" int dbcsr_torch_panel_matmul(
     int err = (int)cudaSetDevice(device);
     if (err) return err;
     if (n_slots <= 0) return 0;
-    if (n_slots > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    const int* gs = static_cast<const int*>(gstart);
-    const int* al = static_cast<const int*>(a_lo);
-    const int* bl = static_cast<const int*>(b_lo);
-    const int* ob = static_cast<const int*>(obounds);
-    const int* en = static_cast<const int*>(entries);
+    const PanelJob job{static_cast<const int*>(gstart), static_cast<const int*>(a_lo),
+                       static_cast<const int*>(b_lo), static_cast<const int*>(obounds),
+                       static_cast<const int*>(entries), c_win};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = (unsigned)n_slots;
     return dispatch<false>(dtype, tile, [&](auto in_tag, auto tile_tag) {
         using In = typename decltype(in_tag)::type;
         constexpr int T = decltype(tile_tag)::value;
-        const In* A = static_cast<const In*>(a);
-        const In* B = static_cast<const In*>(b);
-        float* C = static_cast<float*>(c);
-        if constexpr (T >= 64) {
-            constexpr int smem = BlockedF32<In, T>::kSmemBytes;
-            // above the 48 KB static limit at T = 128: opt in (per device, so
-            // on every call)
-            err = (int)cudaFuncSetAttribute(panel_matmul_blocked_kernel<In, T>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (err) return err;
-            panel_matmul_blocked_kernel<In, T><<<blocks, kThreads, smem, s>>>(
-                A, B, C, gs, al, bl, ob, en, c_win);
-        } else {
-            panel_matmul_kernel<In, T><<<blocks, kThreads, 0, s>>>(
-                A, B, C, gs, al, bl, ob, en, c_win);
-        }
-        return (int)cudaGetLastError();
+        return launch_tile_kernel<In, T>(
+            static_cast<const In*>(a), static_cast<const In*>(b),
+            static_cast<float*>(c), n_slots, job, s);
     });
 }

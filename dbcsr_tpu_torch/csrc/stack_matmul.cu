@@ -5,40 +5,36 @@
 // stack as a sequential grid that revisits each output window, pads C runs to
 // e_batch and chunks launches at max_chunk; none of that carries over. Here
 // the host passes the run offsets c_ptr[n_c+1] (a searchsorted over the
-// sorted c column, once per plan) and the a/b columns, and one block per
-// (C tile, BM×BM sub-tile) walks its run [c_ptr[c], c_ptr[c+1]) in stack
-// order through the shared routine in tile_product.cuh.
+// sorted c column, once per plan) and the a/b columns (StackJob of
+// tile_kernel.cuh), and one block of 256 threads per C tile walks its run
+// [c_ptr[c], c_ptr[c+1]) in stack order and writes the tile once: no atomics,
+// two launches bitwise equal.
 //
 // What bounds it on an H100: each stack entry reads one A and one B tile and
 // does 2·T³ flops — at T=128 in f32, 128 KB for 4.2 MFLOP, 32 flop/byte even
 // when both tiles come from HBM, above the ~20 flop/byte ridge of FFMA
 // (67 TFLOP/s over 3.35 TB/s); bf16 inputs halve the bytes. So the kernel is
-// compute-bound, and this simple design is bound by FFMA issue and
-// shared-memory reads in the micro-tile loop (no tensor cores, no TMA, no
-// software pipelining). Neighbouring C tiles of a banded stack share A and B
-// tiles, which the 50 MB L2 serves. Correctness first: tensor cores (wgmma),
-// TMA rings and persistent blocks are later work.
-#include "tile_product.cuh"
-
-namespace dbcsr_torch {
-
-template <typename In, int T>
-__global__ void __launch_bounds__(kThreads)
-stack_matmul_kernel(const In* __restrict__ A, const In* __restrict__ B,
-                    float* __restrict__ C, const int* __restrict__ c_ptr,
-                    const int* __restrict__ a_idx, const int* __restrict__ b_idx)
-{
-    using S = SubTile<T>;
-    constexpr int NS = T / S::BM;
-    const int64_t c = blockIdx.x / S::kPerTile;
-    const int sub = blockIdx.x % S::kPerTile;
-    const int r0 = (sub / NS) * S::BM, c0 = (sub % NS) * S::BM;
-    tile_run<In, T, S::BM>(
-        A, B, C + c * (T * T), r0, c0, c_ptr[c], c_ptr[c + 1],
-        [=](int e) { return make_int2(a_idx[e], b_idx[e]); });
-}
-
-}  // namespace dbcsr_torch
+// bound by operations at the IEEE FFMA rate (float32 at "highest" has no
+// tensor-core route, and bf16 inputs are widened to float32 so that every
+// product is exact). Neighbouring C tiles of a banded stack share A and B
+// tiles, which the 50 MB L2 serves; on a pattern without locality (a
+// scrambled numbering) every entry's tiles come from HBM, still above the
+// ridge.
+//
+// T = 128 and T = 64, float32 and bf16, run the register-blocked, pipelined
+// routine of tile_product_f32.cuh, the one K2 (panel_matmul.cu) runs: an 8×8
+// (T = 64: 4×4) micro-tile a thread read with 128-bit shared-memory loads, K
+// chunks of 32 brought by cp.async into a three-slot ring of dynamic shared
+// memory that runs across the entries of the run (104,448 bytes in float32
+// at T = 128, 55,296 in bf16), two blocks an SM. One block owns the whole C
+// tile, so each A and B tile of the run is read once. T = 16 and T = 32 keep
+// tile_run of tile_product.cuh. Either way every C element is one FFMA chain
+// over the run in stack order and ascending k, so K1 and K2 agree bitwise on
+// the same stack, and so do K1 and the kernels that still run tile_run at
+// T >= 64 (band_matmul.cu, panel_runs_matmul.cu). What is left on the table
+// is the routine's: its inner loop keeps the shared-memory pipe as busy as
+// the FFMA pipe (tile_product_f32.cuh says why).
+#include "tile_kernel.cuh"
 
 extern "C" int dbcsr_torch_stack_matmul(
     const void* a, const void* b, void* c, const void* c_ptr,
@@ -49,19 +45,15 @@ extern "C" int dbcsr_torch_stack_matmul(
     int err = (int)cudaSetDevice(device);
     if (err) return err;
     if (n_c <= 0) return 0;
-    const int* cp = static_cast<const int*>(c_ptr);
-    const int* ai = static_cast<const int*>(a_idx);
-    const int* bi = static_cast<const int*>(b_idx);
+    const StackJob job{static_cast<const int*>(c_ptr), static_cast<const int*>(a_idx),
+                       static_cast<const int*>(b_idx)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dispatch<false>(dtype, tile, [&](auto in_tag, auto tile_tag) {
         using In = typename decltype(in_tag)::type;
         constexpr int T = decltype(tile_tag)::value;
-        const unsigned blocks = tile_grid<T>(n_c);
-        if (!blocks) return (int)cudaErrorInvalidConfiguration;
-        stack_matmul_kernel<In, T><<<blocks, kThreads, 0, s>>>(
+        return launch_tile_kernel<In, T>(
             static_cast<const In*>(a), static_cast<const In*>(b),
-            static_cast<float*>(c), cp, ai, bi);
-        return (int)cudaGetLastError();
+            static_cast<float*>(c), n_c, job, s);
     });
 }
 

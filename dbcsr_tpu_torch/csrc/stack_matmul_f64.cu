@@ -36,42 +36,7 @@
 // T = 16 and T = 32 keep the DFMA routine tile_run<double> of
 // tile_product.cuh (one block per tile, 16×16 threads, a 1×1 or 2×2
 // micro-tile): a 16-row mma tile spread over 8 warps reuses nothing there.
-#include "tile_mma_f64.cuh"
-
-namespace dbcsr_torch {
-
-// T = 16, 32: DFMA, one block per (C tile, sub-tile) — here one per tile
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-stack_matmul_f64_kernel(const double* __restrict__ A, const double* __restrict__ B,
-                        double* __restrict__ C, const int* __restrict__ c_ptr,
-                        const int* __restrict__ a_idx, const int* __restrict__ b_idx)
-{
-    using S = SubTile<T>;
-    static_assert(S::kPerTile == 1, "the DFMA routine serves T <= 32 here");
-    const int64_t c = blockIdx.x;
-    // 64-bit tile offset: c·T² crosses 2³¹ doubles past 131,072 tiles at T=128
-    tile_run<double, T, S::BM>(
-        A, B, C + c * (T * T), 0, 0, c_ptr[c], c_ptr[c + 1],
-        [=](int e) { return make_int2(a_idx[e], b_idx[e]); });
-}
-
-// T = 64, 128: FP64 tensor cores, one block per C tile
-template <int T>
-__global__ void __launch_bounds__(kThreads, T == 128 ? 1 : 2)
-stack_matmul_f64_mma_kernel(const double* __restrict__ A, const double* __restrict__ B,
-                            double* __restrict__ C, const int* __restrict__ c_ptr,
-                            const int* __restrict__ a_idx, const int* __restrict__ b_idx)
-{
-    extern __shared__ __align__(16) unsigned char ring[];
-    const int64_t c = blockIdx.x;
-    tile_run_mma_f64<T>(
-        A, B, C + c * (T * T), c_ptr[c], c_ptr[c + 1],
-        [=](int e) { return make_int2(a_idx[e], b_idx[e]); },
-        reinterpret_cast<double*>(ring));
-}
-
-}  // namespace dbcsr_torch
+#include "tile_kernel.cuh"
 
 extern "C" int dbcsr_torch_stack_matmul_f64(
     const void* a, const void* b, void* c, const void* c_ptr,
@@ -82,27 +47,13 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     int err = (int)cudaSetDevice(device);
     if (err) return err;
     if (n_c <= 0) return 0;
-    if (n_c > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    const double* A = static_cast<const double*>(a);
-    const double* B = static_cast<const double*>(b);
-    double* C = static_cast<double*>(c);
-    const int* cp = static_cast<const int*>(c_ptr);
-    const int* ai = static_cast<const int*>(a_idx);
-    const int* bi = static_cast<const int*>(b_idx);
+    const StackJob job{static_cast<const int*>(c_ptr), static_cast<const int*>(a_idx),
+                       static_cast<const int*>(b_idx)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = (unsigned)n_c;
     return dispatch_tile<double>(tile, [&](auto, auto tile_tag) {
         constexpr int T = decltype(tile_tag)::value;
-        if constexpr (T >= 64) {
-            constexpr int smem = MmaF64<T>::kSmemBytes;
-            // above the 48 KB static limit: opt in (per device, so on every call)
-            err = (int)cudaFuncSetAttribute(stack_matmul_f64_mma_kernel<T>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (err) return err;
-            stack_matmul_f64_mma_kernel<T><<<blocks, kThreads, smem, s>>>(A, B, C, cp, ai, bi);
-        } else {
-            stack_matmul_f64_kernel<T><<<blocks, kThreads, 0, s>>>(A, B, C, cp, ai, bi);
-        }
-        return (int)cudaGetLastError();
+        return launch_tile_kernel<double, T>(
+            static_cast<const double*>(a), static_cast<const double*>(b),
+            static_cast<double*>(c), n_c, job, s);
     });
 }

@@ -1,0 +1,123 @@
+// The one place where a stack kernel picks its device routine, sizes its
+// shared memory and is launched (stack_matmul.cu, panel_matmul.cu,
+// grouped_matmul.cu, stack_matmul_f64.cu). Every one of these kernels is "for
+// each output tile, sum A[i]·B[j] over a run of (i, j) pairs in run order and
+// write the sum once"; they differ only in how an output tile finds its C
+// slot, its run and its pairs. That part is the kernel's Job, a small struct
+// of plan arrays passed by value:
+//
+//   template <typename Run>
+//   __device__ void operator()(int64_t q, Run&& run) const;
+//
+// For output tile q (the block index) it calls run(slot, e0, e1, pair) once:
+// C slot `slot` = Σ_{e in [e0, e1)} A[pair(e).x] @ B[pair(e).y], where
+// pair(e) is an int2, either slot negative for an absent tile. A Job that
+// has nothing to write for q (a padding row, a slot another block owns)
+// returns without calling run; that is block-uniform and comes before any
+// barrier.
+//
+// The routine follows from the input type and the tile edge alone, at compile
+// time; there is no run-time switch between designs:
+//   T <= 32             tile_run (tile_product.cuh), one block per tile, a
+//                       16×16 thread grid has nothing to block there;
+//   T >= 64, f32/bf16   tile_run_blocked_f32 (tile_product_f32.cuh): one block
+//                       per C tile, register-blocked FFMA on a cp.async ring,
+//                       two blocks an SM;
+//   T >= 64, f64        tile_run_mma_f64 (tile_mma_f64.cuh): FP64 tensor
+//                       cores, one block an SM at T = 128, two at T = 64.
+// The pipelined routines take dynamic shared memory above the 48 KB static
+// limit, so launch_tile_kernel opts in with cudaFuncSetAttribute (per device,
+// so on every call) before it launches.
+//
+// The kernels are named *_blocked_kernel and *_mma_kernel so that a ptxas
+// report can be searched for the pipelined instantiations; the Job's name in
+// the mangled symbol says whose they are.
+#pragma once
+
+#include <type_traits>
+
+#include "tile_mma_f64.cuh"
+#include "tile_product_f32.cuh"
+
+namespace dbcsr_torch {
+
+// The flat c-sorted stack (K1 and the float64 stack kernel): C tile c owns
+// entries [c_ptr[c], c_ptr[c+1]) of the a/b columns.
+struct StackJob {
+    const int* c_ptr;
+    const int* a_idx;
+    const int* b_idx;
+
+    template <typename Run>
+    __device__ __forceinline__ void operator()(int64_t c, Run&& run) const
+    {
+        const int* ai = a_idx;
+        const int* bi = b_idx;
+        run(c, c_ptr[c], c_ptr[c + 1], [=](int e) { return make_int2(ai[e], bi[e]); });
+    }
+};
+
+// 64-bit tile offsets throughout: slot·T² crosses 2³¹ elements past 131,072
+// tiles at T = 128.
+template <typename In, int T, typename Job>
+__global__ void __launch_bounds__(kThreads)
+tile_run_kernel(const In* __restrict__ A, const In* __restrict__ B,
+                typename AccOf<In>::type* __restrict__ C, const Job job)
+{
+    static_assert(T <= 32, "tile_run serves one whole tile a block here");
+    job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
+        tile_run<In, T, T>(A, B, C + slot * (T * T), 0, 0, e0, e1, pair);
+    });
+}
+
+template <typename In, int T, typename Job>
+__global__ void __launch_bounds__(kThreads, 2)
+tile_blocked_kernel(const In* __restrict__ A, const In* __restrict__ B,
+                    float* __restrict__ C, const Job job)
+{
+    extern __shared__ __align__(16) unsigned char ring[];
+    job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
+        tile_run_blocked_f32<In, T>(A, B, C + slot * (T * T), e0, e1, pair,
+                                    reinterpret_cast<In*>(ring));
+    });
+}
+
+template <int T, typename Job>
+__global__ void __launch_bounds__(kThreads, T == 128 ? 1 : 2)
+tile_mma_kernel(const double* __restrict__ A, const double* __restrict__ B,
+                double* __restrict__ C, const Job job)
+{
+    extern __shared__ __align__(16) unsigned char ring[];
+    job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
+        tile_run_mma_f64<T>(A, B, C + slot * (T * T), e0, e1, pair,
+                            reinterpret_cast<double*>(ring));
+    });
+}
+
+// One block per output tile, n_out of them, through the routine for (In, T);
+// returns a cudaError_t as int (an overflowing grid is refused).
+template <typename In, int T, typename Job>
+static int launch_tile_kernel(const In* A, const In* B, typename AccOf<In>::type* C,
+                              long long n_out, const Job& job, cudaStream_t s)
+{
+    if (n_out > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const unsigned blocks = (unsigned)n_out;
+    if constexpr (T < 64) {
+        tile_run_kernel<In, T, Job><<<blocks, kThreads, 0, s>>>(A, B, C, job);
+    } else if constexpr (std::is_same_v<In, double>) {
+        constexpr int smem = MmaF64<T>::kSmemBytes;
+        const int err = (int)cudaFuncSetAttribute(
+            tile_mma_kernel<T, Job>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err) return err;
+        tile_mma_kernel<T, Job><<<blocks, kThreads, smem, s>>>(A, B, C, job);
+    } else {
+        constexpr int smem = BlockedF32<In, T>::kSmemBytes;
+        const int err = (int)cudaFuncSetAttribute(
+            tile_blocked_kernel<In, T, Job>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err) return err;
+        tile_blocked_kernel<In, T, Job><<<blocks, kThreads, smem, s>>>(A, B, C, job);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace dbcsr_torch

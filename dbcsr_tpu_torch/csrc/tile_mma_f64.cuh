@@ -1,5 +1,6 @@
 // The float64 tile product of the float64 stack kernel (stack_matmul_f64.cu)
-// on the FP64 tensor cores, for T = 128 and T = 64: for one C tile, sum
+// and of K4's double instantiation (grouped_matmul.cu) on the FP64 tensor
+// cores, for T = 128 and T = 64: for one C tile, sum
 // A[i]·B[j] over a run of (i, j) pairs in run order and write the sum once.
 //
 // What bounded the DFMA routine (tile_run instantiated for double) on an

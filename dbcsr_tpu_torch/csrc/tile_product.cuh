@@ -1,8 +1,10 @@
-// One device routine shared by the stack kernels (stack_matmul.cu,
-// panel_matmul.cu, stack_matmul_f64.cu, band_matmul.cu, grouped_matmul.cu,
-// panel_runs_matmul.cu): for one C tile, sum A[i]·B[j] over a contiguous run
-// of (i, j) pairs, in run order, and write the sum once. A pair with a
-// negative slot is an absent tile (a zero tile) and is skipped.
+// One device routine shared by the stack kernels: for one C tile, sum
+// A[i]·B[j] over a contiguous run of (i, j) pairs, in run order, and write
+// the sum once. A pair with a negative slot is an absent tile (a zero tile)
+// and is skipped. band_matmul.cu and panel_runs_matmul.cu run it at every
+// tile edge; stack_matmul.cu, panel_matmul.cu, grouped_matmul.cu and
+// stack_matmul_f64.cu run it at T = 16 and 32 and take the pipelined
+// routines at T = 64 and 128 (tile_kernel.cuh picks).
 //
 // Tile stores are [n, T, T] row-major. A block of 256 threads owns one
 // BM×BM sub-tile of one C tile (BM = min(T, 64)), so a C tile is (T/BM)²

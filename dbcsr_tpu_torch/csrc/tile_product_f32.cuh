@@ -1,10 +1,11 @@
-// The register-blocked, pipelined float32 tile product of K2
-// (panel_matmul.cu), for T = 128 and T = 64: for one C tile, sum A[i]·B[j]
+// The register-blocked, pipelined float32 tile product of K1
+// (stack_matmul.cu), K2 (panel_matmul.cu) and K4 (grouped_matmul.cu), for
+// T = 128 and T = 64: for one C tile, sum A[i]·B[j]
 // over a run of (i, j) pairs in run order, in IEEE FFMA, and write the sum
 // once. It computes what tile_run (tile_product.cuh) computes, bit for bit:
 // every C element is one fmaf chain over the run in stack order and ascending
-// k, whatever the blocking, so K2 through this routine and K1 through
-// tile_run agree bitwise on the same stack. No split-K, no second partial
+// k, whatever the blocking, so a kernel through this routine and one through
+// tile_run (K5, K3) agree bitwise on the same stack. No split-K, no second partial
 // accumulator, no fast-math.
 //
 // What bounded tile_run on an H100 and what this design does about it:

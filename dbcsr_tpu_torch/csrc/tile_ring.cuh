@@ -1,6 +1,6 @@
-// The shared-memory ring of the pipelined stack kernels (panel_matmul.cu
-// through tile_product_f32.cuh, stack_matmul_f64.cu through
-// tile_mma_f64.cuh): cp.async copies, a cursor that walks one C tile's run
+// The shared-memory ring of the pipelined routines (tile_product_f32.cuh
+// under K1, K2 and K4, tile_mma_f64.cuh under the float64 stack kernel and
+// K4's double instantiation): cp.async copies, a cursor that walks one C tile's run
 // of (A tile, B tile) pairs K chunk by K chunk, and the loop that keeps
 // NSTAGE-1 chunks in flight while one is multiplied.
 //

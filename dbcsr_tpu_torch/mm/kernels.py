@@ -5,7 +5,7 @@ plain versions and CUDA bindings.
 (c, a, b) tile triples sorted by c — the port of
 ``dbcsr_tpu/mm/kernels.py:tile_stack_matmul_pallas``. For CUDA tensors it
 launches the hand-written kernel in ``csrc/stack_matmul.cu`` (one block per
-C sub-tile walking that tile's run of entries in stack order; f32
+C tile walking that tile's run of entries in stack order; f32
 accumulation; each C tile written once, no atomics) or raises. For CPU
 tensors, and only for them, it runs the plain version
 ``tile_stack_matmul_plain``: ``index_select`` + ``bmm`` + a sorted-segment
@@ -21,16 +21,17 @@ plain version here sums float64 in float64.
 ``tile_stack_matmul_grouped`` computes the same product by the group plan
 of ``dbcsr_tpu/mm/kernels.py:_plan_groups`` (copied here): groups of at most
 ``group`` C tiles whose distinct A tiles fit ``cache`` slots, entries packed
-``[out_local:3][a_slot:8][b_tile:20]``, a padded ``[n_groups·group, T, T]``
-output, and a segment sum that joins C runs split across groups — the port
-of ``tile_stack_matmul_grouped`` there. CUDA tensors launch
-``csrc/grouped_matmul.cu`` (one block per output row and sub-tile walking
-that row's contiguous entries in stack order) or raise; the join is the
-ordered segment sum of ``block/tileops.py``, never ``index_add_``, and is
-skipped when no run was split. CPU tensors run
-``tile_stack_matmul_grouped_plain``. The grouped kernel also takes float64
-stores (float64 sums), for an explicit ``mm_driver="grouped"`` on float64
-data.
+``[out_local:3][a_slot:8][b_tile:20]`` — the port of
+``tile_stack_matmul_grouped`` there. CUDA tensors launch
+``csrc/grouped_matmul.cu`` (one block per output row walking that row's
+contiguous entries in stack order) or raise. When no C run is split across
+groups the kernel writes the ``[n_c, T, T]`` C store itself through the
+plan's row → slot map (no padded copy of C, no join); when one is, it
+writes a padded ``[n_groups·group, T, T]`` array whose partial sums are
+joined by the ordered segment sum of ``block/tileops.py``, never
+``index_add_``. CPU tensors run ``tile_stack_matmul_grouped_plain``. The
+grouped kernel also takes float64 stores (float64 sums), for an explicit
+``mm_driver="grouped"`` on float64 data.
 """
 from __future__ import annotations
 
@@ -351,12 +352,13 @@ class DeviceGroupPlan:
     """A group plan resident on one device (built once per plan by
     ``device_group_plan``): ``_plan_groups``' arrays, the per-output-row
     entry bounds ``lbounds`` the kernel walks (a group's entries are
-    c-sorted, so one row's entries are contiguous), and the join of the
-    padded rows into the C store: None when every C slot was produced
-    exactly once, in order, with no padding row (the rows are the store: no
-    copy of C is made); a plain tile gather when no
-    C run was split (one row per C slot, padding rows dropped); else the
-    ordered segment sum that adds a split run's partial sums in row order."""
+    c-sorted, so one row's entries are contiguous), and where the rows go.
+    ``join`` is None when no C run was split: every C slot has at most one
+    row, ``out_slot`` maps a row to its C slot (-1 for a padding row) and
+    the kernel writes the ``[n_c, T, T]`` store itself; the C slots that no
+    row produces are ``zero_slots``. When a run was split, ``out_slot`` is
+    the identity over the padded rows and ``join`` is the ordered segment
+    sum that adds a run's partial sums in row order."""
 
     n_c: int
     n_groups: int
@@ -367,7 +369,9 @@ class DeviceGroupPlan:
     abounds: torch.Tensor     # int32 [n_groups+1]
     aload: torch.Tensor       # int32 [n_aload]
     entries: torch.Tensor     # int32 [S]
-    join: Optional[object]    # None, a TileGather or an OrderedSegmentSum
+    out_slot: torch.Tensor    # int32 [n_groups*group] row -> tile the kernel writes
+    zero_slots: torch.Tensor  # int64 C slots without a row (join is None)
+    join: Optional[object]    # None or an OrderedSegmentSum
     a_end: int
     b_end: int
 
@@ -400,7 +404,7 @@ def device_group_plan(
     """Plan the grouped kernel for a host stack (int32 [S, 3], sorted by c)
     and upload it. Raises ValueError beyond the entry packing's limits
     (``n_b_tiles`` < 2^20, ``group`` ≤ 8, ``cache`` ≤ 256)."""
-    from ..block.tileops import ordered_segment_sum, tile_gather
+    from ..block.tileops import ordered_segment_sum
 
     if n_b_tiles >= (1 << _B_BITS) or group > _GROUP_MAX or cache > _CACHE_MAX:
         raise ValueError("grouped kernel limits exceeded")
@@ -415,16 +419,16 @@ def device_group_plan(
     g_of_entry = np.repeat(np.arange(n_groups, dtype=np.int64), np.diff(ebounds))
     row = g_of_entry * group + (ent >> (_B_BITS + 8))
     lbounds = np.searchsorted(row, np.arange(n_rows + 1))
-    real = np.flatnonzero(seg < n_c_tiles)
-    if len(seg) == n_c_tiles and np.array_equal(seg, np.arange(n_c_tiles)):
+    produced = seg[seg < n_c_tiles]
+    if len(np.unique(produced)) == len(produced):
+        # no run was split: a row is its C slot's whole sum
         join = None
-    elif len(np.unique(seg[real])) == len(real):
-        # no run was split: C slot -> its one row (-1: a slot with no entry)
-        slot_map = np.full(n_c_tiles, -1, dtype=np.int64)
-        slot_map[seg[real]] = real
-        join = tile_gather(slot_map, n_rows, device)
+        out_slot = np.where(seg < n_c_tiles, seg, -1)
+        zero_slots = np.setdiff1d(np.arange(n_c_tiles), produced)
     else:
         join = ordered_segment_sum(seg, n_c_tiles, device)
+        out_slot = np.arange(n_rows)
+        zero_slots = np.zeros(0, np.int64)
 
     def up(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
@@ -434,30 +438,20 @@ def device_group_plan(
         seg_host=seg,
         lbounds=up(lbounds), abounds=up(abounds), aload=up(aload),
         entries=up(entries),
+        out_slot=up(out_slot),
+        zero_slots=torch.as_tensor(zero_slots, dtype=torch.int64, device=device),
         join=join,
         a_end=int(aload.max(initial=-1)) + 1,
         b_end=int(stack[:, 2].max()) + 1 if len(stack) else 0,
     )
 
 
-def _join_groups(rows: torch.Tensor, plan: DeviceGroupPlan, out_dtype) -> torch.Tensor:
-    """Padded group rows -> the [n_c, T, T] store (see ``DeviceGroupPlan``)."""
-    from ..block.tileops import TileGather, apply_tile_gather
-
-    if plan.join is None:
-        out = rows
-    elif isinstance(plan.join, TileGather):
-        out = apply_tile_gather(rows, plan.join)
-    else:
-        out = plan.join(rows)
-    return out.to(out_dtype)
-
-
 def tile_stack_matmul_grouped_plain(
     a: torch.Tensor, b: torch.Tensor, plan: DeviceGroupPlan, *, out_dtype=None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K4 (any device): the same padded rows, each
-    summed over its entries in stack order, then the same join."""
+    """Plain PyTorch version of K4 (any device): the same rows, each summed
+    over its entries in stack order, then placed by the plan's row → slot
+    map or joined by its ordered segment sum."""
     _check_stores(a, b, "tile_stack_matmul_grouped_plain")
     acc = torch.float64 if a.dtype == torch.float64 else torch.float32
     lbounds, a_slot, b_slot = plan.entry_slots()
@@ -465,7 +459,14 @@ def tile_stack_matmul_grouped_plain(
         a, b, lbounds, torch.as_tensor(a_slot, device=a.device),
         torch.as_tensor(b_slot, device=a.device), acc,
     )
-    return _join_groups(rows, plan, out_dtype or a.dtype)
+    if plan.join is None:
+        out_slot = plan.out_slot.to(a.device).long()
+        real = out_slot >= 0
+        out = rows.new_zeros((plan.n_c,) + tuple(rows.shape[1:]))
+        out[out_slot[real]] = rows[real]
+    else:
+        out = plan.join(rows)
+    return out.to(out_dtype or a.dtype)
 
 
 def tile_stack_matmul_grouped(
@@ -478,7 +479,7 @@ def tile_stack_matmul_grouped(
     if a.device.type == "cpu":
         return tile_stack_matmul_grouped_plain(a, b, plan, out_dtype=out_dtype)
     tile = check_cuda_operands(
-        a, b, (plan.lbounds, plan.abounds, plan.aload, plan.entries),
+        a, b, (plan.lbounds, plan.abounds, plan.aload, plan.entries, plan.out_slot),
         "tile_stack_matmul_grouped", DTYPE_CODE_F64,
     )
     if plan.a_end > a.shape[0] or plan.b_end > b.shape[0]:
@@ -487,19 +488,25 @@ def tile_stack_matmul_grouped(
 
     acc = torch.float64 if a.dtype == torch.float64 else torch.float32
     n_rows = plan.n_groups * plan.group
-    rows = torch.empty((n_rows, tile, tile), dtype=acc, device=a.device)
+    # the tiles the kernel writes: the C store itself, or the padded rows
+    n_out = plan.n_c if plan.join is None else n_rows
+    out = torch.empty((n_out, tile, tile), dtype=acc, device=a.device)
+    if len(plan.zero_slots):
+        out[plan.zero_slots] = 0
     if n_rows:
         lib = kernels()
         rc = lib.dbcsr_torch_grouped_matmul(
-            a.data_ptr(), b.data_ptr(), rows.data_ptr(), plan.lbounds.data_ptr(),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), plan.lbounds.data_ptr(),
             plan.abounds.data_ptr(), plan.aload.data_ptr(),
-            plan.entries.data_ptr(), n_rows, plan.group, tile,
-            DTYPE_CODE_F64[a.dtype], a.device.index,
+            plan.entries.data_ptr(), plan.out_slot.data_ptr(), n_rows,
+            plan.group, tile, DTYPE_CODE_F64[a.dtype], a.device.index,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
         check_launch(lib, rc, "tile_stack_matmul_grouped")
         tile_stack_matmul_grouped.launches += 1
-    return _join_groups(rows, plan, out_dtype)
+    if plan.join is not None:
+        out = plan.join(out)
+    return out.to(out_dtype)
 
 
 #: launches of the K4 kernel since the last reset (set it to 0 to reset)

@@ -30,7 +30,7 @@ def test_every_csrc_file_is_built_or_hashed():
     assert all(f.endswith(".cuh") for f in _build._HEADERS)
     # the headers of the redesigned kernels are among them
     assert {"tile_product.cuh", "tile_ring.cuh", "tile_product_f32.cuh",
-            "tile_mma_f64.cuh"} <= set(_build._HEADERS)
+            "tile_mma_f64.cuh", "tile_kernel.cuh"} <= set(_build._HEADERS)
 
 
 @pytest.mark.skipif(tomllib is None, reason="tomllib needs Python 3.11")

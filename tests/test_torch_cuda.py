@@ -15,8 +15,10 @@ products are exact — in different orders, over at most 40·T terms); 1e-12
 for the float64 kernel (float64 sums of the same products in another
 order); K3, K4 and K5 take the same bounds (K4 and K5 also run in
 float64). Since its redesign the float64 kernel sums inside one ``mma`` in
-the hardware's order, so it is bitwise equal only to itself (two launches);
-K2 in its blocked form remains bitwise equal to K1.
+the hardware's order, so it is bitwise equal only to itself (two launches).
+K1, K2 and K4 share one blocked float32 routine at T = 64 and 128 and are
+bitwise equal to each other and to K5, which still runs the routine they
+replaced (one FFMA chain per C element either way).
 """
 import numpy as np
 import pytest
@@ -187,6 +189,118 @@ def test_k2_blocked_matches_plain_and_k1_bitwise(dev, tile, run, dtype):
     assert torch.equal(got, tile_stack_matmul_panel(a, b, dp, out_dtype=torch.float32))
 
 
+DTYPES3 = [torch.float32, torch.bfloat16, torch.float64]
+
+
+def stores(n_a, n_b, tile, dtype, dev):
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    return (torch.randn(n_a, tile, tile, device=dev, dtype=wide).to(dtype),
+            torch.randn(n_b, tile, tile, device=dev, dtype=wide).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("run", [1, 3, 48])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_k1_blocked_matches_plain_and_itself(dev, tile, run, dtype):
+    """K1 through the blocked routine (T = 64, 128), one block per C tile:
+    against its plain version, with three C tiles left empty (they must come
+    out zero), and two launches bitwise equal."""
+    rng = np.random.default_rng(tile + run)
+    stack = run_stack(rng, 21, run)
+    stack = stack[~np.isin(stack[:, 0], (0, 7, 20))]
+    ds = device_stack(stack, 21, dev)
+    a = torch.randn(12, tile, tile, device=dev).to(dtype)
+    b = torch.randn(12, tile, tile, device=dev).to(dtype)
+    before = tile_stack_matmul.launches
+    got = tile_stack_matmul(a, b, ds, out_dtype=torch.float32)
+    assert tile_stack_matmul.launches == before + 1
+    assert rel_err(got, tile_stack_matmul_plain(a, b, ds, out_dtype=torch.float32)) <= 1e-4
+    assert not got[[0, 7, 20]].any()
+    assert torch.equal(got, tile_stack_matmul(a, b, ds, out_dtype=torch.float32))
+
+
+def square_band_plans(tile, mt=24, w=2):
+    """A full square band of tiles times itself: the tile plan (its c-sorted
+    stack) and the band plan over the same C tiles."""
+    r, c = np.meshgrid(np.arange(mt), np.arange(mt), indexing="ij")
+    coords = np.stack([r[abs(r - c) <= w], c[abs(r - c) <= w]], 1).astype(np.int64)
+    tp = plan_tile_stacks_stores(coords, (mt, mt), coords, (mt, mt))
+    bp = plan_band(coords, (mt, mt), coords, (mt, mt), tp.c_tile_keys, tile=tile)
+    return coords, tp, bp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_k1_and_k4_equal_k5_bitwise_on_a_banded_stack(dev, tile, dtype):
+    """K5 still runs the routine K1 and K4 ran before their redesign; the
+    blocked routine keeps that FFMA chain (stack order, ascending k), so all
+    three agree bit for bit on a stack all three take."""
+    coords, tp, bp = square_band_plans(tile)
+    a, b = stores(len(coords), len(coords), tile, dtype, dev)
+    k5 = band_matmul(a, b, device_band_plan(bp, dev), out_dtype=torch.float32)
+    k1 = tile_stack_matmul(a, b, device_stack(tp.stack, tp.n_c_tiles, dev),
+                           out_dtype=torch.float32)
+    gp = device_group_plan(tp.stack, tp.n_c_tiles, len(coords), dev)
+    assert gp.join is None  # the kernel writes the C store
+    k4 = tile_stack_matmul_grouped(a, b, gp, out_dtype=torch.float32)
+    assert torch.equal(k1, k5) and torch.equal(k4, k5)
+
+
+def grouped_on_nan_memory(a, b, plan, out_dt):
+    """K4 on a store that ``torch.empty`` takes from memory just filled with
+    NaN and freed (the caching allocator hands the block back); returns the
+    result and whether it landed there."""
+    n_out = plan.n_c if plan.join is None else plan.n_groups * plan.group
+    poison = torch.full((n_out,) + tuple(a.shape[1:]), float("nan"),
+                        device=a.device, dtype=out_dt)
+    ptr = poison.data_ptr()
+    del poison
+    got = tile_stack_matmul_grouped(a, b, plan, out_dtype=out_dt)
+    return got, got.data_ptr() == ptr
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k4_direct_write_leaves_no_nan(dev, tile, dtype):
+    """No C run is split, so the kernel writes the C store: padding rows
+    write nothing and the C slots that no row produces (3 and 8) come out
+    zero, in a store on NaN-filled memory; two launches bitwise equal."""
+    stack, n_c = random_stack(np.random.default_rng(tile), n_c=11, s=120, n_tiles=20)
+    stack = stack[~np.isin(stack[:, 0], (3, 8))]
+    a, b = stores(20, 20, tile, dtype, dev)
+    out_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    plan = device_group_plan(stack, n_c, 20, dev, group=4, cache=128)
+    assert plan.join is None and plan.zero_slots.tolist() == [3, 8]
+    assert (plan.out_slot < 0).any()  # padding rows
+    landed = False
+    for _ in range(3):
+        got, on_nan = grouped_on_nan_memory(a, b, plan, out_dt)
+        landed |= on_nan
+        assert bool(torch.isfinite(got).all()) and not got[[3, 8]].any()
+        ref = tile_stack_matmul_grouped_plain(a, b, plan, out_dtype=out_dt)
+        assert rel_err(got, ref) <= (RTOL_F64 if dtype == torch.float64 else RTOL)
+        assert torch.equal(got, tile_stack_matmul_grouped(a, b, plan, out_dtype=out_dt))
+    assert landed, "the store never landed on the NaN-filled block"
+
+
+@pytest.mark.parametrize("knobs", [(8, 128), (2, 4)])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_k4_f64_matches_the_f64_stack_kernel(dev, tile, knobs):
+    """K4's double instantiation runs on the FP64 tensor cores, as the
+    float64 stack kernel: 1e-12 on the same stack, whether the kernel writes
+    the C store (no run split) or the ordered segment sum joins split runs."""
+    stack, n_c = random_stack(np.random.default_rng(tile), n_c=11, s=120, n_tiles=20)
+    a, b = stores(20, 20, tile, torch.float64, dev)
+    plan = device_group_plan(stack, n_c, 20, dev, group=knobs[0], cache=knobs[1])
+    assert (plan.split_runs > 0) == (knobs == (2, 4))
+    got = tile_stack_matmul_grouped(a, b, plan)
+    ref = tile_stack_matmul_f64(a, b, device_stack(stack, n_c, dev))
+    assert got.dtype == torch.float64 and rel_err(got, ref) <= RTOL_F64
+    if not plan.split_runs:  # one routine, one run order: the same bits
+        assert torch.equal(got, ref)
+    assert torch.equal(got, tile_stack_matmul_grouped(a, b, plan))
+
+
 def test_wrappers_reject_misaligned_stores(dev):
     """A contiguous view that starts 8 bytes into its tensor: the kernels
     copy 16 bytes at a time, so every wrapper refuses it."""
@@ -207,15 +321,6 @@ def test_wrappers_reject_misaligned_stores(dev):
         tile_stack_matmul_panel(flat32[1: 1 + n * 32 * 32].view(n, 32, 32),
                                 flat32[: n * 32 * 32].view(n, 32, 32),
                                 device_panel_plan(plan, dev))
-
-
-DTYPES3 = [torch.float32, torch.bfloat16, torch.float64]
-
-
-def stores(n_a, n_b, tile, dtype, dev):
-    wide = torch.float64 if dtype == torch.float64 else torch.float32
-    return (torch.randn(n_a, tile, tile, device=dev, dtype=wide).to(dtype),
-            torch.randn(n_b, tile, tile, device=dev, dtype=wide).to(dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES3)

@@ -184,3 +184,73 @@ def test_device_plan_arrays_and_row_bounds(rng):
             assert (stack[lb[q]:lb[q + 1], 0] == plan.seg_host[q]).all()
         else:
             assert plan.seg_host[q] == 11 or lb[q + 1] == lb[q]
+
+
+def _way_case(rng, way):
+    """Stacks for each way K4's rows reach the C store: ``padding`` (11 C
+    slots in groups of 4: the kernel writes the store, a padding row writes
+    nothing), ``unproduced`` (slot 4 has no entry and must come out zero),
+    ``split`` (a cache of 4 A tiles cuts C runs across groups: padded rows,
+    then the ordered segment sum)."""
+    a, b, stack = case(rng)
+    if way == "unproduced":
+        stack = stack[stack[:, 0] != 4]
+    group, cache = (2, 4) if way == "split" else (4, 128)
+    return a, b, stack, group, cache
+
+
+WAYS = ["padding", "unproduced", "split"]
+
+
+@pytest.mark.parametrize("way", WAYS)
+def test_row_to_slot_map_matches_jax_seg(rng, way):
+    """The row -> C slot map the CUDA kernel writes through is ``_plan_groups``'
+    ``seg`` of the JAX package, exactly: the C slot for a real row, -1 where
+    seg marks a padding row; when a run is split the kernel writes padded
+    rows (the identity) and the ordered segment sum is planned over seg."""
+    _, _, stack, group, cache = _way_case(rng, way)
+    seg = jax_plan_groups(stack, 11, group, cache)[4]
+    plan = device_group_plan(stack, 11, 20, "cpu", group=group, cache=cache)
+    np.testing.assert_array_equal(plan.seg_host, seg)
+    out_slot = plan.out_slot.numpy()
+    assert plan.out_slot.dtype == torch.int32 and len(out_slot) == len(seg)
+    produced = seg[seg < 11]
+    if way == "split":
+        assert plan.join is not None and plan.split_runs > 0
+        np.testing.assert_array_equal(out_slot, np.arange(len(seg)))
+        assert len(plan.zero_slots) == 0
+    else:
+        assert plan.join is None and plan.split_runs == 0
+        np.testing.assert_array_equal(out_slot, np.where(seg < 11, seg, -1))
+        assert (out_slot == -1).any()  # padding rows exist in both cases
+        np.testing.assert_array_equal(
+            plan.zero_slots.numpy(), np.setdiff1d(np.arange(11), produced))
+        assert (len(plan.zero_slots) > 0) == (way == "unproduced")
+
+
+@pallas
+@pytest.mark.parametrize("way", WAYS)
+def test_each_way_matches_interpret_f32(rng, way):
+    a, b, stack, group, cache = _way_case(rng, way)
+    ref = jax_grouped(jnp.asarray(a), jnp.asarray(b), stack, n_c_tiles=11,
+                      group=group, cache=cache, ring=4, interpret=True,
+                      precision="highest")
+    plan = device_group_plan(stack, 11, 20, "cpu", group=group, cache=cache)
+    got = tile_stack_matmul_grouped(torch.from_numpy(a), torch.from_numpy(b), plan)
+    assert got.shape == (11, T, T) and got.dtype == torch.float32
+    assert rel_err(got, ref) <= RTOL
+    if way == "unproduced":
+        assert not got[4].any() and not np.asarray(ref)[4].any()
+
+
+@pytest.mark.parametrize("way", WAYS)
+def test_each_way_matches_xla_twin_f64(rng, way):
+    a, b, stack, group, cache = _way_case(rng, way)
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    ref = tile_stack_matmul_xla(jnp.asarray(a), jnp.asarray(b), jnp.asarray(stack),
+                                n_c_tiles=11, precision="highest")
+    assert np.asarray(ref).dtype == np.float64
+    plan = device_group_plan(stack, 11, 20, "cpu", group=group, cache=cache)
+    got = tile_stack_matmul_grouped(torch.from_numpy(a), torch.from_numpy(b), plan)
+    assert got.dtype == torch.float64 and got.shape == (11, T, T)
+    assert rel_err(got, ref) <= 1e-12

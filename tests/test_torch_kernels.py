@@ -127,6 +127,56 @@ def test_bf16_inputs_f32_output_match_pallas_interpret(rng):
     assert tile_stack_matmul(a16, b16, device_stack(stack, n_c, "cpu")).dtype == torch.bfloat16
 
 
+def ragged_case(rng, n_tiles=12):
+    """Runs of 0..9 entries, three C tiles left empty: the stack shape that
+    the card's K1 walks with one block per C tile and a ring of K chunks."""
+    n_c = 17
+    runs = rng.integers(0, 10, n_c)
+    runs[[2, 9, 16]] = 0
+    c = np.repeat(np.arange(n_c), runs)
+    stack = np.stack(
+        [c, rng.integers(0, n_tiles, len(c)), rng.integers(0, n_tiles, len(c))], axis=1
+    ).astype(np.int32)
+    return stack, n_c
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ragged_runs_and_empty_tiles_match_xla_twin(rng, dtype):
+    stack, n_c = ragged_case(rng)
+    a, b = stores(rng, dtype)
+    ref = tile_stack_matmul_xla(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(stack), n_c_tiles=n_c,
+        precision="highest",
+    )
+    got = tile_stack_matmul(
+        torch.from_numpy(a), torch.from_numpy(b), device_stack(stack, n_c, "cpu")
+    )
+    assert got.shape == (n_c, T, T)
+    assert rel_err(got, ref) <= RTOL[dtype]
+    for c in (2, 9, 16):
+        assert not got[c].any()
+
+
+@pytest.mark.parametrize("kind", ["random", "singles", "long"])
+def test_flat_panel_and_grouped_plain_agree_bitwise(rng, kind):
+    """K1, K2 and K4 (no run split) sum every C tile in stack order, so their
+    plain versions agree bit for bit on one stack, as the kernels do on the
+    card since they share one routine."""
+    from dbcsr_tpu_torch.mm.kernels import device_group_plan, tile_stack_matmul_grouped_plain
+    from dbcsr_tpu_torch.mm.panel import plan_panel_stack, tile_stack_matmul_panel_plain
+
+    stack, n_c = stack_case(rng, kind)
+    a, b = stores(rng, np.float32)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    flat = tile_stack_matmul_plain(at, bt, device_stack(stack, n_c, "cpu"))
+    gplan = device_group_plan(stack, n_c, 12, "cpu", group=8, cache=128)
+    assert gplan.join is None
+    assert torch.equal(flat, tile_stack_matmul_grouped_plain(at, bt, gplan))
+    pplan = plan_panel_stack(stack, n_c, 12, 12, c_win=16, a_cap=12, b_cap=12, chunk=1)
+    assert pplan is not None
+    assert torch.equal(flat, tile_stack_matmul_panel_plain(at, bt, pplan))
+
+
 def test_plain_is_deterministic_and_run_ordered(rng):
     stack, n_c = stack_case(rng, "long")
     a, b = stores(rng, np.float32)
