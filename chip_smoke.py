@@ -32,7 +32,15 @@ Phases (any failure exits non-zero before the final line):
    store: split C runs joined by the ordered segment sum, the kernel writing
    the store past padding rows, and C slots that no row produces, which must
    be zero in a store on NaN-filled memory; ``runlen`` 2 and 4 with all
-   three tiers, the clamped last group);
+   three tiers, the clamped last group); then K5 and K3 as Jobs of the
+   pipelined routines (T=128/64): K5 on bands with holes planned over every
+   band position of C, so that runs lose their first cell, their last,
+   several in a row and every cell (a zero tile), in float32, bf16 and
+   float64 (the FP64 ``mma`` routine), against its plain version, a host
+   float64 recomputation and, bitwise, the flat kernel of its type on
+   ``band_owned_stack``; K3 at ``runlen`` 2, 3 and 4, with and without
+   ``cm_perm``, and with cells longer than its window of expanded pairs,
+   against its plain version and, bitwise, K1 on ``panel_runs_owned_stack``;
 4. the main path at a real size: the banded linear-scaling SCF pattern of
    ``bench.py`` (blocks of 5/13/23, band of ±12 blocks at 50% fill, T=128)
    at 400,000 rows through ``build_multiply_executor`` — ``auto`` must run
@@ -55,12 +63,14 @@ Phases (any failure exits non-zero before the final line):
    variants (the float64 kernel must run, K1/K2 must not), each step against
    the same step through the kernel's plain version, ``compact()`` against
    the one-shot ``multiply(filter_eps=...)``, and CUDA-event medians of the
-   step, its superset product, the kernel alone and its plain version, and
-   of the old design on the same stack (the ``band`` route's kernel K5,
-   which still runs ``tile_run``: a DFMA loop in float64), against which
-   the step's kernel and K4 (``driver="grouped"``, on the FP64 tensor cores
-   in float64) must agree and be faster; then the same once in float32,
-   where the step runs K2 and K1, K2 and K4 must equal K5 bit for bit;
+   step, its superset product, the kernel alone and its plain version;
+   then every kernel that takes the step's stack, on it: the float64 stack
+   kernel, K4 (``driver="grouped"``) and K5 (``driver="band"``), all on the
+   FP64 tensor cores, must be bitwise equal to each other and twice to
+   themselves, and each must agree with its plain version and with a host
+   float64 recomputation of 64 sampled C tiles; then the same once in
+   float32, where the step runs K2 and K1, K2, K4 and K5 must be bitwise
+   equal. K5's times are printed beside what the design it replaced read;
 8. the McWeeny purification loop of ``tests/test_purification.py`` on the
    card (T=16, ``mm_driver="stack"``, so every product takes the float64
    kernel) with that test's assertions, against the same loop on CPU
@@ -70,7 +80,8 @@ Phases (any failure exits non-zero before the final line):
    (K4) and ``panel_runlen=4`` under ``driver="panel"`` (K3), each against
    its plain version, a float64 host recomputation of sampled tiles and
    phase 4's panel result, with CUDA-event medians and the plan figures (K4
-   must write the C store itself there: no join, no padded copy of C);
+   must write the C store itself there: no join, no padded copy of C), and
+   K5 and K3 once more with bf16 inputs ("default");
    then the RCM reordering on clustered-but-scrambled patterns: bench.py's
    ``clustered`` chain (blocks 5/13/23, coupling exp(-d/4) out to 15 blocks,
    numbering scrambled) at 60,000 rows with ``reorder`` "off" and "auto" and
@@ -149,6 +160,12 @@ TILE_BAND_BLOCKS = 4_000
 #: phase 10: the smaller size of the library yardstick, bench.py's own
 #: ``banded`` row count (cuSPARSE SpGEMM needs ~30 GB of work space there)
 LIBRARY_ROWS = 40_000
+#: what K5 and K3 took at the phase-4 shape (K5 float64: the phase-7 stack)
+#: under the design they ran before the pipelined routines — ``tile_run`` on
+#: four sub-tile blocks a C tile at T = 128, a DFMA loop in float64 — as this
+#: script read them on the card named; printed beside this run's times
+OLD_ROUTINE_MS = {"K5 float32": 12.222, "K3 float32": 11.921, "K5 float64": 18.576}
+OLD_ROUTINE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 #: NVIDIA H100 SXM data sheet, dense rates: HBM3 bytes/s; float32 outside
 #: the tensor cores (IEEE float32 has no tensor-core route; the kernels widen
 #: bf16 inputs to float32 too); float64 on the tensor cores
@@ -789,6 +806,146 @@ def phase_kernels_new(dev) -> dict:
     return worst
 
 
+def phase_kernels_jobs(dev) -> dict:
+    """K5 and K3 in the pipelined routines (T = 128 and 64) where their Jobs
+    could go wrong. K5: a band with holes planned over every band position of
+    C, so that runs lose their first cell, their last, several in a row and,
+    for some positions, every cell (a zero tile); negative ``off_a`` on a
+    rectangular grid; float32, bf16 and float64. K3: ``runlen`` 2, 3 and 4
+    with all three tiers, with and without ``cm_perm``, the clamped last
+    group, and cells longer than the kernel's window of expanded pairs. Each
+    against its plain version and a host float64 recomputation, twice
+    (bitwise equal), and bitwise against the flat kernel of its type (K1; in
+    float64 the float64 stack kernel) on its owned stack. Returns the worst
+    absolute errors."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.band import (
+        band_matmul, band_matmul_plain, band_owned_stack, band_run_cells,
+        device_band_plan, plan_band,
+    )
+    from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
+    from dbcsr_tpu_torch.mm.kernels import device_stack, stack_of_runs, tile_stack_matmul
+    from dbcsr_tpu_torch.mm.panel import (
+        device_panel_run_plan, panel_runs_owned_stack, plan_panel_runs,
+        tile_stack_matmul_panel_runs, tile_stack_matmul_panel_runs_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst = {}
+    f32 = torch.float32
+
+    def stores(n_a, n_b, tile, dtype):
+        wide = torch.float64 if dtype == torch.float64 else f32
+        return tuple(
+            torch.randn((n, tile, tile), generator=gen, device=dev, dtype=wide).to(dtype)
+            for n in (n_a, n_b))
+
+    def flat_kernel(a, b, st, n_c):
+        ds = device_stack(st, n_c, dev)
+        if a.dtype == torch.float64:
+            return tile_stack_matmul_f64(a, b, ds)
+        return tile_stack_matmul(a, b, ds, out_dtype=f32)
+
+    def holes(nr, nc, lo, hi, fill):
+        """Band coords with every third tile of the extreme diagonals dropped
+        and a share ``fill`` of the inner ones kept."""
+        r, c = np.meshgrid(np.arange(nr), np.arange(nc), indexing="ij")
+        d = c - r
+        keep = (d >= lo) & (d <= hi) & np.where(
+            (d == lo) | (d == hi), r % 3 != 1, rng.random(d.shape) < fill)
+        return np.stack([r[keep], c[keep]], axis=1).astype(np.int64)
+
+    # (label, Mt, Kt, Nt, A diagonals, B diagonals)
+    band_cases = [("square, holes", 40, 40, 40, (-2, 2), (-1, 2)),
+                  ("rect, off_a=-3, holes", 12, 20, 15, (-3, 5), (-6, 2))]
+    for label, mt, kt, nt, (alo, ahi), (blo, bhi) in band_cases:
+        ac, bcd = holes(mt, kt, alo, ahi, 0.6), holes(kt, nt, blo, bhi, 0.6)
+        r, c = np.meshgrid(np.arange(mt), np.arange(nt), indexing="ij")
+        keys = np.sort((r * nt + c)[(c - r >= alo + blo) & (c - r <= ahi + bhi)]).astype(np.int64)
+        bp = plan_band(ac, (mt, kt), bcd, (kt, nt), keys, tile=128)
+        if bp is None or (label.startswith("rect") and bp.off_a >= 0):
+            fail(f"band case {label!r} did not plan as intended")
+        run, a_cell, b_cell = band_run_cells(bp)
+        absent = run & ((a_cell < 0) | (b_cell < 0))
+        some = (run & ~absent).any(axis=1)
+        first = np.array([absent[i, run[i]][0] for i in range(len(run))])
+        last = np.array([absent[i, run[i]][-1] for i in range(len(run))])
+        in_a_row = (absent[:, 1:] & absent[:, :-1]).any(axis=1)
+        empty = np.flatnonzero(~some)
+        counts = (int((some & first).sum()), int((some & last).sum()),
+                  int((some & in_a_row).sum()), len(empty))
+        log(f"  K5 {label}: Wa={bp.wa} Wb={bp.wb} off_a={bp.off_a}, {len(run)} C positions; runs "
+            f"with an absent cell first / last / two in a row: {counts[0]} / {counts[1]} / "
+            f"{counts[2]}; runs with no present cell: {counts[3]}")
+        if min(counts) == 0:
+            fail(f"band case {label!r} misses one of the absent-cell cases: {counts}")
+        owned = stack_of_runs(*band_owned_stack(bp))
+        dp = device_band_plan(bp, dev)
+        for tile in (128, 64):
+            for dtype in (f32, torch.bfloat16, torch.float64):
+                a, b = stores(len(ac), len(bcd), tile, dtype)
+                out_dt = torch.float64 if dtype == torch.float64 else f32
+
+                def k5():
+                    # as K4's check: the store may land on NaN-filled memory,
+                    # so a zero tile that was never written shows
+                    poison = torch.full((len(run), tile, tile), float("nan"), device=dev,
+                                        dtype=out_dt)
+                    del poison
+                    return band_matmul(a, b, dp, out_dtype=out_dt)
+
+                check_new_kernel("K5", label, tile, dtype, k5,
+                                 lambda: band_matmul_plain(a, b, bp, out_dtype=out_dt),
+                                 owned, a, b, rng, worst)
+                got = k5()
+                same = bool(torch.equal(got, flat_kernel(a, b, owned, len(run))))
+                zero = not bool(got[empty].any())
+                log(f"     == {'the float64 stack kernel' if dtype == torch.float64 else 'K1'} "
+                    f"on band_owned_stack bitwise: {same}; the {len(empty)} runs with no "
+                    f"present cell are zero tiles: {zero}")
+                if not (same and zero):
+                    fail(f"K5 ({label}, T={tile}, {dtype}): flat kernel bitwise {same}, zero tiles {zero}")
+
+    # K3: the banded stack of phase_kernels_new (n_c = 294, clamped last group)
+    bstack, n_band = banded_tile_stack(mt=60, w=2)
+    bc = np.asarray([(r, c) for r in range(60) for c in range(max(0, r - 2), min(60, r + 3))])
+    cm = np.argsort(bc[:, 1] * 60 + bc[:, 0]).astype(np.int32)
+    long_cells = long_run_stack(rng, 21, 150, 96, 96)
+    k3_cases = [(f"banded runlen={rl} {'cm_perm' if perm is not None else 'no cm_perm'}",
+                 bstack, n_band, n_band, dict(b_cm_perm=perm, c_win=16, a_cap=64, b_cap=64,
+                                              chunk=4, runlen=rl))
+                for rl in (2, 3, 4) for perm in (cm, None)]
+    k3_cases.append(("cells of 150 products, runlen=4", long_cells, 21, 96,
+                     dict(c_win=16, a_cap=96, b_cap=96, chunk=1, runlen=4)))
+    for label, st, n_c, n_store, kw in k3_cases:
+        rp = plan_panel_runs(st, n_c, n_store, n_store, **kw)
+        if rp is None or rp.gstart[-1] % rp.c_win == 0:
+            fail(f"K3 case {label!r} must plan with a clamped last group")
+        tiers = (rp.n_quads, rp.n_pairs, rp.n_singles)
+        if kw.get("b_cm_perm") is not None and (
+                not rp.n_quads or not rp.n_singles or (rp.n_pairs > 0) != (kw["runlen"] > 2)):
+            fail(f"run plan tiers {tiers} ({label})")
+        owned = stack_of_runs(*panel_runs_owned_stack(rp))
+        dp = device_panel_run_plan(rp, dev)
+        for tile in (128, 64):
+            for dtype in (f32, torch.bfloat16):
+                a, b = stores(n_store, n_store, tile, dtype)
+                check_new_kernel(
+                    "K3", f"{label} q/p/s={tiers[0]}/{tiers[1]}/{tiers[2]}", tile, dtype,
+                    lambda: tile_stack_matmul_panel_runs(a, b, dp, out_dtype=f32),
+                    lambda: tile_stack_matmul_panel_runs_plain(a, b, rp, out_dtype=f32),
+                    owned, a, b, rng, worst)
+                same = bool(torch.equal(tile_stack_matmul_panel_runs(a, b, dp, out_dtype=f32),
+                                        flat_kernel(a, b, owned, n_c)))
+                log(f"     == K1 on panel_runs_owned_stack bitwise: {same}")
+                if not same:
+                    fail(f"K3 and K1 differ on K3's owned stack ({label}, T={tile}, {dtype})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at 400,000 rows
 # ---------------------------------------------------------------------------
@@ -854,18 +1011,19 @@ def plain_of(plan, a_data, b_data):
 
     a_st, b_st = plan.op_stores(a_data, b_data)
     a_in, b_in = a_st.to(plan.in_dtype), b_st.to(plan.in_dtype)
-    f32 = torch.float32
+    # the sums' type: float64 stores stay float64 (K4 and K5 take them)
+    acc = torch.float64 if plan.in_dtype == torch.float64 else torch.float32
     if plan.route == "f64_stack":
         return tile_stack_matmul_f64_plain(a_in, b_in, plan.stack)
     if plan.route == "panel":
-        return tile_stack_matmul_panel_plain(a_in, b_in, plan.panel.plan, out_dtype=f32)
+        return tile_stack_matmul_panel_plain(a_in, b_in, plan.panel.plan, out_dtype=acc)
     if plan.route == "panel_runs":
-        return tile_stack_matmul_panel_runs_plain(a_in, b_in, plan.panel.plan, out_dtype=f32)
+        return tile_stack_matmul_panel_runs_plain(a_in, b_in, plan.panel.plan, out_dtype=acc)
     if plan.route == "band":
-        return band_matmul_plain(a_in, b_in, plan.band.plan, out_dtype=f32)
+        return band_matmul_plain(a_in, b_in, plan.band.plan, out_dtype=acc)
     if plan.route == "grouped":
-        return tile_stack_matmul_grouped_plain(a_in, b_in, plan.grouped, out_dtype=f32)
-    return tile_stack_matmul_plain(a_in, b_in, plan.stack, out_dtype=f32)
+        return tile_stack_matmul_grouped_plain(a_in, b_in, plan.grouped, out_dtype=acc)
+    return tile_stack_matmul_plain(a_in, b_in, plan.stack, out_dtype=acc)
 
 
 def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
@@ -1259,55 +1417,52 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
         f"({ex.eff_flops / 1e9:.1f} GFLOP of block products)")
     out.update(kernel_ms=km, plain_ms=pm, step_ms=st, fn_ms=fm)
 
-    # The design these kernels replaced, on the same stack in the same run:
-    # tile_run of tile_product.cuh, which the band route's kernel (K5) still
-    # runs at T = 128 (FFMA in float32, a DFMA loop in float64). Held
-    # against it: the step's own kernel, K4 through driver="grouped" and, in
-    # float32, K1 through driver="stack". Once K5 and K3 leave tile_run at
-    # T >= 64 too, no old design is left to hold a kernel against and this
-    # yardstick goes with it.
+    # Every kernel that takes this stack, on it, in the same run: the step's
+    # own kernel, K4 through driver="grouped", K5 through driver="band" and,
+    # in float32, K1 through driver="stack". They share one routine per type
+    # (the blocked FFMA routine; the FP64 mma routine) and one run order, so
+    # they must be bitwise equal to each other and twice to themselves. The
+    # independent arithmetic is each kernel's plain version and a host
+    # float64 recomputation of 64 sampled C tiles.
     def same_stack_kernel(driver):
         fn = dt.build_multiply_executor("N", "N", a, b, driver=driver)[0]
         if fn.plan.route != driver or len(fn.plan.tile_plan.stack) != len(tp.stack):
             fail(f"{name}: driver={driver!r} took route {fn.plan.route}")
         x, y = (v.to(fn.plan.in_dtype) for v in fn.plan.op_stores(a.data, b.data))
         k = kernel_of(fn.plan)
-        return lambda: k(x, y)
+        return (lambda: k(x, y)), fn.plan
 
-    old = same_stack_kernel("band")
-    news = {("K6" if f64 else "K2"): lambda: kern(a_in, b_in),
-            "K4": same_stack_kernel("grouped")}
+    peers = {("K6" if f64 else "K2"): ((lambda: kern(a_in, b_in)), plan),
+             "K4": same_stack_kernel("grouped"), "K5": same_stack_kernel("band")}
     if not f64:
-        news["K1"] = same_stack_kernel("stack")
-    old_out = old()
+        peers["K1"] = same_stack_kernel("stack")
+    picks = np.sort(np.random.default_rng(2).choice(tp.n_c_tiles, size=64, replace=False))
+    host = torch.as_tensor(host_f64_tiles(*plan.op_stores(a.data, b.data), tp.stack, picks,
+                                          plan.in_dtype))
     first = None
-    for k, new in news.items():
-        got = new()
-        err, rel = rel_err(got, old_out)
-        # float32: one FFMA chain per C element whatever the blocking, so
-        # bitwise; float64: the order inside one mma is the hardware's
-        bitwise = bool(torch.equal(got, old_out))
-        twice = bool(torch.equal(got, new()))
+    for k, (run_k, plan_k) in peers.items():
+        got = run_k()
+        twice = bool(torch.equal(got, run_k()))
         first = got if first is None else first
-        peers, prel = bool(torch.equal(got, first)), rel_err(got, first)[1]
-        del got
-        o1 = cuda_median_ms(old, reps=10)
-        n1 = cuda_median_ms(new, reps=10)
-        n2 = cuda_median_ms(new, reps=10)
-        o2 = cuda_median_ms(old, reps=10)
-        om, nm = float(np.median([o1, o2])), float(np.median([n1, n2]))
-        log(f"  {name} {k} vs the old design on the same stack (K5, tile_run): agrees to "
-            f"rel={rel:.2e} (bound {rtol:.0e}), bitwise {bitwise}; equal to the first new kernel "
-            f"bitwise: {peers}; two launches bitwise equal: {twice}; new/old = {nm / om:.3f} "
-            f"[old runs {o1:.3f}/{o2:.3f}, new runs {n1:.3f}/{n2:.3f}]")
+        same = bool(torch.equal(got, first))
+        hrel = rel_err(got[picks].cpu(), host)[1]
+        ref = plain_of(plan_k, a.data, b.data)
+        sync(dev)
+        prel = rel_err(got, ref)[1]
+        del got, ref
+        n1 = cuda_median_ms(run_k, reps=10)
+        n2 = cuda_median_ms(run_k, reps=10)
+        nm = float(np.median([n1, n2]))
+        log(f"  {name} {k} on the same stack: bitwise equal to {next(iter(peers))}: {same}; two "
+            f"launches bitwise equal: {twice}; vs its plain version rel={prel:.2e}, vs host "
+            f"float64 (64 tiles) rel={hrel:.2e} (bound {rtol:.0e}) [runs {n1:.3f}/{n2:.3f}]")
         log("  " + rate_line(f"{name} {k}", nm, out["counts"], name))
-        if not (rel <= rtol and prel <= rtol and twice and (f64 or (bitwise and peers))):
-            fail(f"{name}: {k} and the band route's kernel disagree on the same stack")
-        if not nm < om:
-            fail(f"{name}: {k} ({nm:.3f} ms) is not faster than the old design ({om:.3f} ms)")
+        if not (same and twice and prel <= rtol and hrel <= rtol):
+            fail(f"{name}: {k} disagrees on the step's stack (bitwise with its peers: {same}, "
+                 f"with itself: {twice}, plain rel {prel:.2e}, host rel {hrel:.2e})")
         out[f"{k}_ms"] = nm
-    log("  " + rate_line(f"{name} old design (K5)", om, out["counts"], name))
-    out.update(old_ms=om)
+    log(f"  {name} K5 {out['K5_ms']:.3f} ms; the sub-tile design it replaced read "
+        f"{OLD_ROUTINE_MS['K5 ' + name]:.3f} ms on {OLD_ROUTINE_CARD}")
     return out
 
 
@@ -1517,6 +1672,45 @@ def phase_new_drivers(dev, a, b, panel_out) -> dict:
         rows[k] = {"launches": launches[k], "max_abs_err": max(err, serr), "ms": km,
                    "plain_ms": pm, "exec_ms": ex,
                    "counts": (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))}
+        if k != "K4":
+            log("  " + rate_line(f"{k} kernel", km, rows[k]["counts"], "float32")
+                + f"; the sub-tile design it replaced read {OLD_ROUTINE_MS[k + ' float32']:.3f} ms "
+                f"on {OLD_ROUTINE_CARD}")
+    del outs
+
+    # K5 and K3 with bf16 inputs: the same executors at "default" (the band
+    # route follows ``stack_bf16_inputs``, on by default; the panel routes
+    # follow ``panel_bf16_inputs``, which is off by default)
+    for k in ("K5", "K3"):
+        driver, cfg = cases[k]
+        with dt.config_override(matmul_precision="default", panel_bf16_inputs=True, **cfg):
+            fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b, driver=driver)
+        plan = fn.plan
+        if plan.route != routes[k] or plan.in_dtype != torch.bfloat16:
+            fail(f"{k} at 'default': route {plan.route}, kernel inputs {plan.in_dtype}")
+        before = read_launches()[k]
+        out = fn(a.data, b.data)
+        sync(dev)
+        if read_launches()[k] != before + 1:
+            fail(f"{k} at 'default' did not launch its kernel")
+        c_keys = store_layout(c_index, 128).tile_keys()
+        ref = take_tiles(plain_of(plan, a.data, b.data), plan.align_map(c_keys), 128)
+        sync(dev)
+        err, rel = rel_err(out, ref)
+        del ref
+        serr, srel = sampled_f64_check(plan, out, c_index, a.data, b.data)
+        del out
+        ex, km, pm, runs = timed_plain_kernel_exec(fn, a, b)
+        counts = rows[k]["counts"]
+        log(f"  {k} bf16 inputs ({plan.route} @ default): vs plain max_abs_err={err:.3e} "
+            f"rel={rel:.2e}; vs float64 of the bf16-rounded stores (64 tiles) rel={srel:.2e} "
+            f"(bound {KERNEL_RTOL:.0e}); executor {ex:.3f} ms, kernel {km:.3f} ms, plain {pm:.3f} ms "
+            f"[kernel runs {runs[0]:.3f}/{runs[1]:.3f}, plain runs {runs[2]:.3f}/{runs[3]:.3f}]")
+        log("  " + rate_line(f"{k} bf16 kernel", km, counts, "float32"))
+        if not (rel <= KERNEL_RTOL and srel <= KERNEL_RTOL):
+            fail(f"{k} with bf16 inputs disagrees with its references")
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err, serr)
+        rows[k + " bf16"] = {"ms": km, "plain_ms": pm, "exec_ms": ex}
     return rows
 
 
@@ -1855,6 +2049,8 @@ def main() -> int:
         k12_err[k] = max(k12_err[k], err)
     f64_err = phase_kernels_f64(dev)
     new_err = phase_kernels_new(dev)
+    for k, err in phase_kernels_jobs(dev).items():
+        new_err[k] = max(new_err[k], err)
     if args.quick:
         log("[5] one-shot multiply through the dense path")
         phase_dense(dev)

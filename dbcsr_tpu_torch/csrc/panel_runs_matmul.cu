@@ -12,27 +12,28 @@
 //
 // Replaces the TPU kernel dbcsr_tpu/mm/panel.py:_panel_run_kernel (launched
 // by _panel_run_launch / tile_stack_matmul_panel_runs). On the TPU a run of R
-// is ONE MXU issue of depth K = R·T over flat slabs — A stored as stacked
+// is ONE MXU dot of depth K = R·T over flat slabs — A stored as stacked
 // transposed tiles, B copied into column-major order — because the per-entry
-// issue path, not memory, bounds its panel kernel. A CUDA block has no issue
-// slot to save: a run of R is R consecutive tile products accumulated in the
-// same registers, which IS one product of depth R·T. So the port builds
-// neither the transposed A slab nor the permuted B copy; the kernel expands
-// each entry in place and reads B through cm_perm. One block owns a BM×BM
-// sub-tile of one cell for its whole sum (quads, then pairs, then singles),
-// so each C element is written once by one thread in a fixed order: no
-// atomics, two launches bitwise equal. The clamped last group re-covers slots
-// of its predecessor; as in K2 a slot s of group g is skipped when s < g·c_win.
+// dispatch, not memory, bounds its panel kernel. A CUDA block has no dispatch
+// to save: a run of R is R consecutive tile products in the same registers,
+// which IS one product of depth R·T. So the port builds neither slab; the
+// kernel expands each entry and reads B through cm_perm. One block owns one
+// cell for its whole sum (quads, pairs, singles), so each C element is
+// written once by one thread in a fixed order: no atomics, two launches
+// bitwise equal. A slot s of the clamped last group g is skipped when
+// s < g·c_win (its predecessor owns it), as in K2.
 //
-// What bounds it on an H100: as K1/K2 (tile_product.cuh), compute-bound on
-// FFMA issue and shared-memory reads. The sum order differs from K2's
-// (entries re-sorted by A slot, three tiers), so K3 is held to its own plain
-// version within a tolerance, not bitwise to K2.
-#include "tile_product.cuh"
+// What bounds it on an H100: operations, as K1 (stack_matmul.cu). At T =
+// 128/64 it runs the blocked FFMA routine of tile_product_f32.cuh, whose ring
+// runs on from one tile product into the next, so a run of R costs one
+// pipeline fill; tile_run at T = 16/32. The sum order differs from K2's
+// (entries re-sorted by A slot, three tiers): K3 is held to its own plain
+// version, and bitwise to K1 on panel.panel_runs_owned_stack.
+#include "tile_kernel.cuh"
 
 namespace dbcsr_torch {
 
-struct RunPlanArrays {
+struct PanelRunJob {
     const int* gstart;
     const int* a_lo;
     const int* b_lo;
@@ -43,47 +44,43 @@ struct RunPlanArrays {
     const int* obs;
     const int* sent;
     const int* cm_perm;  // null: the B store is already in column-major order
-};
+    int c_win, runlen;
 
-template <typename In, int T>
-__global__ void __launch_bounds__(kThreads)
-panel_runs_matmul_kernel(const In* __restrict__ A, const In* __restrict__ B,
-                         float* __restrict__ C, RunPlanArrays p, int c_win,
-                         int runlen)
-{
-    using S = SubTile<T>;
-    constexpr int NS = T / S::BM;
-    const int64_t cell = blockIdx.x / S::kPerTile;  // (group, local slot)
-    const int sub = blockIdx.x % S::kPerTile;
-    const int g = (int)(cell / c_win);
-    const int slot = p.gstart[g] + (int)(cell % c_win);
-    if (slot < g * c_win) return;  // clamped last group: owned by group g-1
-    const int r0 = (sub / NS) * S::BM, c0 = (sub % NS) * S::BM;
-    const int alo = p.a_lo[g], blo = p.b_lo[g];
-    const int q0 = p.obq[cell], nq = (p.obq[cell + 1] - q0) * runlen;
-    const int p0 = p.obp[cell], np = (p.obp[cell + 1] - p0) * 2;
-    const int s0 = p.obs[cell], ns = p.obs[cell + 1] - s0;
-    // v runs over the cell's tile products: quads expanded, then pairs, then
-    // singles
-    tile_run<In, T, S::BM>(
-        A, B, C + (int64_t)slot * (T * T), r0, c0, 0, nq + np + ns,
-        [=](int v) {
+    template <typename Run>
+    __device__ __forceinline__ void operator()(int64_t cell, Run&& run) const
+    {
+        const int g = (int)(cell / c_win);  // (group, local slot)
+        const int slot = gstart[g] + (int)(cell % c_win);
+        if (slot < g * c_win) return;  // clamped last group: owned by group g-1
+        const int c = (int)cell;
+        const int n = (obq[c + 1] - obq[c]) * runlen + (obp[c + 1] - obp[c]) * 2
+                      + obs[c + 1] - obs[c];
+        // v runs over the cell's tile products: quads expanded, then pairs,
+        // then singles. Inlined in the ring loop this expansion made the
+        // float32 T = 128 instantiation spill, so it is staged (stage_pairs).
+        run(slot, 0, n, stage_pairs(0, n, [job = *this, c, g](int v) {
+            const int q0 = job.obq[c], nq = (job.obq[c + 1] - q0) * job.runlen;
             int packed, r;
             if (v < nq) {
-                packed = p.qent[q0 + v / runlen];
-                r = v % runlen;
-            } else if (v < nq + np) {
-                packed = p.pent[p0 + (v - nq) / 2];
-                r = (v - nq) % 2;
+                packed = job.qent[q0 + v / job.runlen];
+                r = v % job.runlen;
             } else {
-                packed = p.sent[s0 + (v - nq - np)];
-                r = 0;
+                const int p0 = job.obp[c], np = (job.obp[c + 1] - p0) * 2;
+                const int w = v - nq;
+                if (w < np) {
+                    packed = job.pent[p0 + (w >> 1)];
+                    r = w & 1;
+                } else {
+                    packed = job.sent[job.obs[c] + w - np];
+                    r = 0;
+                }
             }
-            const int sb = blo + (packed & 0xFFFF) + r;
-            return make_int2(alo + (packed >> 16) + r,
-                             p.cm_perm ? p.cm_perm[sb] : sb);
-        });
-}
+            const int sb = job.b_lo[g] + (packed & 0xFFFF) + r;
+            return make_int2(job.a_lo[g] + (packed >> 16) + r,
+                             job.cm_perm ? job.cm_perm[sb] : sb);
+        }));
+    }
+};
 
 }  // namespace dbcsr_torch
 
@@ -102,17 +99,15 @@ extern "C" int dbcsr_torch_panel_runs_matmul(
     if (n_cells <= 0) return 0;
     if (runlen < 2) return (int)cudaErrorInvalidValue;
     auto ip = [](const void* x) { return static_cast<const int*>(x); };
-    const RunPlanArrays p{ip(gstart), ip(a_lo), ip(b_lo), ip(obq), ip(qent),
-                          ip(obp), ip(pent), ip(obs), ip(sent), ip(cm_perm)};
+    const PanelRunJob job{ip(gstart), ip(a_lo), ip(b_lo), ip(obq), ip(qent),
+                          ip(obp), ip(pent), ip(obs), ip(sent), ip(cm_perm),
+                          c_win, runlen};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dispatch<false>(dtype, tile, [&](auto in_tag, auto tile_tag) {
         using In = typename decltype(in_tag)::type;
         constexpr int T = decltype(tile_tag)::value;
-        const unsigned blocks = tile_grid<T>(n_cells);
-        if (!blocks) return (int)cudaErrorInvalidConfiguration;
-        panel_runs_matmul_kernel<In, T><<<blocks, kThreads, 0, s>>>(
+        return launch_tile_kernel<In, T>(
             static_cast<const In*>(a), static_cast<const In*>(b),
-            static_cast<float*>(c), p, c_win, runlen);
-        return (int)cudaGetLastError();
+            static_cast<float*>(c), n_cells, job, s);
     });
 }

@@ -30,10 +30,10 @@
 // tile, so each A and B tile of the run is read once. T = 16 and T = 32 keep
 // tile_run of tile_product.cuh. Either way every C element is one FFMA chain
 // over the run in stack order and ascending k, so K1 and K2 agree bitwise on
-// the same stack, and so do K1 and the kernels that still run tile_run at
-// T >= 64 (band_matmul.cu, panel_runs_matmul.cu). What is left on the table
-// is the routine's: its inner loop keeps the shared-memory pipe as busy as
-// the FFMA pipe (tile_product_f32.cuh says why).
+// the same stack, as do K1 and any other kernel on a stack that lists the
+// same products in the same order. What is left on the table is the
+// routine's: its inner loop keeps the shared-memory pipe as busy as the FFMA
+// pipe (tile_product_f32.cuh says why).
 #include "tile_kernel.cuh"
 
 extern "C" int dbcsr_torch_stack_matmul(

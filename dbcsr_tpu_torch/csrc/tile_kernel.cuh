@@ -1,6 +1,6 @@
 // The one place where a stack kernel picks its device routine, sizes its
-// shared memory and is launched (stack_matmul.cu, panel_matmul.cu,
-// grouped_matmul.cu, stack_matmul_f64.cu). Every one of these kernels is "for
+// shared memory and is launched: all six .cu files launch through here.
+// Every one of these kernels is "for
 // each output tile, sum A[i]·B[j] over a run of (i, j) pairs in run order and
 // write the sum once"; they differ only in how an output tile finds its C
 // slot, its run and its pairs. That part is the kernel's Job, a small struct
@@ -11,10 +11,12 @@
 //
 // For output tile q (the block index) it calls run(slot, e0, e1, pair) once:
 // C slot `slot` = Σ_{e in [e0, e1)} A[pair(e).x] @ B[pair(e).y], where
-// pair(e) is an int2, either slot negative for an absent tile. A Job that
+// pair(e) is an int2, either slot negative for an absent tile. Every routine
+// calls pair once for each e, ascending, from every thread of the block at
+// the same point (so a pair function may hold a barrier). A Job that
 // has nothing to write for q (a padding row, a slot another block owns)
 // returns without calling run; that is block-uniform and comes before any
-// barrier.
+// barrier. A run with no present pair writes a zero tile.
 //
 // The routine follows from the input type and the tile edge alone, at compile
 // time; there is no run-time switch between designs:
@@ -57,6 +59,35 @@ struct StackJob {
     }
 };
 
+// For a Job whose pair function is costly (divisions, dependent loads, absent
+// cells): thread t of the block evaluates expand(e0 + t) into a window of
+// kStage pairs in static shared memory, and the pair function handed to the
+// routine is one 8-byte shared-memory read (the blocked float32 routine sits
+// at its cap of 128 registers: work in the ring loop is paid in spills). A
+// run longer than kStage refills the window. Called by every thread.
+constexpr int kStage = 64;  // a power of 2
+
+template <typename Expand>
+__device__ __forceinline__ auto stage_pairs(int e0, int e1, Expand expand)
+{
+    __shared__ int2 window[kStage];
+    auto fill = [=](int v0) {
+        for (int v = v0 + (int)threadIdx.x; v < e1 && v < v0 + kStage; v += kThreads)
+            window[v - v0] = expand(v);
+    };
+    fill(e0);
+    __syncthreads();
+    return [=](int v) {
+        const int w = (v - e0) & (kStage - 1);
+        if (w == 0 && v != e0) {
+            __syncthreads();  // every thread has read the window's last pair
+            fill(v);
+            __syncthreads();
+        }
+        return window[w];
+    };
+}
+
 // 64-bit tile offsets throughout: slot·T² crosses 2³¹ elements past 131,072
 // tiles at T = 128.
 template <typename In, int T, typename Job>
@@ -66,7 +97,7 @@ tile_run_kernel(const In* __restrict__ A, const In* __restrict__ B,
 {
     static_assert(T <= 32, "tile_run serves one whole tile a block here");
     job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
-        tile_run<In, T, T>(A, B, C + slot * (T * T), 0, 0, e0, e1, pair);
+        tile_run<In, T>(A, B, C + slot * (T * T), e0, e1, pair);
     });
 }
 

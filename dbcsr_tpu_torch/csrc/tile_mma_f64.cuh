@@ -1,7 +1,7 @@
 // The float64 tile product of the float64 stack kernel (stack_matmul_f64.cu)
-// and of K4's double instantiation (grouped_matmul.cu) on the FP64 tensor
-// cores, for T = 128 and T = 64: for one C tile, sum
-// A[i]·B[j] over a run of (i, j) pairs in run order and write the sum once.
+// and of the double instantiations of K4 (grouped_matmul.cu) and K5
+// (band_matmul.cu) on the FP64 tensor cores, for T = 128 and T = 64: for one
+// C tile, sum A[i]·B[j] over a run of pairs in run order, written once.
 //
 // What bounded the DFMA routine (tile_run instantiated for double) on an
 // H100: the CUDA cores give 33.5 TFLOP/s in float64, the tensor cores 67, and

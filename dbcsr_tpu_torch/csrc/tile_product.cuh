@@ -1,25 +1,20 @@
-// One device routine shared by the stack kernels: for one C tile, sum
-// A[i]·B[j] over a contiguous run of (i, j) pairs, in run order, and write
-// the sum once. A pair with a negative slot is an absent tile (a zero tile)
-// and is skipped. band_matmul.cu and panel_runs_matmul.cu run it at every
-// tile edge; stack_matmul.cu, panel_matmul.cu, grouped_matmul.cu and
-// stack_matmul_f64.cu run it at T = 16 and 32 and take the pipelined
-// routines at T = 64 and 128 (tile_kernel.cuh picks).
+// The device routine of the stack kernels at the small tile edges: for one C
+// tile, sum A[i]·B[j] over a contiguous run of (i, j) pairs, in run order,
+// and write the sum once. A pair with a negative slot is an absent tile (a
+// zero tile) and is skipped. All six stack kernels run it at T = 16 and 32
+// and take the pipelined routines at T = 64 and 128 (tile_kernel.cuh picks).
 //
-// Tile stores are [n, T, T] row-major. A block of 256 threads owns one
-// BM×BM sub-tile of one C tile (BM = min(T, 64)), so a C tile is (T/BM)²
-// blocks and no two blocks touch the same output element: each C tile is
-// written exactly once, with no atomics, and every element's sum is taken
+// Tile stores are [n, T, T] row-major. A block of 256 threads owns one whole
+// C tile: each is written exactly once, with no atomics, every element's sum
 // in the same fixed order on every run (bitwise deterministic).
 //
 // Inside a block: K is staged through shared memory in chunks of 16 (A
-// transposed, so a thread's rows are read with broadcast), each thread
-// keeps a (BM/16)×(BM/16) micro-tile of f32 accumulators in registers,
-// strided by 16 rows/cols so shared-memory reads are free of bank
-// conflicts. f32 inputs run IEEE FFMA; bf16 inputs are widened to f32 in
-// shared memory, so every product is exact and only the f32 sums round.
-// f64 inputs accumulate in f64 (DFMA): the accumulator type follows the
-// input type (AccOf), so the f32/bf16 instantiations compile as before.
+// transposed, so a thread's rows are read with broadcast), each thread keeps
+// a (T/16)×(T/16) micro-tile of accumulators in registers, strided by 16
+// rows/cols so shared-memory reads are free of bank conflicts. f32 inputs run
+// IEEE FFMA; bf16 inputs are widened to f32 in shared memory, so every product
+// is exact and only the f32 sums round; f64 inputs accumulate in f64 (DFMA):
+// the accumulator type follows the input type (AccOf).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,7 +23,7 @@
 
 namespace dbcsr_torch {
 
-constexpr int kThreads = 256;  // 16 × 16 thread grid over a sub-tile
+constexpr int kThreads = 256;  // 16 × 16 thread grid over a tile
 constexpr int kKC = 16;        // K chunk staged through shared memory
 
 // accumulator (and shared-memory staging) type of an input type
@@ -42,22 +37,20 @@ __device__ __forceinline__ double widen(double x) { return x; }
 __device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
 
-// BM×BM sub-tile (rows r0.., cols c0..) of one C tile `out`:
-//   out[r0:r0+BM, c0:c0+BM] = Σ_{e in [e0, e1)} A[ia(e)] @ B[ib(e)]
-// restricted to those rows/cols; `pair(e)` returns (ia, ib) as int2, either
-// negative for an absent tile (the same for every thread of the block).
-template <typename In, int T, int BM, typename PairFn>
+// The whole C tile `out` = Σ_{e in [e0, e1)} A[ia(e)] @ B[ib(e)]; `pair(e)`
+// returns (ia, ib) as int2, either negative for an absent tile (the same for
+// every thread of the block).
+template <typename In, int T, typename PairFn>
 __device__ __forceinline__ void tile_run(
     const In* __restrict__ A, const In* __restrict__ B,
-    typename AccOf<In>::type* __restrict__ out,
-    int r0, int c0, int e0, int e1, PairFn pair)
+    typename AccOf<In>::type* __restrict__ out, int e0, int e1, PairFn pair)
 {
     using Acc = typename AccOf<In>::type;
-    static_assert(BM % 16 == 0 && T % BM == 0 && T % kKC == 0, "tile shape");
-    constexpr int TM = BM / 16;                    // micro-tile edge
-    constexpr int kLoads = BM * kKC / kThreads;    // elements per thread per chunk
-    __shared__ Acc As[kKC][BM + 1];  // As[k][r] = A[r0 + r][k0 + k]
-    __shared__ Acc Bs[kKC][BM];      // Bs[k][c] = B[k0 + k][c0 + c]
+    static_assert(T % 16 == 0 && T % kKC == 0 && T <= 32, "tile shape");
+    constexpr int TM = T / 16;                   // micro-tile edge
+    constexpr int kLoads = T * kKC / kThreads;   // elements per thread per chunk
+    __shared__ Acc As[kKC][T + 1];  // As[k][r] = A[r][k0 + k]
+    __shared__ Acc Bs[kKC][T];      // Bs[k][c] = B[k0 + k][c]
 
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
@@ -70,16 +63,16 @@ __device__ __forceinline__ void tile_run(
     for (int e = e0; e < e1; ++e) {
         const int2 ij = pair(e);
         if (ij.x < 0 || ij.y < 0) continue;  // block-uniform: no barrier is split
-        // 64-bit tile offsets: idx·T·T overflows int32 past 131,072 tiles at T=128
-        const In* a = A + (int64_t)ij.x * (T * T) + (int64_t)r0 * T;
-        const In* b = B + (int64_t)ij.y * (T * T) + c0;
+        // 64-bit tile offsets: idx·T·T overflows int32 for a large store
+        const In* a = A + (int64_t)ij.x * (T * T);
+        const In* b = B + (int64_t)ij.y * (T * T);
         for (int k0 = 0; k0 < T; k0 += kKC) {
 #pragma unroll
             for (int p = 0; p < kLoads; ++p) {
                 const int idx = tid + p * kThreads;
                 const int ar = idx / kKC, ak = idx % kKC;   // 16 threads read one row segment
                 As[ak][ar] = widen(a[ar * T + k0 + ak]);
-                const int bk = idx / BM, bc = idx % BM;     // consecutive threads, consecutive columns
+                const int bk = idx / T, bc = idx % T;       // consecutive threads, consecutive columns
                 Bs[bk][bc] = widen(b[(k0 + bk) * T + bc]);
             }
             __syncthreads();
@@ -102,15 +95,8 @@ __device__ __forceinline__ void tile_run(
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TM; ++j)
-            out[(int64_t)(r0 + ty + 16 * i) * T + c0 + tx + 16 * j] = acc[i][j];
+            out[(ty + 16 * i) * T + tx + 16 * j] = acc[i][j];
 }
-
-// Sub-tile edge for a tile edge T.
-template <int T>
-struct SubTile {
-    static constexpr int BM = T < 64 ? T : 64;
-    static constexpr int kPerTile = (T / BM) * (T / BM);
-};
 
 // input types of the entry points that take a dtype code (K6's port has an
 // entry point of its own and takes none)
@@ -143,14 +129,6 @@ static int dispatch(int dtype, int tile, F&& f)
         if (dtype == kF64) return dispatch_tile<double>(tile, f);
     }
     return (int)cudaErrorInvalidValue;
-}
-
-// Grid of one block per (output tile, sub-tile); 0 blocks when it overflows.
-template <int T>
-static unsigned tile_grid(long long n_tiles)
-{
-    const long long blocks = n_tiles * SubTile<T>::kPerTile;
-    return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
 }
 
 }  // namespace dbcsr_torch

@@ -1,14 +1,14 @@
-// The register-blocked, pipelined float32 tile product of K1
-// (stack_matmul.cu), K2 (panel_matmul.cu) and K4 (grouped_matmul.cu), for
-// T = 128 and T = 64: for one C tile, sum A[i]·B[j]
-// over a run of (i, j) pairs in run order, in IEEE FFMA, and write the sum
-// once. It computes what tile_run (tile_product.cuh) computes, bit for bit:
-// every C element is one fmaf chain over the run in stack order and ascending
-// k, whatever the blocking, so a kernel through this routine and one through
-// tile_run (K5, K3) agree bitwise on the same stack. No split-K, no second partial
-// accumulator, no fast-math.
+// The register-blocked, pipelined float32 tile product of K1 to K5
+// (stack_matmul.cu, panel_matmul.cu, panel_runs_matmul.cu, grouped_matmul.cu,
+// band_matmul.cu), for T = 128 and T = 64: for one C tile, sum A[i]·B[j] over
+// a run of (i, j) pairs in run order, in IEEE FFMA, and write the sum once.
+// It computes what tile_run (tile_product.cuh) computes, bit for bit: every C
+// element is one fmaf chain over the run in stack order and ascending k,
+// whatever the blocking, so two kernels through it agree bitwise on the same
+// stack. No split-K, no second partial accumulator, no fast-math.
 //
-// What bounded tile_run on an H100 and what this design does about it:
+// What bounded tile_run at these tile edges on an H100 and what this design
+// does about it:
 //  - shared-memory reads: a 4×4 micro-tile took 8 scalar LDS for 16 FFMA.
 //    Here ONE block of 256 threads owns the whole C tile and a thread keeps
 //    a TM×TM micro-tile, TM = T/16 (8×8 = 64 accumulators at T = 128, 4×4

@@ -1,17 +1,17 @@
 // The shared-memory ring of the pipelined routines (tile_product_f32.cuh
-// under K1, K2 and K4, tile_mma_f64.cuh under the float64 stack kernel and
-// K4's double instantiation): cp.async copies, a cursor that walks one C tile's run
-// of (A tile, B tile) pairs K chunk by K chunk, and the loop that keeps
-// NSTAGE-1 chunks in flight while one is multiplied.
+// under K1 to K5, tile_mma_f64.cuh under the float64 stack kernel and the
+// double instantiations of K4 and K5): cp.async copies, a cursor that walks
+// one C tile's run of (A tile, B tile) pairs K chunk by K chunk, and the loop
+// that keeps NSTAGE-1 chunks in flight while one is multiplied.
 //
 // The ring runs across the entries of a run, not only inside one tile
 // product: the step after the last K chunk of entry e is the first K chunk
 // of entry e+1, so its copy overlaps entry e's arithmetic. That matters
 // because the runs are short (2.7 entries a C tile on the banded SCF shape):
 // a pipeline that drained at every entry would expose one L2 latency per
-// entry. A pair with a negative slot is an absent tile; the cursor steps
-// over it (the same for every thread of the block), so it occupies no stage
-// and the group count stays in step with the chunk count.
+// entry. A pair with a negative slot is an absent tile (a hole in K5's
+// band); the cursor steps over it (the same for every thread of the block),
+// so it occupies no stage and the group count stays in step with the chunks.
 #pragma once
 
 #include "tile_product.cuh"

@@ -16,9 +16,9 @@ tile-triple count). ``hw_flops`` stays the padded figure, as in the JAX
 package's statistics.
 
 ``band_matmul`` evaluates a plan — for CUDA tensors with the hand-written
-kernel in ``csrc/band_matmul.cu`` (one block per present output tile and
-sub-tile, summing over ``d1`` ascending and reading the tile stores through
-the pack maps, so absent cells cost nothing and no packed copy is made), for
+kernel in ``csrc/band_matmul.cu`` (one block per present output tile,
+summing over ``d1`` ascending and reading the tile stores through the pack
+maps, so absent cells cost nothing and no packed copy is made), for
 CPU tensors with the plain version ``band_matmul_plain``: the torch form of
 the JAX package's XLA twin (pack to ``[W, Mt, T, T]`` with −1 → zero tile,
 one batched wide matmul per ``d1``, sums in ``d1`` order). Both return the C
@@ -41,6 +41,8 @@ __all__ = [
     "plan_band",
     "DeviceBandPlan",
     "device_band_plan",
+    "band_run_cells",
+    "band_owned_stack",
     "band_matmul",
     "band_matmul_plain",
 ]
@@ -150,6 +152,37 @@ def device_band_plan(plan: BandPlan, device) -> DeviceBandPlan:
         a_end=int(plan.a_pack.max(initial=-1)) + 1,
         b_end=int(plan.b_pack.max(initial=-1)) + 1,
     )
+
+
+def band_run_cells(plan: BandPlan):
+    """What the kernel walks: for C tile ``i`` of ``c_unpack`` (band position
+    ``dc·Mt + m``) the run is ``d1`` from ``max(0, dc − (Wb−1))`` to
+    ``min(dc, Wa−1)``. Returns three ``[n_c, Wa]`` arrays: ``run`` (``d1`` is
+    in tile ``i``'s run) and the A and B store slots of cell ``d1``, −1 where
+    the cell is outside the run, ``k = m + off_a + d1`` is outside
+    ``[0, Kt)``, or the tile is absent."""
+    pos = np.asarray(plan.c_unpack, dtype=np.int64)
+    dc, m = (pos // plan.mt)[:, None], (pos % plan.mt)[:, None]
+    d1 = np.arange(plan.wa, dtype=np.int64)[None, :]
+    d2 = dc - d1
+    k = m + plan.off_a + d1
+    run = (d2 >= 0) & (d2 < plan.wb)
+    ok = run & (k >= 0) & (k < plan.kt)
+    a = np.where(ok, plan.a_pack[np.where(ok, d1 * plan.mt + m, 0)], -1)
+    b = np.where(ok, plan.b_pack[np.where(ok, d2 * plan.kt + k, 0)], -1)
+    return run, a, b
+
+
+def band_owned_stack(plan: BandPlan):
+    """The flat stack a band plan computes, in the kernel's order: C tile
+    ``i`` of ``c_unpack`` sums, ``d1`` ascending, the cells whose A tile,
+    B tile and ``k = m + off_a + d1`` all exist (absent and out-of-range
+    cells dropped): (c_ptr int64 [n_c+1], a int64 [S], b int64 [S]) in store
+    slots. The counterpart of ``panel.panel_runs_owned_stack``."""
+    _, a, b = band_run_cells(plan)
+    ok = (a >= 0) & (b >= 0)
+    c_ptr = np.concatenate(([0], np.cumsum(ok.sum(axis=1)))).astype(np.int64)
+    return c_ptr, a[ok].astype(np.int64), b[ok].astype(np.int64)
 
 
 def _band_product_plain(a_band, b_band, *, wa, wb, off_a, mt, kt, tile):

@@ -46,6 +46,7 @@ __all__ = [
     "KERNEL_TILES",
     "DeviceStack",
     "device_stack",
+    "stack_of_runs",
     "tf32_matmul",
     "tile_stack_matmul",
     "tile_stack_matmul_plain",
@@ -91,6 +92,14 @@ class DeviceStack:
     c_ptr_host: np.ndarray  # int64 [n_c+1]
     a_end: int  # 1 + largest a slot (0 when empty): A must hold this many
     b_end: int
+
+
+def stack_of_runs(c_ptr: np.ndarray, a_idx: np.ndarray, b_idx: np.ndarray) -> np.ndarray:
+    """The c-sorted int32 [S, 3] stack whose C tile ``c`` owns entries
+    ``[c_ptr[c], c_ptr[c+1])`` of the a/b columns: the owned stacks of the
+    band and run plans in the form ``device_stack`` takes."""
+    c = np.repeat(np.arange(len(c_ptr) - 1), np.diff(c_ptr))
+    return np.stack([c, a_idx, b_idx], axis=1).astype(np.int32)
 
 
 def device_stack(stack_np: np.ndarray, n_c_tiles: int, device) -> DeviceStack:

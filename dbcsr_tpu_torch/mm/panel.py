@@ -14,7 +14,7 @@ patterns pass; uniform-random ones keep the flat kernel (``kernels.py``).
 
 ``tile_stack_matmul_panel`` evaluates a plan — for CUDA tensors with the
 hand-written kernel in ``csrc/panel_matmul.cu`` (one block per (group,
-slot, sub-tile); neighbouring blocks share the group's A/B tiles through
+slot); neighbouring blocks share the group's A/B tiles through
 L2, the job the TPU's VMEM slab caches did), for CPU tensors with the plain
 version ``tile_stack_matmul_panel_plain``. Each slot's entries keep stack
 order, so K2 sums in exactly K1's order on the same stack.
@@ -32,7 +32,8 @@ same registers, with B read through the column-major permutation
 ``cm_perm``, so no transposed or permuted slab is built. The sum order
 differs from K2's, so K3 is held to its own plain version
 (``tile_stack_matmul_panel_runs_plain``, which follows the plan's order),
-not bitwise to K2.
+not bitwise to K2 — and bitwise to K1 on ``panel_runs_owned_stack``, the flat
+stack that lists the plan's products in the kernel's order.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ __all__ = [
     "plan_panel_runs",
     "DevicePanelRunPlan",
     "device_panel_run_plan",
+    "panel_runs_owned_stack",
     "tile_stack_matmul_panel_runs",
     "tile_stack_matmul_panel_runs_plain",
 ]

@@ -2,10 +2,13 @@
 every file under ``dbcsr_tpu_torch/csrc/`` is compiled or hashed into the
 library's name and ships as package data, an edited header changes the
 name (so a stale library cannot load), and the wrappers' 16-byte alignment
-rule for tile stores (the kernels copy with ``cp.async`` and 128-bit loads).
+rule for tile stores (the kernels copy with ``cp.async`` and 128-bit loads);
+every kernel source launches through the one routine choice of
+``tile_kernel.cuh``, and the sub-tile grid of the design it replaced is gone.
 """
 import fnmatch
 import os
+import re
 import shutil
 
 import pytest
@@ -31,6 +34,50 @@ def test_every_csrc_file_is_built_or_hashed():
     # the headers of the redesigned kernels are among them
     assert {"tile_product.cuh", "tile_ring.cuh", "tile_product_f32.cuh",
             "tile_mma_f64.cuh", "tile_kernel.cuh"} <= set(_build._HEADERS)
+
+
+def _csrc_text(name):
+    with open(os.path.join(_build._CSRC, name)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", _build._SOURCES)
+def test_every_kernel_source_launches_through_tile_kernel(name):
+    """Each ``.cu`` defines one extern "C" stack product, describes it as a
+    Job struct and launches it with ``launch_tile_kernel``, which picks the
+    routine from the input type and the tile edge; none has a ``__global__``
+    kernel or a ``<<<...>>>`` launch of its own."""
+    text = _csrc_text(name)
+    assert '#include "tile_kernel.cuh"' in text
+    assert len(re.findall(r'extern "C" int dbcsr_torch_\w+_matmul\w*\(', text)) == 1
+    assert len(re.findall(r"\blaunch_tile_kernel<", text)) == 1
+    assert "__global__" not in text and "<<<" not in text
+    code = re.sub(r"//[^\n]*", "", text)
+    assert not re.search(r"\btile_run\w*\s*<|\btile_run\w*\s*\(", code), (
+        "a kernel source names a device routine: tile_kernel.cuh chooses it")
+    job = re.findall(r"\b(\w+Job)\b", code)
+    assert job, "no Job"
+    if name not in ("stack_matmul.cu", "stack_matmul_f64.cu"):  # StackJob is tile_kernel.cuh's
+        assert re.search(r"struct %s\b" % job[0], code)
+
+
+def test_the_sub_tile_grid_is_gone():
+    """The design the pipelined routines replaced cut a C tile into
+    sub-tiles of 64 (``SubTile``, ``tile_grid``) and ran ``tile_run`` on each
+    at every tile edge; now ``tile_run`` serves whole tiles of T <= 32 and is
+    called from ``tile_kernel.cuh`` alone."""
+    for name in sorted(os.listdir(_build._CSRC)):
+        text = _csrc_text(name)
+        assert "SubTile" not in text and "tile_grid" not in text, name
+        code = re.sub(r"//[^\n]*", "", text)
+        callers = re.findall(r"\btile_run<", code)
+        assert len(callers) == (1 if name == "tile_kernel.cuh" else 0), name
+    kernel = _csrc_text("tile_kernel.cuh")
+    assert "static_assert(T <= 32" in kernel
+    assert "if constexpr (T < 64)" in kernel
+    # the routine's own kernels are the only __global__ functions of the library
+    globals_ = [n for n in sorted(os.listdir(_build._CSRC)) if "__global__" in _csrc_text(n)]
+    assert globals_ == ["tile_kernel.cuh"]
 
 
 @pytest.mark.skipif(tomllib is None, reason="tomllib needs Python 3.11")

@@ -16,9 +16,12 @@ for the float64 kernel (float64 sums of the same products in another
 order); K3, K4 and K5 take the same bounds (K4 and K5 also run in
 float64). Since its redesign the float64 kernel sums inside one ``mma`` in
 the hardware's order, so it is bitwise equal only to itself (two launches).
-K1, K2 and K4 share one blocked float32 routine at T = 64 and 128 and are
-bitwise equal to each other and to K5, which still runs the routine they
-replaced (one FFMA chain per C element either way).
+All five float32 kernels share one blocked routine at T = 64 and 128 (one
+FFMA chain per C element): K1, K2, K4 and K5 are bitwise equal on a banded
+stack, K5 and K3 bitwise equal to K1 on their owned stacks (the flat stack
+that lists each kernel's products in its own order). K5's band has absent
+cells, which the pipelined routines' cursor steps over: first, last,
+several in a row and every cell of a run (a zero tile).
 """
 import numpy as np
 import pytest
@@ -33,12 +36,15 @@ from dbcsr_tpu_torch.mm.f64_stack import (
 from dbcsr_tpu_torch.mm.band import (
     band_matmul,
     band_matmul_plain,
+    band_owned_stack,
+    band_run_cells,
     device_band_plan,
     plan_band,
 )
 from dbcsr_tpu_torch.mm.kernels import (
     device_group_plan,
     device_stack,
+    stack_of_runs,
     tile_stack_matmul,
     tile_stack_matmul_grouped,
     tile_stack_matmul_grouped_plain,
@@ -47,6 +53,7 @@ from dbcsr_tpu_torch.mm.kernels import (
 from dbcsr_tpu_torch.mm.panel import (
     device_panel_plan,
     device_panel_run_plan,
+    panel_runs_owned_stack,
     plan_panel_runs,
     plan_panel_stack,
     tile_stack_matmul_panel,
@@ -229,21 +236,129 @@ def square_band_plans(tile, mt=24, w=2):
     return coords, tp, bp
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES3)
 @pytest.mark.parametrize("tile", [64, 128])
 def test_k1_and_k4_equal_k5_bitwise_on_a_banded_stack(dev, tile, dtype):
-    """K5 still runs the routine K1 and K4 ran before their redesign; the
-    blocked routine keeps that FFMA chain (stack order, ascending k), so all
-    three agree bit for bit on a stack all three take."""
+    """One routine per type under all three (blocked FFMA, one chain per C
+    element; in float64 the FP64 mma routine, with the float64 stack kernel
+    in K1's place) and, on a full band, one run order (the diagonal walk is
+    the stack's order): they agree bit for bit on a stack all three take."""
     coords, tp, bp = square_band_plans(tile)
     a, b = stores(len(coords), len(coords), tile, dtype, dev)
-    k5 = band_matmul(a, b, device_band_plan(bp, dev), out_dtype=torch.float32)
-    k1 = tile_stack_matmul(a, b, device_stack(tp.stack, tp.n_c_tiles, dev),
-                           out_dtype=torch.float32)
+    out_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    k5 = band_matmul(a, b, device_band_plan(bp, dev), out_dtype=out_dt)
+    ds = device_stack(tp.stack, tp.n_c_tiles, dev)
+    k1 = tile_stack_matmul_f64(a, b, ds) if dtype == torch.float64 else tile_stack_matmul(
+        a, b, ds, out_dtype=out_dt)
     gp = device_group_plan(tp.stack, tp.n_c_tiles, len(coords), dev)
     assert gp.join is None  # the kernel writes the C store
-    k4 = tile_stack_matmul_grouped(a, b, gp, out_dtype=torch.float32)
+    k4 = tile_stack_matmul_grouped(a, b, gp, out_dtype=out_dt)
     assert torch.equal(k1, k5) and torch.equal(k4, k5)
+
+
+def band_with_absent_cells(tile, mt=24):
+    """A square band (A diagonals -2..2, B -1..2) with every third tile of
+    the extreme diagonals dropped and 40% of the inner ones, planned over
+    EVERY band position of C: runs lose their first cell, their last, several
+    in a row, and some positions keep no cell at all."""
+    rng = np.random.default_rng(5)
+
+    def coords(lo, hi):
+        r, c = np.meshgrid(np.arange(mt), np.arange(mt), indexing="ij")
+        d = c - r
+        edge = (d == lo) | (d == hi)
+        keep = (d >= lo) & (d <= hi) & np.where(edge, r % 3 != 1, rng.random(d.shape) < 0.6)
+        return np.stack([r[keep], c[keep]], 1).astype(np.int64)
+
+    ac, bc = coords(-2, 2), coords(-1, 2)
+    r, c = np.meshgrid(np.arange(mt), np.arange(mt), indexing="ij")
+    keys = np.sort((r * mt + c)[(c - r >= -3) & (c - r <= 4)]).astype(np.int64)
+    return ac, bc, plan_band(ac, (mt, mt), bc, (mt, mt), keys, tile=tile)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k5_skips_absent_cells_and_equals_the_flat_kernel_bitwise(dev, tile, dtype):
+    """The cursor's skip of a pair with a negative slot, in tile_run (T = 16,
+    32), the blocked routine and the FP64 mma routine (T = 64, 128): absent
+    first, last, several in a row, and a run with no present cell (a zero
+    tile, written once). K5 against its plain version, and bitwise against
+    the flat kernel of its type on ``band_owned_stack`` (K1; in float64 the
+    float64 stack kernel: one routine, one run order, the same bits)."""
+    ac, bc, plan = band_with_absent_cells(tile)
+    run, a_cell, b_cell = band_run_cells(plan)
+    absent = run & ((a_cell < 0) | (b_cell < 0))
+    present = run & ~absent
+    some = present.any(axis=1)
+    first = np.array([absent[i, run[i]][0] for i in range(len(run))])
+    last = np.array([absent[i, run[i]][-1] for i in range(len(run))])
+    in_a_row = (absent[:, 1:] & absent[:, :-1]).any(axis=1)
+    assert (some & first).any() and (some & last).any() and (some & in_a_row).any()
+    empty = np.flatnonzero(~some)
+    assert len(empty) >= 3
+    a, b = stores(len(ac), len(bc), tile, dtype, dev)
+    f64 = dtype == torch.float64
+    out_dt = torch.float64 if f64 else torch.float32
+    dp = device_band_plan(plan, dev)
+    poison = torch.full((len(run), tile, tile), float("nan"), device=dev, dtype=out_dt)
+    del poison  # torch.empty may hand the kernel this memory
+    got = band_matmul(a, b, dp, out_dtype=out_dt)
+    assert bool(torch.isfinite(got).all()) and not got[empty].any()
+    ref = band_matmul_plain(a, b, plan, out_dtype=out_dt)
+    assert rel_err(got, ref) <= (RTOL_F64 if f64 else RTOL)
+    ds = device_stack(stack_of_runs(*band_owned_stack(plan)), len(run), dev)
+    flat = tile_stack_matmul_f64(a, b, ds) if f64 else tile_stack_matmul(
+        a, b, ds, out_dtype=torch.float32)
+    assert torch.equal(got, flat)
+    assert torch.equal(got, band_matmul(a, b, dp, out_dtype=out_dt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("runlen", [2, 3, 4])
+@pytest.mark.parametrize("tile", [16, 64, 128])
+def test_k3_equals_k1_on_its_owned_stack_bitwise(dev, tile, runlen, dtype):
+    """K3's order is its own (entries re-sorted by A slot, three tiers), and
+    ``panel_runs_owned_stack`` lists it: K1 on that flat stack takes the same
+    FFMA chain. With and without the column-major permutation, the clamped
+    last group."""
+    stack, n = banded_stack()
+    coords = np.asarray([(r, c) for r in range(24) for c in range(24) if abs(r - c) <= 2])
+    cm = np.argsort(coords[:, 1] * 24 + coords[:, 0]).astype(np.int32)
+    a, b = stores(n, n, tile, dtype, dev)
+    for perm in (cm, None):
+        plan = plan_panel_runs(stack, n, n, n, b_cm_perm=perm, c_win=16, a_cap=64,
+                               b_cap=64, chunk=4, runlen=runlen)
+        assert plan.gstart[-1] % 16  # clamped last group
+        if perm is not None:
+            assert plan.n_quads > 0 and plan.n_singles > 0
+            assert (plan.n_pairs > 0) == (runlen > 2)
+        dp = device_panel_run_plan(plan, dev)
+        got = tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32)
+        ref = tile_stack_matmul_panel_runs_plain(a, b, plan, out_dtype=torch.float32)
+        assert rel_err(got, ref) <= RTOL
+        ds = device_stack(stack_of_runs(*panel_runs_owned_stack(plan)), n, dev)
+        assert torch.equal(got, tile_stack_matmul(a, b, ds, out_dtype=torch.float32))
+        assert torch.equal(got, tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("run", [64, 65, 150])
+@pytest.mark.parametrize("tile", [32, 128])
+def test_k3_cells_longer_than_the_staged_window(dev, tile, run):
+    """A cell of 64 products fills the kernel's window of expanded pairs
+    exactly; 65 and 150 refill it once and twice while the ring runs."""
+    rng = np.random.default_rng(run)
+    n_c = 21  # windows of 16: the last group is clamped
+    stack = run_stack(rng, n_c, run)
+    plan = plan_panel_runs(stack, n_c, 12, 12, c_win=16, a_cap=12, b_cap=12,
+                           chunk=1, runlen=4)
+    assert plan is not None and plan.gstart[-1] % 16
+    a, b = stores(12, 12, tile, torch.float32, dev)
+    dp = device_panel_run_plan(plan, dev)
+    got = tile_stack_matmul_panel_runs(a, b, dp, out_dtype=torch.float32)
+    ref = tile_stack_matmul_panel_runs_plain(a, b, plan, out_dtype=torch.float32)
+    assert rel_err(got, ref) <= 1e-4  # 150·128 float32 terms in another order
+    ds = device_stack(stack_of_runs(*panel_runs_owned_stack(plan)), n_c, dev)
+    assert torch.equal(got, tile_stack_matmul(a, b, ds, out_dtype=torch.float32))
 
 
 def grouped_on_nan_memory(a, b, plan, out_dt):

@@ -9,6 +9,10 @@ Tolerances, relative to the largest reference entry: float32 at "highest"
 tile products, but a fused run is one long-K dot on the JAX side and
 ``runlen`` tile products here), bf16 inputs 1e-5 (products of bf16 values
 are exact in float32).
+
+The arrays the CUDA kernel reads are pinned by a plain-Python walk of its
+pair function (the three-tier expansion), which must list exactly
+``panel_runs_owned_stack``.
 """
 import numpy as np
 import pytest
@@ -224,3 +228,79 @@ def test_device_plan_bounds(rng):
     assert all(t.dtype == torch.int32 and t.is_contiguous()
                for t in (dp.gstart, dp.a_lo, dp.b_lo, dp.obq, dp.qent, dp.obp,
                          dp.pent, dp.obs, dp.sent))
+
+
+def panel_run_job_walk(plan):
+    """``PanelRunJob`` of ``csrc/panel_runs_matmul.cu`` in plain Python: the
+    cell → slot map with the clamped last group's early return, the run
+    ``v in [0, n)`` and the pair function's tier expansion. Returns
+    {C slot: [(a, b), ...]} and the number of cells that returned early."""
+    cw, R = plan.c_win, plan.runlen
+    obq, obp, obs = plan.obq, plan.obp, plan.obs
+    out, returned = {}, 0
+    for cell in range(plan.n_groups * cw):
+        g = cell // cw
+        slot = int(plan.gstart[g]) + cell % cw
+        if slot < g * cw:
+            returned += 1
+            continue
+        n = int((obq[cell + 1] - obq[cell]) * R + (obp[cell + 1] - obp[cell]) * 2
+                + obs[cell + 1] - obs[cell])
+        pairs = []
+        for v in range(n):
+            q0 = int(obq[cell])
+            nq = int(obq[cell + 1] - q0) * R
+            if v < nq:
+                packed, r = int(plan.qent[q0 + v // R]), v % R
+            else:
+                p0 = int(obp[cell])
+                npair = int(obp[cell + 1] - p0) * 2
+                w = v - nq
+                if w < npair:
+                    packed, r = int(plan.pent[p0 + (w >> 1)]), w & 1
+                else:
+                    packed, r = int(plan.sent[int(obs[cell]) + w - npair]), 0
+            sb = int(plan.b_lo[g]) + (packed & 0xFFFF) + r
+            pairs.append((int(plan.a_lo[g]) + (packed >> 16) + r,
+                          sb if plan.cm_perm is None else int(plan.cm_perm[sb])))
+        assert slot not in out  # every C slot has one owner
+        out[slot] = pairs
+    return out, returned
+
+
+@pytest.mark.parametrize("with_cm", [True, False])
+@pytest.mark.parametrize("runlen", [2, 3, 4])
+def test_job_walk_lists_the_owned_stack(rng, runlen, with_cm):
+    """All three tiers (the pair tier empty at runlen 2), B through the
+    column-major permutation and without one, the clamped last group."""
+    _, _, stack, n, cm = banded_case(rng)
+    plan = plan_panel_runs(stack, n, n, n, b_cm_perm=cm if with_cm else None,
+                           c_win=16, a_cap=64, b_cap=64, chunk=4, runlen=runlen)
+    assert plan.gstart[-1] % 16  # clamped
+    if with_cm:
+        assert plan.n_quads > 0 and plan.n_singles > 0
+        assert (plan.n_pairs > 0) == (runlen > 2)
+    walk, returned = panel_run_job_walk(plan)
+    assert returned == plan.n_groups * 16 - n and sorted(walk) == list(range(n))
+    c_ptr, ai, bi = panel_runs_owned_stack(plan)
+    assert c_ptr[-1] == len(stack)
+    for c in range(n):
+        got = list(zip(ai[c_ptr[c]:c_ptr[c + 1]].tolist(), bi[c_ptr[c]:c_ptr[c + 1]].tolist()))
+        assert got == walk[c]
+
+
+def test_job_walk_random_pattern_and_empty_slot(rng):
+    """Mostly singles, no permutation, and a C slot without entries (its
+    cell walks an empty run: a zero tile)."""
+    _, _, stack = random_case(rng)
+    stack = stack[stack[:, 0] != 7]
+    plan = plan_panel_runs(stack, 30, 40, 40, b_cm_perm=None, c_win=8, a_cap=48,
+                           b_cap=48, chunk=4, runlen=3)
+    walk, returned = panel_run_job_walk(plan)
+    assert walk[7] == [] and returned == plan.n_groups * 8 - 30
+    c_ptr, ai, bi = panel_runs_owned_stack(plan)
+    for c in range(30):
+        assert list(zip(ai[c_ptr[c]:c_ptr[c + 1]].tolist(),
+                        bi[c_ptr[c]:c_ptr[c + 1]].tolist())) == walk[c]
+        want = sorted(map(tuple, stack[stack[:, 0] == c][:, 1:].tolist()))
+        assert sorted(walk[c]) == want
