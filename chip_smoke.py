@@ -98,6 +98,18 @@ Phases (any failure exits non-zero before the final line):
     phase 4's float32 operands and phase 7's float64 operands; where
     cuSPARSE refuses the product for want of resources, ``library_ms`` is
     null; any other error fails the run.
+11. the block-sparse tensor contraction through the TAS and tensor layers:
+    shape R, an RI-type 3-center contraction C(μ,ν,Q) = Σ_P A(μ,ν,P)·B(P,Q)
+    over a chain of 450 atoms (``ri_pattern``), in float32 (the panel route,
+    K2) and float64 (the float64 stack kernel): R1 ``BatchedContract`` in
+    steady state beside the folded 2-D executor and its kernel, R2 one-shot
+    ``contract`` with ``nsplit`` 1 and 4, R4 the refold of A to (P | μν),
+    R3 the k-long contraction C(P,Q) = Σ_{μν} A(μ,ν,P)·A(μ,ν,Q) with
+    ``nsplit`` 4; every leg against the others, R1 and R3 against a float64
+    host recomputation of 256 sampled blocks; the native planner must lay
+    out every fold space. Then shape T, bench.py's tensor shape with its
+    tall axis × 45 (the dense route), against a float64 matmul of the
+    folded dense operands. Runs after phase 8, before phase 10.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (six kernels; ``bound_ms`` is computed
@@ -160,6 +172,15 @@ TILE_BAND_BLOCKS = 4_000
 #: phase 10: the smaller size of the library yardstick, bench.py's own
 #: ``banded`` row count (cuSPARSE SpGEMM needs ~30 GB of work space there)
 LIBRARY_ROWS = 40_000
+#: phase 11: atoms of shape R, the RI-type 3-center contraction. At 450 A's
+#: folded tile grid is 322,004 x 49 = 15.8 M cells, under the 2^24 = 16.8 M
+#: past which the native planner declines the store layout and numpy's
+#: element-wise path takes over (both packages); A 13,900 tiles (0.91 GB in
+#: float32), C 32,424 planned tiles
+TENSOR_ATOMS = 450
+#: phase 11: the tall axis of shape T, bench.py's tensor shape (2,000
+#: elements there) times 45: A 54,911 tiles (3.6 GB)
+TENSOR_T_ROWS = 90_000
 #: what K5 and K3 took at the phase-4 shape (K5 float64: the phase-7 stack)
 #: under the design they ran before the pipelined routines — ``tile_run`` on
 #: four sub-tile blocks a C tile at T = 128, a DFMA loop in float64 — as this
@@ -1913,6 +1934,400 @@ def phase_scrambled_tile_band(dev, n: int, w: int, **knobs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the block-sparse tensor contraction
+# ---------------------------------------------------------------------------
+
+def ri_pattern(n_atoms: int, seed: int = 0):
+    """Shape R, an RI-type 3-center contraction over one chain of atoms
+    (CP2K's resolution-of-identity step C(μ,ν,Q) = Σ_P A(μ,ν,P)·B(P,Q)):
+    one block per atom on every axis, AO and RI block sizes drawn in that
+    order from bench.py's banded-SCF sizes {5, 13, 23}; A has a block where
+    |μ-ν| ≤ 4 and |P - ⌊(μ+ν)/2⌋| ≤ 4, B where |P-Q| ≤ 8. Returns (AO
+    sizes, RI sizes, A's block indices [n, 3], B's [n, 2]), row-major."""
+    rng = np.random.default_rng(seed)
+    ao = rng.choice([5, 13, 23], n_atoms).astype(np.int32)
+    ri = rng.choice([5, 13, 23], n_atoms).astype(np.int32)
+    mu, nu = (x.ravel() for x in np.meshgrid(np.arange(n_atoms), np.arange(n_atoms),
+                                            indexing="ij"))
+    near = np.abs(mu - nu) <= 4
+    mu, nu = mu[near], nu[near]
+    p = (mu + nu)[:, None] // 2 + np.arange(-4, 5)[None, :]
+    ok = ((p >= 0) & (p < n_atoms)).ravel()
+    a_idx = np.stack([np.repeat(mu, 9), np.repeat(nu, 9), p.ravel()], 1)[ok]
+    pp, qq = (x.ravel() for x in np.meshgrid(np.arange(n_atoms), np.arange(n_atoms),
+                                            indexing="ij"))
+    band = np.abs(pp - qq) <= 8
+    return ao, ri, a_idx.astype(np.int64), np.stack([pp[band], qq[band]], 1).astype(np.int64)
+
+
+def folded_tensor(name, block_sizes, mapping, block_idx, dev, dtype, gen, tile=128):
+    """A tensor whose blocks ``block_idx`` [n, ndim] hold standard normal
+    data, made in store form on the device (``gen``: a torch generator
+    there), folded by ``mapping``."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.tileops import valid_mask
+    from dbcsr_tpu_torch.tensors import Tensor
+    from dbcsr_tpu_torch.tensors.index import grouped_block_sizes
+
+    bs = [np.asarray(b, dtype=np.int32) for b in block_sizes]
+    rows, cols = mapping.fold(block_idx, [len(b) for b in bs])
+    idx, _ = dt.build_index(rows, cols, grouped_block_sizes(bs, list(mapping.map1)),
+                            grouped_block_sizes(bs, list(mapping.map2)))
+    mask = valid_mask(idx, tile, dev).to(dtype)
+    data = torch.randn(mask.shape, generator=gen, device=dev, dtype=dtype) * mask
+    return Tensor(name=name, block_sizes=tuple(bs), mapping=mapping,
+                  matrix=dt.BCSRMatrix(name=name, index=idx, data=data))
+
+
+def ri_tensors(n_atoms: int, dev, dtype, seed: int = 0, tile: int = 128):
+    """Shape R's A(μ,ν,P) and B(P,Q), each in the layout
+    ``contraction_layouts`` gives for contract (2,)/(0,) and notcontract
+    (0,1)/(1,)."""
+    import torch
+
+    from dbcsr_tpu_torch.tensors import contraction_layouts
+
+    ao, ri, a_idx, b_idx = ri_pattern(n_atoms, seed)
+    la, lb, _ = contraction_layouts(3, (2,), (0, 1), 2, (0,), (1,))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return (folded_tensor("A", [ao, ao, ri], la, a_idx, dev, dtype, gen, tile),
+            folded_tensor("B", [ri, ri], lb, b_idx, dev, dtype, gen, tile))
+
+
+def bench_tensor_pair(n_rows: int, dev, seed: int = 0):
+    """Shape T: bench.py's tensor shape (``bench.py:417-439``: tall axis i in
+    blocks of 5/13, j = k = l = 10 blocks of 8, A(i,j,k) at 15% and B(k,l)
+    at 60% block occupancy) with i = ``n_rows`` elements, float32, in the
+    contraction layouts."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.tensors import contraction_layouts
+
+    rng = np.random.default_rng(seed)
+    i_bs = dt.random_block_sizes(n_rows, [5, 13], rng)
+    j_bs = k_bs = l_bs = np.full(10, 8, dtype=np.int32)
+    la, lb, _ = contraction_layouts(3, (2,), (0, 1), 2, (0,), (1,))
+    a_nb, b_nb = (len(i_bs), 10, 10), (10, 10)
+    a_idx = np.stack(np.unravel_index(
+        np.flatnonzero(rng.random(int(np.prod(a_nb))) < 0.15), a_nb), 1)
+    b_idx = np.stack(np.unravel_index(np.flatnonzero(rng.random(100) < 0.6), b_nb), 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return (folded_tensor("A", [i_bs, j_bs, k_bs], la, a_idx, dev, torch.float32, gen),
+            folded_tensor("B", [k_bs, l_bs], lb, b_idx, dev, torch.float32, gen))
+
+
+def sampled_block_check(c, a, b, n_samples: int = 256, seed: int = 1) -> tuple:
+    """float64 host recomputation of sampled blocks of C = A·B (folded
+    matrices, all 'N') from the host blocks of A and B: (max |C - ref|,
+    that over max |ref|)."""
+    a_flat, b_flat = a.flat_host(), b.flat_host()
+    ai, bi = a.index, b.index
+    picks = np.sort(np.random.default_rng(seed).choice(
+        c.nblks, size=min(n_samples, c.nblks), replace=False))
+    err = scale = 0.0
+    for p in picks:
+        i, j = int(c.index.blk_rows[p]), int(c.index.col_idx[p])
+        ref = np.zeros((int(c.row_block_sizes[i]), int(c.col_block_sizes[j])))
+        for ab in range(int(ai.row_ptr[i]), int(ai.row_ptr[i + 1])):
+            k = int(ai.col_idx[ab])
+            bb = bi.block_id(k, j)
+            if bb < 0:
+                continue
+            ablk = a_flat[ai.blk_offset[ab]:ai.blk_offset[ab + 1]].reshape(
+                int(ai.row_block_sizes[i]), int(ai.col_block_sizes[k]))
+            bblk = b_flat[bi.blk_offset[bb]:bi.blk_offset[bb + 1]].reshape(
+                int(bi.row_block_sizes[k]), int(bi.col_block_sizes[j]))
+            ref += ablk.astype(np.float64) @ bblk.astype(np.float64)
+        got = c.get_block(i, j)
+        if got is None or not np.isfinite(got).all():
+            return float("inf"), float("inf")
+        err = max(err, float(np.abs(got - ref).max()))
+        scale = max(scale, float(np.abs(ref).max()))
+    return err, err / (scale or 1.0)
+
+
+def same_result(what: str, got, ref, rtol: float) -> None:
+    """Fail unless two folded results have one index and agree within
+    ``rtol`` of the largest reference entry."""
+    if not (np.array_equal(got.index.row_ptr, ref.index.row_ptr)
+            and np.array_equal(got.index.col_idx, ref.index.col_idx)):
+        fail(f"{what}: the block indices differ")
+    err, rel = rel_err(got.data, ref.data)
+    log(f"    {what}: max_abs_err={err:.3e} rel={rel:.2e} (bound {rtol:.0e})")
+    if not rel <= rtol:
+        fail(f"{what} disagree")
+
+
+def native_layout_check(what: str, index) -> None:
+    """Print the tile grid of ``index`` at T = 128 and fail unless the
+    native planner lays its store out (it declines past 2^24 grid cells)."""
+    from dbcsr_tpu_torch.native import store_layout_native
+
+    ntr, ntc = -(-index.nfullrows // 128), -(-index.nfullcols // 128)
+    ran = store_layout_native(index, 128) is not None
+    log(f"    {what}: tile grid {ntr} x {ntc} = {ntr * ntc} cells (native cap "
+        f"{1 << 24}), native planner ran: {ran}")
+    if not ran:
+        fail(f"{what}: the native planner declined the store layout")
+
+
+R_KW = dict(contract_1=(2,), notcontract_1=(0, 1), contract_2=(0,), notcontract_2=(1,))
+K_KW = dict(contract_1=(0, 1), notcontract_1=(2,), contract_2=(0, 1), notcontract_2=(2,))
+
+
+def launch_delta(before: dict) -> dict:
+    """The kernels launched since ``before`` (a ``read_launches()``)."""
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def kernel_vs_plain(what: str, plan, a_data, b_data, rtol: float) -> tuple:
+    """Hold the executor's kernel against its plain version on the same
+    inputs (every product tile); returns the kernel and its inputs."""
+    a_st, b_st = plan.op_stores(a_data, b_data)
+    a_in, b_in = a_st.to(plan.in_dtype), b_st.to(plan.in_dtype)
+    kern = kernel_of(plan)
+    ref = plain_of(plan, a_data, b_data)
+    err, rel = rel_err(kern(a_in, b_in), ref)
+    log(f"    {what} vs its plain version ({ref.shape[0]} product tiles): "
+        f"max_abs_err={err:.3e} rel={rel:.2e} (bound {rtol:.0e})")
+    if not rel <= rtol:
+        fail(f"{what} disagrees with its plain version")
+    return kern, a_in, b_in
+
+
+def phase_tensor_r(dev, dtype) -> None:
+    """Shape R at ``TENSOR_ATOMS`` atoms in one type: the legs R1 (steady
+    state), R2 (one-shot, nsplit 1 and 4), R4 (refold) and R3 (k-long), each
+    checked against the others and, for R1 and R3, a float64 host
+    recomputation of sampled blocks."""
+    import torch
+
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
+    from dbcsr_tpu_torch.tas import split_factor_estimate
+    from dbcsr_tpu_torch.tensors import BatchedContract, NDMapping, contract
+
+    name = str(dtype)[6:]
+    f64 = dtype == torch.float64
+    rtol = F64_RTOL if f64 else KERNEL_RTOL
+    want = "K6" if f64 else "K2"
+    res = {}
+    t0 = time.perf_counter()
+    a, b = ri_tensors(TENSOR_ATOMS, dev, dtype)
+    sync(dev)
+    ma, mb = a.matrix, b.matrix
+    gb = ma.data.numel() * ma.data.element_size() / 1e9
+    log(f"  shape R, {name}: {TENSOR_ATOMS} atoms, A {a.nblks} blocks in {ma.data.shape[0]} "
+        f"tiles ({gb:.2f} GB), B {b.nblks} blocks in {mb.data.shape[0]} tiles; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    native_layout_check("A (μν | P)", ma.index)
+
+    # --- the main-path run: counts set to 0 just before, read just after ---
+    reset_launches()
+    # R1: BatchedContract, its first call plans the folded executor
+    t0 = time.perf_counter()
+    batch = BatchedContract()
+    out1 = batch.contract(a, b, **R_KW)
+    sync(dev)
+    r1_first = time.perf_counter() - t0
+    (fn, c_index, eff), = batch._tas._cache.values()
+    plan = fn.plan
+    tp = plan.tile_plan
+    launches_r1 = read_launches()
+    # R2: one-shot contract, nsplit 1 and 4 (m-long), each once to warm the plan cache
+    out2 = {}
+    for ns in (1, 4):
+        t0 = time.perf_counter()
+        before = read_launches()
+        out2[ns] = contract(1.0, a, b, nsplit=ns, **R_KW)
+        sync(dev)
+        res[f"r2_first_s_{ns}"] = time.perf_counter() - t0
+        res[f"r2_launches_{ns}"] = launch_delta(before)
+    res["cache_r2"] = get_plan_cache().nbytes
+    # R4: the refold of A to (P | μν), first call
+    target = NDMapping(3, (2,), (0, 1))
+    t0 = time.perf_counter()
+    refolded = a.with_layout(target)
+    sync(dev)
+    res["r4_first_s"] = time.perf_counter() - t0
+    # R3: C(P,Q) = Σ_{μν} A(μ,ν,P)·A(μ,ν,Q), k-long, nsplit 4
+    t0 = time.perf_counter()
+    before = read_launches()
+    out3 = contract(1.0, a, a, nsplit=4, **K_KW)
+    sync(dev)
+    res["r3_first_s"] = time.perf_counter() - t0
+    res["r3_launches"] = launch_delta(before)
+    launches = read_launches()
+    res["cache_r3"] = get_plan_cache().nbytes
+
+    log(f"    R1 BatchedContract first call (plans the executor) {r1_first:.1f} s: route "
+        f"{plan.route}, S={len(tp.stack)}, planned C tiles {tp.n_c_tiles} (C index "
+        f"{c_index.nblks} blocks in {store_layout(c_index, 128).n_tiles} tiles), "
+        f"{eff / 1e9:.2f} GFLOP effective, {plan.hw_flops / 1e9:.1f} GFLOP of tile products; "
+        f"launches {launches_r1}")
+    native_layout_check("C (μν | Q)", c_index)
+    native_layout_check("A refolded (P | μν)", refolded.matrix.index)
+    for ns in (1, 4):
+        log(f"    R2 contract(nsplit={ns}) first call {res[f'r2_first_s_{ns}']:.1f} s, "
+            f"launches {res[f'r2_launches_{ns}']}")
+    m_e, k_e = int(ma.shape[0]), int(ma.shape[1])
+    occ = max(ma.occupation(), mb.occupation())
+    log(f"    R2 split_factor_estimate at this shape (not run): "
+        f"{split_factor_estimate(m_e, k_e, int(mb.shape[1]), occ_hint=occ)} "
+        f"(m={m_e}, k={k_e}, n={int(mb.shape[1])}, occupation {occ:.4f})")
+    log(f"    R4 refold A -> (P | μν): first call {res['r4_first_s']:.2f} s "
+        f"(host map + upload), {refolded.matrix.data.shape[0]} tiles")
+    log(f"    R3 k-long contract(nsplit=4) first call {res['r3_first_s']:.1f} s, "
+        f"launches by kernel {res['r3_launches'] or 'none (dense route)'}; "
+        f"C(P,Q) {out3.matrix.nblks} blocks")
+    log(f"    phase-11 main-path launches ({name}, shape R): {launches}")
+    budget = get_plan_cache().max_bytes
+    log(f"    plan cache's gather maps on the device: {res['cache_r2'] / 1e9:.3f} GB after R2, "
+        f"{res['cache_r3'] / 1e9:.3f} GB after R4 and R3 (budget {budget / 1e9:.3f} GB)")
+    if max(res["cache_r2"], res["cache_r3"]) > budget:
+        fail(f"shape R {name}: the plan cache holds more than its byte budget")
+    if launches_r1.get(want, 0) < 1 or sum(launches.values()) == 0:
+        fail(f"shape R {name}: BatchedContract launched {launches_r1}, expected {want}")
+    if plan.route != ("f64_stack" if f64 else "panel"):
+        fail(f"shape R {name}: the folded executor took route {plan.route}")
+
+    # --- agreement of the legs --------------------------------------------
+    fold2d = fn(ma.data, mb.data)
+    sync(dev)
+    if not torch.equal(out1.matrix.data, fold2d):
+        fail(f"shape R {name}: BatchedContract and the folded executor differ")
+    same_result(f"R1 vs one-shot nsplit=1 ({name})", out2[1].matrix, out1.matrix, rtol)
+    same_result(f"R1 vs one-shot nsplit=4 ({name})", out2[4].matrix, out1.matrix, rtol)
+    serr, srel = sampled_block_check(out1.matrix, ma, mb)
+    log(f"    R1 vs float64 host recomputation (256 blocks): max_abs_err={serr:.3e} "
+        f"rel={srel:.2e} (bound {rtol:.0e})")
+    if not srel <= rtol:
+        fail(f"shape R {name}: R1 disagrees with the float64 recomputation")
+    ref_t = a.with_layout(target)
+    if not torch.equal(ref_t.matrix.data, refolded.matrix.data):
+        fail(f"shape R {name}: the cached refold differs from the first")
+    with BatchedContract() as kb:
+        out3b = kb.contract(a, a, **K_KW)
+        (fn3, _, _), = kb._tas._cache.values()
+    out3_1 = contract(1.0, a, a, nsplit=1, **K_KW)
+    fold3 = fn3(refolded.matrix.data, ma.data)
+    kernel_vs_plain(f"R3 {fn3.plan.route} kernel", fn3.plan, refolded.matrix.data, ma.data,
+                    rtol)
+    same_result(f"R3 nsplit=4 vs BatchedContract ({name})", out3.matrix, out3b.matrix, rtol)
+    same_result(f"R3 nsplit=1 vs BatchedContract ({name})", out3_1.matrix, out3b.matrix, rtol)
+    if not torch.equal(out3b.matrix.data, fold3):
+        fail(f"shape R {name}: R3's BatchedContract and its folded executor differ")
+    serr3, srel3 = sampled_block_check(out3.matrix, refolded.matrix, ma)
+    log(f"    R3 vs float64 host recomputation (256 blocks): max_abs_err={serr3:.3e} "
+        f"rel={srel3:.2e} (bound {rtol:.0e})")
+    if not srel3 <= rtol:
+        fail(f"shape R {name}: R3 disagrees with the float64 recomputation")
+    del out3b, out3_1, fold3, ref_t, out2
+
+    # --- times (CUDA-event medians) -------------------------------------------
+    ms = cuda_median_ms(lambda: batch.contract(a, b, **R_KW), reps=10)
+    ms2d = cuda_median_ms(lambda: fn(ma.data, mb.data), reps=10)
+    kern, a_in, b_in = kernel_vs_plain(f"R1 {plan.route} kernel", plan, ma.data, mb.data, rtol)
+    kms = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
+    pms = cuda_median_ms(lambda: plain_of(plan, ma.data, mb.data), reps=3, warmup=1)
+    ms_r2 = {ns: cuda_median_ms(lambda: contract(1.0, a, b, nsplit=ns, **R_KW),
+                                reps=3, warmup=0) for ns in (1, 4)}
+    ms_r4 = cuda_median_ms(lambda: a.with_layout(target), reps=10)
+    ms_r3 = cuda_median_ms(lambda: contract(1.0, a, a, nsplit=4, **K_KW), reps=3, warmup=0)
+    counts = (ma.data.shape[0], mb.data.shape[0], tp.n_c_tiles, len(tp.stack))
+    log(f"    R1 steady state: BatchedContract.contract {ms:.3f} ms, folded 2-D executor "
+        f"{ms2d:.3f} ms (tensor-layer overhead factor {ms2d / ms:.3f}); kernel {kms:.3f} ms, "
+        f"plain {pms:.3f} ms; {eff / ms / 1e9:.2f} TFLOP/s effective, "
+        f"{plan.hw_flops / kms / 1e9:.1f} TFLOP/s of tile products")
+    log("    " + rate_line(f"R1 {plan.route} kernel", kms, counts, name))
+    log(f"    R2 one-shot contract (plan cache warm): nsplit=1 {ms_r2[1]:.3f} ms, "
+        f"nsplit=4 {ms_r2[4]:.3f} ms")
+    log(f"    R4 cached refold gather {ms_r4:.3f} ms; R3 k-long contract(nsplit=4) warm "
+        f"{ms_r3:.3f} ms")
+    batch.finalize()
+
+
+def phase_tensor_t(dev, n_rows: int) -> None:
+    """Shape T (bench.py's tensor shape, tall axis ``n_rows``): R1 and R4,
+    held against a float64 matmul of the folded dense operands."""
+    import torch
+
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.tensors import BatchedContract, NDMapping
+
+    t0 = time.perf_counter()
+    a, b = bench_tensor_pair(n_rows, dev)
+    sync(dev)
+    ma, mb = a.matrix, b.matrix
+    log(f"  shape T: i = {n_rows} elements ({len(a.block_sizes[0])} blocks), A {a.nblks} "
+        f"blocks in {ma.data.shape[0]} tiles ({ma.data.numel() * 4 / 1e9:.2f} GB), B "
+        f"{b.nblks} blocks; set-up {time.perf_counter() - t0:.1f} s")
+    native_layout_check("A (ij | k)", ma.index)
+    from dbcsr_tpu_torch.tas import split_factor_estimate
+
+    dims = (int(ma.shape[0]), int(ma.shape[1]), int(mb.shape[1]))
+    occ = max(ma.occupation(), mb.occupation())
+    log(f"    split_factor_estimate at this shape (not run): "
+        f"{split_factor_estimate(*dims, occ_hint=occ)} (m, k, n = {dims}, occupation "
+        f"{occ:.4f})")
+    before = read_launches()
+    t0 = time.perf_counter()
+    with BatchedContract() as batch:
+        out = batch.contract(a, b, **R_KW)
+        sync(dev)
+        first = time.perf_counter() - t0
+        (fn, c_index, eff), = batch._tas._cache.values()
+        ms = cuda_median_ms(lambda: batch.contract(a, b, **R_KW), reps=10)
+    ms2d = cuda_median_ms(lambda: fn(ma.data, mb.data), reps=10)
+    log(f"    R1: route {fn.plan.route}, launches {launch_delta(before) or 'none'}, first "
+        f"call {first:.1f} s; BatchedContract {ms:.3f} ms, folded 2-D executor {ms2d:.3f} ms "
+        f"(overhead factor {ms2d / ms:.3f}), {eff / ms / 1e9:.2f} TFLOP/s effective; C "
+        f"{store_layout(c_index, 128).n_tiles} tiles")
+    # the reference: a float64 matmul of the folded dense operands on the card
+    ref = ma.to_dense().double() @ mb.to_dense().double()
+    err, rel = rel_err(out.matrix.to_dense(), ref)
+    log(f"    R1 vs float64 dense matmul: max_abs_err={err:.3e} rel={rel:.2e} "
+        f"(bound {KERNEL_RTOL:.0e})")
+    if not rel <= KERNEL_RTOL:
+        fail("shape T disagrees with the float64 dense product")
+    del ref, out
+    torch.cuda.empty_cache()
+    target = NDMapping(3, (2,), (0, 1))
+    t0 = time.perf_counter()
+    refolded = a.with_layout(target)
+    sync(dev)
+    first = time.perf_counter() - t0
+    ms4 = cuda_median_ms(lambda: a.with_layout(target), reps=10)
+    log(f"    R4 refold A -> (k | ij): first call {first:.2f} s, cached gather {ms4:.3f} ms "
+        f"({refolded.matrix.data.shape[0]} tiles)")
+    if not torch.equal(refolded.matrix.data, a.with_layout(target).matrix.data):
+        fail("shape T: the cached refold differs from the first")
+
+
+def phase_tensor(dev) -> None:
+    import torch
+
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        phase_tensor_r(dev, dtype)
+        torch.cuda.empty_cache()
+    phase_tensor_t(dev, TENSOR_T_ROWS)
+    log(f"    phase 11: {time.perf_counter() - t0:.1f} s, peak device memory so far "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+    # the plan cache holds the prepared refold, extraction and merge maps
+    get_plan_cache().clear()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the library yardstick: one PyTorch call for the same product
 # ---------------------------------------------------------------------------
 
@@ -2114,6 +2529,11 @@ def main() -> int:
     phase_mcweeny(dev)
     log(f"    peak device memory {peak_memory(dev) / 1e9:.2f} GB "
         f"(phases 1-9)")
+
+    # 11. the block-sparse tensor contraction (TAS and tensors over the multiply)
+    log(f"[11] tensor contraction: shape R (RI-type 3-center, {TENSOR_ATOMS} atoms) in "
+        f"float32 and float64, shape T (bench.py's tensor shape, i = {TENSOR_T_ROWS})")
+    phase_tensor(dev)
 
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")

@@ -6,7 +6,9 @@ tensors, host symbolic planning in numpy, and the local sparse multiply
 ``C := alpha·op(A)·op(B) + beta·C`` — eps-filtered, one-shot or planned
 once (``build_filtered_executor``), with the matrix ops of an SCF loop —
 whose stack products run through hand-written CUDA kernels on an H100
-(``csrc/``, built with nvcc at first use; float32/bfloat16 and float64).
+(``csrc/``, built with nvcc at first use; float32/bfloat16 and float64);
+over it, the tall-and-skinny layer (``tas/``) and block-sparse tensor
+contraction (``tensors/``) in one process.
 Plain PyTorch versions of the kernels serve CPU tensors and are the
 cross-check. The package imports torch, numpy and scipy, never jax.
 """
@@ -78,6 +80,8 @@ from .ops.transform import (
     make_undense,
     transpose,
 )
-from . import testing
+from . import tas, tensors, testing
+from .tas import TASMatrix, tas_multiply
+from .tensors import NDMapping, Tensor, TensorBuilder, contract
 
 __version__ = "0.1.0"

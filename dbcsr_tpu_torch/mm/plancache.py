@@ -7,6 +7,12 @@ content-keyed LRU reuses the symbolic product, the C index and the local
 plan across calls. Keys are fingerprints of the index CONTENT (pattern +
 block sizes), so the cache is safe across object lifetimes and data
 changes.
+
+Entries that hold element-level maps on a device (the tensor refold, TAS
+extraction and merge) state their size: those are also held to a byte
+budget, ``max_bytes`` (least recently used first; an entry larger than the
+budget is rebuilt on every call), and ``nbytes`` says what they hold now.
+The JAX package's cache holds only the refold maps and has no budget.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from ..block.index import BCSRIndex
 __all__ = ["index_fingerprint", "array_fingerprint", "PlanCache", "get_plan_cache"]
 
 _CAPACITY = 64
+_MAX_BYTES = 8 << 30  # 10% of an 80 GB card
 
 
 def index_fingerprint(index: BCSRIndex) -> bytes:
@@ -48,9 +55,12 @@ def array_fingerprint(*arrays) -> bytes:
 
 
 class PlanCache:
-    def __init__(self, capacity: int = _CAPACITY):
+    def __init__(self, capacity: int = _CAPACITY, max_bytes: int = _MAX_BYTES):
         self._cap = capacity
+        self.max_bytes = max_bytes
         self._store: OrderedDict = OrderedDict()
+        self._sizes: dict = {}  # key -> bytes, for entries that state them
+        self.nbytes = 0
         self.hits = 0
         self.misses = 0
 
@@ -70,14 +80,29 @@ class PlanCache:
         self.misses += 1
         return None
 
-    def put(self, key, value) -> None:
+    def put(self, key, value, nbytes: int = 0) -> None:
+        """Keep ``value`` under ``key``; ``nbytes`` is the device memory it
+        holds. An entry over the byte budget is not kept."""
+        if nbytes > self.max_bytes:
+            return
+        self._drop(key)
         self._store[key] = value
-        self._store.move_to_end(key)
+        if nbytes:
+            self._sizes[key] = nbytes
+            self.nbytes += nbytes
         while len(self._store) > self._cap:
-            self._store.popitem(last=False)
+            self._drop(next(iter(self._store)))
+        while self.nbytes > self.max_bytes:  # the least recently used sized entry
+            self._drop(next(k for k in self._store if k in self._sizes))
+
+    def _drop(self, key) -> None:
+        if self._store.pop(key, None) is not None:
+            self.nbytes -= self._sizes.pop(key, 0)
 
     def clear(self) -> None:
         self._store.clear()
+        self._sizes.clear()
+        self.nbytes = 0
         self.hits = self.misses = 0
 
 

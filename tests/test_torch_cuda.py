@@ -645,3 +645,109 @@ def test_executors_on_the_card(dev):
         c_gpu, k_gpu, _ = ex_gpu.step(g64.data, g64.data)
         assert torch.equal(k_gpu.cpu(), k_cpu)
         assert rel_err(c_gpu, c_cpu) <= RTOL_F64
+
+
+# ---- the tensor contraction (TAS, tensors) on the card ------------------------
+
+def _ri_on(dev, n_atoms, dtype):
+    """chip_smoke.py's shape R, made on the CPU and copied to ``dev``: the
+    same data on both sides."""
+    import os
+    import sys
+    from dataclasses import replace
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    cpu = chip_smoke.ri_tensors(n_atoms, torch.device("cpu"), dtype)
+    gpu = [replace(t, matrix=t.matrix.with_data(t.matrix.data.to(dev))) for t in cpu]
+    return cpu, gpu
+
+
+RI_LEGS = {
+    # C(μ,ν,Q) = Σ_P A(μ,ν,P) B(P,Q): the folded rows are long
+    "m": lambda a, b: dict(a=a, b=b, contract_1=(2,), notcontract_1=(0, 1),
+                           contract_2=(0,), notcontract_2=(1,)),
+    # C(Q,μ,ν) = Σ_P B(P,Q) A(μ,ν,P): the folded columns are long
+    "n": lambda a, b: dict(a=b, b=a, contract_1=(0,), notcontract_1=(1,),
+                           contract_2=(2,), notcontract_2=(0, 1)),
+    # C(P,Q) = Σ_{μν} A(μ,ν,P) A(μ,ν,Q): the contracted dimension is long
+    "k": lambda a, b: dict(a=a, b=a, contract_1=(0, 1), notcontract_1=(2,),
+                           contract_2=(0, 1), notcontract_2=(2,)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("long_dim", ["m", "n", "k"])
+def test_contract_on_the_card_matches_cpu(dev, long_dim, dtype):
+    """Each TAS branch (m-, n- and k-long, three groups) on the card
+    against the same call on CPU tensors (plain versions)."""
+    from dbcsr_tpu_torch.tas import split_factor_estimate
+    from dbcsr_tpu_torch.tensors import contract
+
+    (ac, bc), (ag, bg) = _ri_on(dev, 24, dtype)
+    kc, kg = RI_LEGS[long_dim](ac, bc), RI_LEGS[long_dim](ag, bg)
+    ma = kg["a"].with_layout(dtt.NDMapping(kg["a"].ndim, kg["notcontract_1"],
+                                           kg["contract_1"])).matrix
+    mb = kg["b"].with_layout(dtt.NDMapping(kg["b"].ndim, kg["contract_2"],
+                                           kg["notcontract_2"])).matrix
+    dims = (ma.shape[0], ma.shape[1], mb.shape[1])
+    assert split_factor_estimate(*dims)[0] == long_dim
+    with config_override(matmul_precision="highest"):
+        out_c, fl_c = contract(1.0, kc.pop("a"), kc.pop("b"), nsplit=3,
+                               return_flops=True, **kc)
+        out_g, fl_g = contract(1.0, kg.pop("a"), kg.pop("b"), nsplit=3,
+                               return_flops=True, **kg)
+    assert fl_g == fl_c and out_g.matrix.data.is_cuda
+    np.testing.assert_array_equal(out_g.matrix.index.col_idx, out_c.matrix.index.col_idx)
+    np.testing.assert_array_equal(out_g.matrix.index.row_ptr, out_c.matrix.index.row_ptr)
+    assert rel_err(out_g.matrix.data, out_c.matrix.data) <= (
+        RTOL_F64 if dtype == torch.float64 else RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refold_and_merge_on_the_card_are_bitwise_cpu(dev, dtype):
+    from dbcsr_tpu_torch.tas import TASSplit, extract_block_subset, merge_row_groups
+
+    (ac, _), (ag, _) = _ri_on(dev, 24, dtype)
+    target = dtt.NDMapping(3, (2,), (0, 1))
+    rc, rg = ac.with_layout(target), ag.with_layout(target)
+    assert rg.matrix.data.is_cuda
+    assert torch.equal(rg.matrix.data.cpu(), rc.matrix.data)
+    assert torch.equal(ag.with_layout(target).matrix.data, rg.matrix.data)  # the cached map
+    split = TASSplit.cyclic("R", ac.matrix.nblkrows, 4)
+    merged = []
+    for m in (ac.matrix, ag.matrix):
+        parts = [(extract_block_subset(m, row_blocks=split.blocks_of_group(g)),
+                  split.blocks_of_group(g)) for g in range(4)]
+        merged.append(merge_row_groups(parts, m.row_block_sizes, m.col_block_sizes))
+    assert torch.equal(merged[1].data.cpu(), merged[0].data)
+    assert torch.equal(merged[0].data, ac.matrix.data)  # the groups tile A
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ri_24_atoms_runs_its_kernel(dev, dtype):
+    """Shape R at 24 atoms, T = 128: A 506 tiles, S = 1,304 tile products
+    into 936 planned C tiles, the panel route (K2) in float32 and the
+    float64 stack kernel in float64; ``BatchedContract`` bitwise equal to
+    ``contract(nsplit=1)``, each launching the kernel once."""
+    from dbcsr_tpu_torch.tensors import BatchedContract, contract
+
+    _, (ag, bg) = _ri_on(dev, 24, dtype)
+    counter, route = ((tile_stack_matmul_panel, "panel") if dtype == torch.float32
+                      else (tile_stack_matmul_f64, "f64_stack"))
+    kw = dict(contract_1=(2,), notcontract_1=(0, 1), contract_2=(0,), notcontract_2=(1,))
+    with config_override(matmul_precision="highest"):
+        with BatchedContract() as batch:
+            before = counter.launches
+            out = batch.contract(ag, bg, **kw)
+            assert counter.launches == before + 1
+            (fn, _, _), = batch._tas._cache.values()
+            assert fn.plan.route == route
+            tp = fn.plan.tile_plan
+            assert (ag.matrix.data.shape[0], len(tp.stack), tp.n_c_tiles) == (506, 1304, 936)
+        before = counter.launches
+        once = contract(1.0, ag, bg, nsplit=1, **kw)
+        assert counter.launches == before + 1
+    np.testing.assert_array_equal(out.matrix.index.col_idx, once.matrix.index.col_idx)
+    assert torch.equal(out.matrix.data, once.matrix.data)
