@@ -110,6 +110,25 @@ Phases (any failure exits non-zero before the final line):
     out every fold space. Then shape T, bench.py's tensor shape with its
     tall axis × 45 (the dense route), against a float64 matmul of the
     folded dense operands. Runs after phase 8, before phase 10.
+12. the host API around the multiply, on phase 4's banded SCF operands at
+    400,000 rows in float32 and float64, after phase 11 and before phase
+    10: (a) ``multiply(limits=...)`` with beta 0.5 and C = the full product,
+    W1 over the middle half of the block rows and columns (k full) against
+    the full product inside the window and ``beta·C`` bitwise outside it, W2
+    over rows, columns and k against the plain version of its window
+    product and a float64 host recomputation of 256 sampled blocks; (b)
+    ``retile``: a bitwise round trip, and the executors at T = 64 (``auto``
+    and ``stack``, which both take K1 there, and ``panel`` with a cache of
+    96 for K2; float64) and T = 32 (``stack``, both types) against T = 128,
+    each kernel timed beside its bound at that T; (c) a float64 binary
+    checkpoint written and read back onto the card, bitwise; (d) ``to_csr``
+    and ``from_csr`` of float32 A, bitwise; (e) every ``tests/inputs/*.perf``
+    recipe through ``perf.run_perf``, its checksum against a host float64
+    recomputation (the files' TPU references are printed, not gated); (f)
+    ``testing.run_tests`` and ``validate_kernels`` on the card; (g)
+    ``device_memory_stats`` against ``torch.cuda.max_memory_allocated``.
+    Every leg holds the launch counters to the kernel its route names (none
+    for the checkpoint, the CSR exchange and the dense path).
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (six kernels; ``bound_ms`` is computed
@@ -174,8 +193,9 @@ TILE_BAND_BLOCKS = 4_000
 LIBRARY_ROWS = 40_000
 #: phase 11: atoms of shape R, the RI-type 3-center contraction. At 450 A's
 #: folded tile grid is 322,004 x 49 = 15.8 M cells, under the 2^24 = 16.8 M
-#: past which the native planner declines the store layout and numpy's
-#: element-wise path takes over (both packages); A 13,900 tiles (0.91 GB in
+#: past which the JAX package's native planner declines the store layout and
+#: numpy's element-wise path takes over (the port's cap also grows with the
+#: stored elements, ``native.native_grid_cap``); A 13,900 tiles (0.91 GB in
 #: float32), C 32,424 planned tiles
 TENSOR_ATOMS = 450
 #: phase 11: the tall axis of shape T, bench.py's tensor shape (2,000
@@ -2065,13 +2085,14 @@ def same_result(what: str, got, ref, rtol: float) -> None:
 
 def native_layout_check(what: str, index) -> None:
     """Print the tile grid of ``index`` at T = 128 and fail unless the
-    native planner lays its store out (it declines past 2^24 grid cells)."""
-    from dbcsr_tpu_torch.native import store_layout_native
+    native planner lays its store out (it declines past ``native_grid_cap``
+    grid cells)."""
+    from dbcsr_tpu_torch.native import native_grid_cap, store_layout_native
 
     ntr, ntc = -(-index.nfullrows // 128), -(-index.nfullcols // 128)
     ran = store_layout_native(index, 128) is not None
     log(f"    {what}: tile grid {ntr} x {ntc} = {ntr * ntc} cells (native cap "
-        f"{1 << 24}), native planner ran: {ran}")
+        f"{native_grid_cap(index)}), native planner ran: {ran}")
     if not ran:
         fail(f"{what}: the native planner declined the store layout")
 
@@ -2328,6 +2349,383 @@ def phase_tensor(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the host API around the multiply on the card
+# ---------------------------------------------------------------------------
+
+#: phase 12b: (T, driver, config knobs) of the retiled executors per type,
+#: held against T = 128 under ``auto``. At T = 64 the band's B span per
+#: window of 16 C tiles is 80 tiles, past the default ``panel_cache`` of 48:
+#: ``auto`` declines the panel plan there and takes K1, so K2 runs forced,
+#: with a cache of 96
+RETILE_LEGS = {"float32": ((64, "auto", {}), (64, "stack", {}),
+                           (64, "panel", {"panel_cache": 96}), (32, "stack", {})),
+               "float64": ((64, "auto", {}), (32, "stack", {}))}
+#: phase 12's launches, summed over its legs' checked windows (timing runs
+#: and the self-tests' comparisons with plain versions are outside them)
+LEG_LAUNCHES = {}
+#: the kernel each route launches (None: the dense path, a torch matmul)
+ROUTE_KERNEL = {"stack": "K1", "panel": "K2", "panel_runs": "K3", "grouped": "K4",
+                "band": "K5", "f64_stack": "K6", "dense": None, "empty": None}
+
+
+def expect_launches(what: str, before: dict, kernel, at_least: int = 1) -> dict:
+    """Fail unless, since ``before`` (a ``read_launches()``), ``kernel``
+    launched at least ``at_least`` times and no other kernel launched
+    (``kernel`` None: no kernel at all). The wrappers launch their kernel on
+    CUDA tensors or raise, so a product that launched nothing ran nowhere
+    else: a plain version on the card would show as no launch."""
+    delta = launch_delta(before)
+    want = set() if kernel is None else {kernel}
+    if set(delta) != want or (kernel is not None and delta[kernel] < at_least):
+        fail(f"{what}: kernel launches {delta}, expected "
+             f"{'none' if kernel is None else f'{kernel} at least {at_least} times, no other'}")
+    for k, n in delta.items():
+        LEG_LAUNCHES[k] = LEG_LAUNCHES.get(k, 0) + n
+    return delta
+
+
+def window_mask(c, rows, cols):
+    """[n_tiles, T, T] bool over C's store: the elements inside the element
+    rectangle of the half-open block ranges ``rows`` x ``cols``."""
+    import torch
+
+    t, dev = c.tile, c.device
+    r0, r1 = (int(c.index.row_offsets[x]) for x in rows)
+    c0, c1 = (int(c.index.col_offsets[x]) for x in cols)
+    tc = torch.as_tensor(c.layout.tile_coords.astype(np.int64), device=dev)
+    ar = torch.arange(t, device=dev)
+    gr, gc = tc[:, 0, None] * t + ar, tc[:, 1, None] * t + ar
+    return (((gr >= r0) & (gr < r1))[:, :, None]) & (((gc >= c0) & (gc < c1))[:, None, :])
+
+
+def phase_limits(dev, a, b) -> None:
+    """12a: ``multiply(limits=...)`` at the phase-4 shape, beta 0.5 with C =
+    the full product (its pattern and values): W1 over rows and cols
+    [NB/4, 3NB/4) with k full, W2 over all three. W1 against the full
+    product inside the window and ``beta·C`` (bitwise) outside; W2 against
+    the plain version of its window product on the card and a host float64
+    recomputation of 256 sampled blocks."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import take_tiles
+    from dbcsr_tpu_torch.tas.matrix import extract_block_subset
+
+    name = str(a.dtype)[6:]
+    f64 = a.dtype == torch.float64
+    kern, rtol = ("K6", F64_RTOL) if f64 else ("K2", KERNEL_RTOL)
+    nb = a.nblkrows
+    q = (nb // 4, 3 * nb // 4)
+    sel = np.arange(*q, dtype=np.int64)
+    before = read_launches()
+    t0 = time.perf_counter()
+    c = dt.multiply("N", "N", 1.0, a, b)
+    sync(dev)
+    expect_launches(f"12a {name}: the full product", before, kern)
+    log(f"  {name}: {nb} block rows, window blocks [{q[0]}, {q[1]}); full product "
+        f"{c.nblks} blocks, {c.data.shape[0]} tiles, one-shot {time.perf_counter() - t0:.2f} s")
+    half_c = 0.5 * c.data
+    inside = window_mask(c, q, q)
+    for wname, lim in (("W1", {"rows": q, "cols": q}), ("W2", {"rows": q, "cols": q, "k": q})):
+        before = read_launches()
+        secs = []
+        for _ in range(2):  # the first call plans; the second is the warm one-shot
+            t0 = time.perf_counter()
+            w = dt.multiply("N", "N", 1.0, a, b, 0.5, c, limits=lim)
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+        launched = expect_launches(f"12a {name} {wname}", before, kern, at_least=2)
+        if not (np.array_equal(w.index.row_ptr, c.index.row_ptr)
+                and np.array_equal(w.index.col_idx, c.index.col_idx)):
+            fail(f"12a {name} {wname}: the result's index is not C's")
+        if not torch.equal(torch.where(inside, 0.0, w.data), torch.where(inside, 0.0, half_c)):
+            fail(f"12a {name} {wname}: outside the window the result is not beta·C")
+        msg = (f"  {wname} {name}: first call {secs[0]:.2f} s, warm one-shot "
+               f"{secs[1] * 1e3:.1f} ms, launches {launched}; outside the window "
+               f"== beta·C bitwise")
+        if wname == "W1":
+            err, rel = rel_err(torch.where(inside, w.data - half_c, 0.0),
+                               torch.where(inside, c.data, 0.0))
+            log(f"{msg}; inside vs the full product max_abs_err={err:.3e} rel={rel:.2e} "
+                f"(bound {rtol:.0e})")
+            if not rel <= rtol:
+                fail(f"12a {name} W1 disagrees with the full product")
+            continue
+        log(msg)
+        # the window product alone, against its plain version and float64
+        before = read_launches()
+        r = dt.multiply("N", "N", 1.0, a, b, limits=lim)
+        expect_launches(f"12a {name} W2 without C", before, kern)
+        r_w = extract_block_subset(r, row_blocks=sel, col_blocks=sel)
+        a_sub = extract_block_subset(a, row_blocks=sel, col_blocks=sel)
+        b_sub = extract_block_subset(b, row_blocks=sel, col_blocks=sel)
+        fn, c_index, _ = dt.build_multiply_executor("N", "N", a_sub, b_sub)
+        if not np.array_equal(r_w.index.col_idx, c_index.col_idx):
+            fail(f"12a {name} W2: the window product's index is not the executor's")
+        plain = take_tiles(plain_of(fn.plan, a_sub.data, b_sub.data),
+                           fn.plan.align_map(store_layout(c_index, 128).tile_keys()), 128)
+        err, rel = rel_err(r_w.data, plain)
+        serr, srel = sampled_block_check(r_w, a_sub, b_sub, 256)
+        log(f"    W2 {name} window product ({fn.plan.route}, {r_w.nblks} blocks): vs plain "
+            f"max_abs_err={err:.3e} rel={rel:.2e}; vs float64 (256 blocks) "
+            f"max_abs_err={serr:.3e} rel={srel:.2e} (bound {rtol:.0e})")
+        if not (rel <= rtol and srel <= rtol):
+            fail(f"12a {name} W2 disagrees with its references")
+        del r, r_w, a_sub, b_sub, fn, plain
+    del c, half_c, inside, w
+    torch.cuda.empty_cache()
+
+
+def phase_retile(dev, a, b, card: str) -> None:
+    """12b: ``retile`` round trip, then the executors of RETILE_LEGS at T =
+    64 and 32 against the T = 128 executor under ``auto`` (the same block
+    index: flat data within 1e-4 / 1e-12), each timed (CUDA-event medians,
+    kernel and plain version) beside its bound at that T."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    name = str(a.dtype)[6:]
+    tol = F64_RTOL if a.dtype == torch.float64 else KERNEL_RTOL
+    size = a.data.element_size()
+    t0 = time.perf_counter()
+    r64 = dt.retile(a, 64)
+    back = dt.retile(r64, 128)
+    sync(dev)
+    if not torch.equal(back.data, a.data):
+        fail(f"12b {name}: retile(retile(A, 64), 128) is not A")
+    log(f"  {name}: retile(retile(A, 64), 128) == A bitwise ({time.perf_counter() - t0:.2f} s "
+        f"with the first calls' maps); A at T=128 {a.data.shape[0]} tiles, at T=64 "
+        f"{r64.data.shape[0]}")
+    del r64, back
+    fn, ref_index, _ = dt.build_multiply_executor("N", "N", a, b)
+    before = read_launches()
+    out = fn(a.data, b.data)
+    sync(dev)
+    expect_launches(f"12b {name} T=128", before, ROUTE_KERNEL[fn.plan.route])
+    ref = dt.BCSRMatrix(name="C", index=ref_index, data=out).flat_host()
+    scale = float(np.abs(ref).max()) or 1.0
+    del fn, out
+    stores = {}
+    for tile, driver, knobs in RETILE_LEGS[name]:
+        if tile not in stores:
+            stores.clear()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            stores[tile] = (dt.retile(a, tile), dt.retile(b, tile))
+            sync(dev)
+            t_retile = time.perf_counter() - t0
+        at, bt = stores[tile]
+        t0 = time.perf_counter()
+        with dt.config_override(mm_driver=driver, **knobs):
+            fn, c_index, eff = dt.build_multiply_executor("N", "N", at, bt)
+        t_plan = time.perf_counter() - t0
+        plan = fn.plan
+        kern = ROUTE_KERNEL[plan.route]
+        what = f"T={tile} {name} {driver}" + "".join(f" {k}={v}" for k, v in knobs.items())
+        before = read_launches()
+        out = fn(at.data, bt.data)
+        sync(dev)
+        expect_launches(f"12b {what}", before, kern)
+        if not (np.array_equal(c_index.col_idx, ref_index.col_idx)
+                and np.array_equal(c_index.row_ptr, ref_index.row_ptr)):
+            fail(f"12b {what}: C's block index differs from T=128's")
+        err = float(np.abs(dt.BCSRMatrix(name="C", index=c_index, data=out).flat_host()
+                           - ref).max())
+        a_in, b_in = plan.op_stores(at.data, bt.data)
+        a_in, b_in = a_in.to(plan.in_dtype), b_in.to(plan.in_dtype)
+        kf = kernel_of(plan)
+        p1 = cuda_median_ms(lambda: plain_of(plan, at.data, bt.data), reps=3, warmup=1)
+        k1 = cuda_median_ms(lambda: kf(a_in, b_in), reps=10)
+        ex = cuda_median_ms(lambda: fn(at.data, bt.data), reps=10)
+        k2 = cuda_median_ms(lambda: kf(a_in, b_in), reps=10)
+        p2 = cuda_median_ms(lambda: plain_of(plan, at.data, bt.data), reps=3, warmup=1)
+        km, pm = float(np.median([k1, k2])), float(np.median([p1, p2]))
+        counts = plan_counts(at, bt, plan)
+        bound_ms, bound_by = kernel_bound(*counts, tile, size, size, name)
+        log(f"  {what}: route {plan.route} ({kern}), S={counts[3]}, A/B "
+            f"{counts[0]}/{counts[1]} tiles ({at.data.numel() * size / 1e9:.2f} GB store "
+            f"each), C {counts[2]} planned tiles; plan {t_plan:.1f} s, retile {t_retile:.1f} s; "
+            f"vs T=128 (flat) max_abs_err={err:.3e} rel={err / scale:.2e} (bound {tol:.0e})")
+        log(f"    kernel {km:.3f} ms (runs {k1:.3f}/{k2:.3f}), plain {pm:.3f}, executor "
+            f"{ex:.3f}; bound {bound_ms:.3f} ms by {bound_by}: {bound_ms / km:.1%} of it; "
+            f"{eff / ex / 1e6:.1f} GFLOP/s effective [{card}]")
+        if not err <= tol * scale:
+            fail(f"12b {what} disagrees with T=128")
+        del out, a_in, b_in, fn
+    stores.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint(dev, a) -> None:
+    """12c: ``binary_write`` of A, ``binary_read`` back onto the card: the
+    store bitwise equal, ``checksum(pos=True)`` identical; no kernel runs."""
+    import tempfile
+
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    before = read_launches()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "a.dbcsr")
+        t0 = time.perf_counter()
+        dt.binary_write(a, path)
+        t_write = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = dt.binary_read(path, device=dev)
+        sync(dev)
+        t_read = time.perf_counter() - t0
+    expect_launches("12c checkpoint", before, None)
+    same = back.device == a.device and torch.equal(back.data, a.data)
+    cks = (dt.checksum(a, pos=True), dt.checksum(back, pos=True))
+    log(f"  {str(a.dtype)[6:]} A ({a.nblks} blocks, {a.index.nelems} elements): file "
+        f"{nbytes} bytes, write {t_write:.2f} s, read onto the card {t_read:.2f} s; "
+        f"store bitwise equal {same}; checksum(pos) {cks[0]:.15e} / {cks[1]:.15e}")
+    if not (same and cks[0] == cks[1]):
+        fail("12c: the checkpoint did not read back bitwise")
+
+
+def phase_csr(dev, a) -> None:
+    """12d: ``to_csr`` of A and ``from_csr`` back onto A's block sizes: the
+    store bitwise equal; no kernel runs."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    before = read_launches()
+    t0 = time.perf_counter()
+    csr = dt.to_csr(a)
+    t_to = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = dt.from_csr(csr, a.row_block_sizes, a.col_block_sizes, device=dev, name=a.name)
+    sync(dev)
+    t_from = time.perf_counter() - t0
+    expect_launches("12d CSR", before, None)
+    same = (back.device == a.device and back.nblks == a.nblks
+            and torch.equal(back.data, a.data))
+    log(f"  {str(a.dtype)[6:]} A: to_csr {t_to:.2f} s ({csr.nnz} stored elements), "
+        f"from_csr {t_from:.2f} s ({back.nblks} blocks); store bitwise equal {same}")
+    if not same:
+        fail("12d: the CSR round trip did not give A back")
+
+
+def perf_reference_checksum(cfg, seed: int = 0) -> float:
+    """``checksum(pos=True)`` of the recipe's product recomputed on the host
+    in float64: the same operands drawn on the CPU, exchanged through
+    ``to_csr`` (scipy), multiplied densely in float64."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.perf import perf_operands
+
+    a, b, c, limits = perf_operands(cfg, device=torch.device("cpu"), seed=seed)
+    if limits or cfg.retain_sparsity:
+        fail("12e: the host recomputation covers plain products only")
+    da = dt.to_csr(a).toarray().astype(np.float64)
+    db = dt.to_csr(b).toarray().astype(np.float64)
+    da = da.T if cfg.transa in ("T", "C") else da
+    db = db.T if cfg.transb in ("T", "C") else db
+    ref = cfg.alpha.real * (da @ db)
+    if c is not None:
+        ref += cfg.beta.real * dt.to_csr(c).toarray().astype(np.float64)
+    w = np.log(np.arange(1, ref.shape[0] + 1, dtype=np.float64))[:, None] + np.log(
+        np.arange(1, ref.shape[1] + 1, dtype=np.float64))[None, :]
+    return float((ref * w).sum())
+
+
+def phase_perf_recipes(dev) -> None:
+    """12e: every ``tests/inputs/*.perf`` through ``perf.run_perf`` on the
+    card with the file's nrep: the checksum against the host float64
+    recomputation (1e-12 relative), the file's TPU reference printed
+    beside it (not gated), and the route's kernel as the only launches."""
+    import glob
+
+    from dbcsr_tpu_torch.perf import parse_perf, run_perf
+
+    for path in sorted(glob.glob(os.path.join(REPO, "tests", "inputs", "*.perf"))):
+        fname = os.path.basename(path)
+        cfg = parse_perf(path)
+        before = read_launches()
+        t0 = time.perf_counter()
+        res = run_perf(cfg, device=dev, seed=0, verbose=False)
+        secs = time.perf_counter() - t0
+        kern = ROUTE_KERNEL[res["route"]]
+        # nrep one-shot multiplies, then the steady leg's 2 + 10 executor calls
+        launched = expect_launches(f"12e {fname}", before, kern, at_least=cfg.nrep + 12)
+        ref = perf_reference_checksum(cfg)
+        rel = abs(res["checksum"] - ref) / max(abs(ref), 1e-300)
+        tpu = cfg.checksum_refs[0] if cfg.checksum_refs else float("nan")
+        log(f"  {fname:28s} {cfg.m}x{cfg.n}x{cfg.k} {'float64' if cfg.data_type == 3 else 'float32'}"
+            f" {cfg.transa}{cfg.transb} nrep {cfg.nrep}: mean {res['mean_time_s'] * 1e3:.3f} ms, "
+            f"best {res['best_time_s'] * 1e3:.3f} ms, steady {res['steady_time_s'] * 1e3:.3f} ms = "
+            f"{res['flops_per_s_steady'] / 1e9:.1f} GFLOP/s, route {res['route']} "
+            f"(launches {launched or 'none'}); checksum {res['checksum']:.15e} vs host float64 "
+            f"rel {rel:.2e} (bound 1e-12); TPU ref {tpu:.15e} match "
+            f"{res.get('checksum_match')} (not gated); {secs:.1f} s")
+        if not rel <= 1e-12:
+            fail(f"12e {fname}: the checksum disagrees with the host float64 recomputation")
+
+
+def phase_self_tests(dev) -> None:
+    """12f: the built-in self-tests on the card; 12g: the machine helpers."""
+    import torch
+
+    from dbcsr_tpu_torch import testing
+    from dbcsr_tpu_torch.core.machine import device_memory_stats, m_peak_memory
+
+    t0 = time.perf_counter()
+    ok_run = testing.run_tests(dev)
+    ok_val = testing.validate_kernels(dev, verbose=True)
+    log(f"  testing.run_tests(cuda) {ok_run}, validate_kernels(cuda) {ok_val} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (ok_run and ok_val):
+        fail("12f: a built-in self-test failed on the card")
+    stats = device_memory_stats(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  [12g] device_memory_stats: in use {stats['bytes_in_use']}, peak "
+        f"{stats['peak_bytes_in_use']} (torch.cuda.max_memory_allocated {peak}), limit "
+        f"{stats['bytes_limit']}; host m_peak_memory {m_peak_memory() / 1e9:.2f} GB")
+    if stats["peak_bytes_in_use"] != peak:
+        fail("12g: device_memory_stats disagrees with torch.cuda.max_memory_allocated")
+
+
+def phase_host_api(dev, card: str) -> None:
+    """Phase 12 over phase 4's banded SCF operands in float32 and float64,
+    with the launch counters set to 0 just before and read just after."""
+    import torch
+
+    reset_launches()
+    LEG_LAUNCHES.clear()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        t0 = time.perf_counter()
+        a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=dtype)
+        sync(dev)
+        log(f"[12] {name} operands at {MAIN_ROWS} rows: set-up {time.perf_counter() - t0:.1f} s")
+        log(f"[12a] limits, {name}")
+        phase_limits(dev, a, b)
+        log(f"[12b] retile, {name}")
+        phase_retile(dev, a, b, card)
+        if dtype == torch.float64:
+            log("[12c] binary checkpoint, float64")
+            phase_checkpoint(dev, a)
+        else:
+            log("[12d] CSR exchange, float32")
+            phase_csr(dev, a)
+        del a, b
+        torch.cuda.empty_cache()
+    log("[12e] .perf recipes")
+    phase_perf_recipes(dev)
+    log("[12f] built-in self-tests")
+    phase_self_tests(dev)
+    log(f"  phase 12 launches on its legs (timing and self-test launches apart): "
+        f"{LEG_LAUNCHES}; all launches of the phase: {read_launches()}")
+
+
+# ---------------------------------------------------------------------------
 # the library yardstick: one PyTorch call for the same product
 # ---------------------------------------------------------------------------
 
@@ -2416,6 +2814,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch import _build
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
 
     # 1. the card
     card = card_line()
@@ -2534,6 +2933,15 @@ def main() -> int:
     log(f"[11] tensor contraction: shape R (RI-type 3-center, {TENSOR_ATOMS} atoms) in "
         f"float32 and float64, shape T (bench.py's tensor shape, i = {TENSOR_T_ROWS})")
     phase_tensor(dev)
+
+    # 12. the host API around the multiply, on phase 4's operands
+    log(f"[12] the host API on the card: limits, retile, checkpoint, CSR, .perf recipes, "
+        f"self-tests (banded SCF shape at {MAIN_ROWS} rows, float32 and float64) [{card}]")
+    t12 = time.perf_counter()
+    phase_host_api(dev, card)
+    get_plan_cache().clear()
+    log(f"[12] took {time.perf_counter() - t12:.1f} s; peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
 
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")

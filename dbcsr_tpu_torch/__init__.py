@@ -10,7 +10,11 @@ whose stack products run through hand-written CUDA kernels on an H100
 over it, the tall-and-skinny layer (``tas/``) and block-sparse tensor
 contraction (``tensors/``) in one process.
 Plain PyTorch versions of the kernels serve CPU tensors and are the
-cross-check. The package imports torch, numpy and scipy, never jax.
+cross-check. Around the multiply: sub-matrix windows (``limits``),
+binary checkpoints and CSR exchange (``ops/io.py``, ``ops/csr.py``),
+``retile``, the ``.perf`` driver (``python -m dbcsr_tpu_torch.perf``) and
+the built-in self-tests (``testing.run_tests``). The package imports torch,
+numpy and scipy, never jax.
 """
 from .block.bcsr import (
     BCSRBuilder,
@@ -71,6 +75,17 @@ from .ops.norms import (
     norm_gershgorin,
     norm_maxabs,
 )
+from .ops.csr import csr_write, from_csr, to_csr, to_csr_filter
+from .ops.io import (
+    binary_read,
+    binary_write,
+    checksum,
+    get_info,
+    get_stored_coordinates,
+    print_block_sum,
+    print_matrix,
+    verify_matrix,
+)
 from .ops.random import random_block_sizes, random_matrix
 from .ops.transform import (
     copy,
@@ -78,6 +93,8 @@ from .ops.transform import (
     fold_symmetric,
     make_dense,
     make_undense,
+    may_be_dense,
+    retile,
     transpose,
 )
 from . import tas, tensors, testing

@@ -2,7 +2,9 @@
 
 The subset of ``dbcsr_tpu/autotune.py`` the engine's driver selection
 reads: the bandedness gate of panel admission (``BANDED_GATE``,
-``coords_bandedness``, ``workload_features``) and ``tuned_stack_params``.
+``coords_bandedness``, ``workload_features``) and ``tuned_stack_params``;
+and ``steady_state_time``, the per-call time of a plan-once executor that
+the ``.perf`` driver reports.
 There is no tuned table for this card yet, so the lookup returns None and
 every knob keeps its configured value: under ``mm_driver="auto"`` the
 grouped driver is never chosen (it needs a tuned preference) and the band
@@ -11,9 +13,11 @@ Queue 1 item 6.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 __all__ = [
     "BANDED_GATE",
@@ -21,6 +25,7 @@ __all__ = [
     "index_features",
     "workload_features",
     "tuned_stack_params",
+    "steady_state_time",
 ]
 
 #: bandedness below this can never make the panel plan admissible
@@ -75,3 +80,30 @@ def tuned_stack_params(a_index, b_index) -> Optional[dict]:
     """Per-workload-class tuned knobs for this device; None until a table
     measured on this card exists."""
     return None
+
+
+def steady_state_time(fn, args, *, reps: int = 10, warmup: int = 2) -> float:
+    """Per-call time (s) of ``fn(*args)`` in steady state: the median over
+    ``reps`` calls after ``warmup``. On a CUDA device each call is timed by
+    CUDA events recorded around it (device time, the launch queue kept
+    full); elsewhere by the host clock around the call. The JAX package
+    takes the marginal time of a dependent device loop instead, because its
+    dispatch jitter hid fast calls; CUDA events need no such loop."""
+    dev = args[0].device
+    for _ in range(warmup):
+        fn(*args)
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn(*args)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1) * 1e-3)
+        else:
+            s0 = time.perf_counter()
+            fn(*args)
+            times.append(time.perf_counter() - s0)
+    return float(np.median(times))

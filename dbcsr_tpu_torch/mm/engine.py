@@ -102,7 +102,7 @@ from .panel import (
     tile_stack_matmul_panel_runs,
 )
 from .plan import symbolic_product
-from .plancache import array_fingerprint, get_plan_cache
+from .plancache import array_fingerprint, get_plan_cache, index_fingerprint
 from .reorder import ReorderPlan, locality_reorder_plan
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
@@ -128,12 +128,7 @@ _UNPORTED_DRIVERS = {
 }
 
 
-def _reject_unported(a, b, c, *, limits=None, dist=None, k_dist=None) -> None:
-    if limits is not None:
-        raise NotImplementedError(
-            "limits (sub-matrix windows) are not ported yet: ROADMAP Queue 1 "
-            "item 4"
-        )
+def _reject_unported(a, b, c, *, dist=None, k_dist=None) -> None:
     if dist is not None or k_dist is not None:
         raise NotImplementedError(
             "distributed multiplies (dist, k_dist) are not ported yet: "
@@ -800,9 +795,9 @@ def multiply(
     transposes ('C' equals 'T' on real data), alpha/beta scaling, product
     block discovery, epsilon filtering (``filter_eps``: blocks of the result
     with Frobenius norm below eps are dropped), retain-sparsity mode and
-    symmetric operands, on the operands' device. ``limits``,
-    ``dist``/``k_dist`` and complex operands raise NotImplementedError
-    naming the ROADMAP item that ports them.
+    symmetric operands, sub-matrix windows (``limits``), on the operands'
+    device. ``dist``/``k_dist`` and complex operands raise
+    NotImplementedError naming the ROADMAP item that ports them.
 
     Iterative filtered callers (SCF: same patterns, new data every step)
     should hold a ``build_filtered_executor`` instead: it plans once and
@@ -810,11 +805,16 @@ def multiply(
     norms on the host and replans the filtered pattern on every call."""
     from ..ops.transform import desymmetrize, fold_symmetric
 
-    _reject_unported(a, b, c, limits=limits, dist=dist, k_dist=k_dist)
+    _reject_unported(a, b, c, dist=dist, k_dist=k_dist)
     cfg = get_config()
     _check_config(cfg, cfg.mm_driver)
     ta, _ = _effective_trans(transa)
     tb, _ = _effective_trans(transb)
+    if limits is not None:
+        return _multiply_limited(
+            ta, tb, alpha, a, b, beta, c, filter_eps=filter_eps,
+            return_flops=return_flops, limits=limits,
+        )
 
     if c is not None and c.sym != SYM_NONE:
         # symmetric product matrix: compute in full storage, fold back
@@ -886,6 +886,82 @@ def multiply(
 
     if return_flops:
         return result, symb.eff_flops
+    return result
+
+
+def _multiply_limited(ta: bool, tb: bool, alpha, a: BCSRMatrix, b: BCSRMatrix,
+                      beta, c: Optional[BCSRMatrix], *, filter_eps,
+                      return_flops: bool, limits: dict):
+    """Sub-matrix multiplication window (the reference's
+    ``first_row/last_row/first_column/last_column/first_k/last_k``,
+    ``src/mm/dbcsr_mm.F:630-709``): the product is computed only over the
+    half-open BLOCK-index ranges ``limits={"rows": (r0, r1), "cols": ...,
+    "k": ...}``, while ``beta * C`` applies to the whole C.
+
+    Extract both operands' windows (``tas/matrix.extract_block_subset``),
+    multiply them, and re-expand the window product into C's block space
+    with one device gather: the selections are ascending ranges, so the
+    expanded index keeps the window's block order and flat layout. The
+    expanded index and its gather are kept in the plan cache under the
+    window product's pattern, as the extractions' are."""
+    from ..block.gather import apply_prepared_gather, prepare_flat_gather
+    from ..ops.arithmetic import add
+    from ..ops.transform import desymmetrize
+    from ..tas.matrix import extract_block_subset
+
+    a = desymmetrize(a)
+    b = desymmetrize(b)
+    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
+    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
+    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
+
+    def _range(key, n):
+        lo, hi = limits.get(key, (0, n))
+        dbcsr_assert(0 <= lo <= hi <= n, f"bad {key} limits ({lo},{hi})")
+        return np.arange(lo, hi, dtype=np.int64)
+
+    rows_sel = _range("rows", len(m_sizes))
+    cols_sel = _range("cols", len(n_sizes))
+    k_sel = _range("k", len(k_sizes))
+    a_sub = (extract_block_subset(a, row_blocks=k_sel, col_blocks=rows_sel) if ta
+             else extract_block_subset(a, row_blocks=rows_sel, col_blocks=k_sel))
+    b_sub = (extract_block_subset(b, row_blocks=cols_sel, col_blocks=k_sel) if tb
+             else extract_block_subset(b, row_blocks=k_sel, col_blocks=cols_sel))
+    window, fl = multiply(
+        "T" if ta else "N", "T" if tb else "N", alpha, a_sub, b_sub,
+        filter_eps=filter_eps, return_flops=True,
+    )
+    with timed("multiply/limits_expand"):
+        w_idx = window.index
+        pcache = get_plan_cache()
+        key = ("limits_expand", index_fingerprint(w_idx), window.tile, str(window.device),
+               array_fingerprint(rows_sel, cols_sel, m_sizes, n_sizes))
+        hit = pcache.get(key)
+        if hit is None:
+            full_index, order = build_index(
+                rows_sel[w_idx.blk_rows], cols_sel[w_idx.col_idx], m_sizes, n_sizes,
+            )
+            dbcsr_assert(
+                np.array_equal(order, np.arange(len(order))),
+                "window expansion must preserve block order",
+            )
+            gather = prepare_flat_gather(full_index, window.tile, window,
+                                         np.arange(w_idx.nelems, dtype=np.int64))
+            hit = (full_index, gather)
+            pcache.put(key, hit, nbytes=gather.nbytes)
+        full_index, gather = hit
+        expanded = BCSRMatrix(
+            name="product", index=full_index, sym=SYM_NONE,
+            data=apply_prepared_gather(window.data, gather),
+        )
+    if c is not None:
+        result = add(1.0, expanded, beta, c)
+        result = BCSRMatrix(name=c.name, index=result.index, data=result.data,
+                            sym=result.sym)
+    else:
+        result = expanded
+    if return_flops:
+        return result, fl
     return result
 
 

@@ -25,6 +25,7 @@ __all__ = [
     "stack_build",
     "flatten_blocks",
     "store_layout_native",
+    "native_grid_cap",
 ]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "stackbuild.cpp")
@@ -139,6 +140,15 @@ def stack_build(
     return stack[:total], c_keys[:n_c]
 
 
+def native_grid_cap(index) -> int:
+    """Tile-grid cells past which ``store_layout_native`` declines: 2^24,
+    or four per stored element where that is more. The pass keeps 8 bytes
+    of scratch a grid cell beside the 8-byte element map it writes, so the
+    scratch never dominates (the JAX package's copy stops at 2^24, which
+    sends a 400,000-row banded matrix at T = 64 or 32 to the numpy path)."""
+    return max(1 << 24, 4 * int(index.nelems))
+
+
 def store_layout_native(index, tile: int):
     """Native tile-store layout construction (one fused C pass). Returns
     (tile_coords int32 [n,2], elem_dest int64 [nelems], ntr, ntc) or None."""
@@ -147,7 +157,7 @@ def store_layout_native(index, tile: int):
         return None
     ntr = -(-index.nfullrows // tile)
     ntc = -(-index.nfullcols // tile)
-    if ntr * ntc > (1 << 24):  # grid scratch would dominate; numpy path
+    if ntr * ntc > native_grid_cap(index):  # grid scratch would dominate; numpy path
         return None
     nblks = index.nblks
     scratch = np.empty(max(ntr * ntc, 1), dtype=np.int64)

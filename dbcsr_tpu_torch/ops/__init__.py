@@ -17,6 +17,17 @@ from .arithmetic import (
     triu,
     zero,
 )
+from .csr import csr_write, from_csr, to_csr, to_csr_filter
+from .io import (
+    binary_read,
+    binary_write,
+    checksum,
+    get_info,
+    get_stored_coordinates,
+    print_block_sum,
+    print_matrix,
+    verify_matrix,
+)
 from .norms import (
     block_norms,
     block_norms_sq,
@@ -32,6 +43,8 @@ from .transform import (
     fold_symmetric,
     make_dense,
     make_undense,
+    may_be_dense,
+    retile,
     transpose,
 )
 
@@ -42,5 +55,8 @@ __all__ = [
     "zero", "block_norms", "block_norms_sq", "norm_column", "norm_frobenius",
     "norm_gershgorin", "norm_maxabs", "random_block_sizes", "random_matrix",
     "copy", "desymmetrize", "fold_symmetric", "make_dense", "make_undense",
-    "transpose",
+    "may_be_dense", "retile", "transpose", "csr_write", "from_csr", "to_csr",
+    "to_csr_filter", "binary_read", "binary_write", "checksum", "get_info",
+    "get_stored_coordinates", "print_block_sum", "print_matrix",
+    "verify_matrix",
 ]

@@ -8,7 +8,9 @@ element maps), and desymmetrize is the transposed store selected on the
 strict-lower global triangle by a coordinate mask. Stores are real (complex
 is not ported), so hermitian storage behaves as symmetric.
 ``make_dense``/``make_undense`` convert between block structures through
-the dense matrix (``dbcsr_make_dense``/``dbcsr_make_undense``).
+the dense matrix (``dbcsr_make_dense``/``dbcsr_make_undense``); ``retile``
+re-lays a store at another tile edge with one device element gather. The
+distribution functions of the JAX module wait for ROADMAP item 9.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from ..core.timing import timed
 
 __all__ = [
     "transpose", "desymmetrize", "fold_symmetric", "copy", "make_dense",
-    "make_undense",
+    "make_undense", "may_be_dense", "retile",
 ]
 
 
@@ -56,6 +58,28 @@ def fold_symmetric(m: BCSRMatrix, sym: str = SYM_SYMMETRIC) -> BCSRMatrix:
             m.data, tile_align_map(keys, m.layout.tile_keys()), m.tile
         ) * valid_mask(new_index, m.tile, m.device).to(m.dtype)
         return BCSRMatrix(name=m.name, index=new_index, data=data, sym=sym)
+
+
+def retile(m: BCSRMatrix, tile: int) -> BCSRMatrix:
+    """Re-lay the store at a different hardware tile edge (the autotuner's
+    per-workload-class ``tile_size`` knob): one device element gather
+    between the two layouts; the index, and so the flat data, is
+    unchanged."""
+    if tile == m.tile:
+        return m
+    from ..block.gather import apply_flat_gather
+
+    with timed("retile"):
+        data = apply_flat_gather(
+            m.index, tile, m, np.arange(m.index.nelems, dtype=np.int64)
+        )
+        return BCSRMatrix(name=m.name, index=m.index, data=data, sym=m.sym)
+
+
+def may_be_dense(m: BCSRMatrix, threshold: float = 0.5) -> bool:
+    """Occupancy heuristic for the dense fast path (``dbcsr_may_be_dense``,
+    ``src/ops/dbcsr_operations.F``)."""
+    return m.occupation() >= threshold
 
 
 def transpose(m: BCSRMatrix, *, conjugate: bool = False) -> BCSRMatrix:

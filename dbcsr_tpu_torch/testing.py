@@ -1,5 +1,6 @@
-"""Parity harness: carry a JAX-package matrix or tensor into the port.
+"""Parity harness and the built-in self-test API.
 
+Parity harness: carry a JAX-package matrix or tensor into the port.
 A test builds a matrix in ``dbcsr_tpu``, hands its parts over as numpy
 arrays (``np.asarray(m.data)``, the index arrays, ``m.sym``) and gets the
 port's ``BCSRMatrix`` with the same index, symmetry and a bit-identical
@@ -8,8 +9,23 @@ packages; results are then compared as numpy arrays. A tensor crosses the
 same way, as its nd block sizes, its mapping and its folded matrix's block
 coordinates and flat data (``tensor_from_arrays``). This module does not
 import jax: the caller does the ``np.asarray``.
+
+Self-tests (port of ``dbcsr_tpu/testing.py``, the reference's
+``dbcsr_run_tests`` / ``dbcsr_test_mm`` / ``dbcsr_test_binary_io``,
+``src/ops/dbcsr_tests.F:62``): an embedding application checks the
+installed library on its own device without the pytest suite. The oracle
+is the reference's (``tests/dbcsr_test_multiply.F:523-700``): operands to
+dense on the host, ``multiply`` against a dense GEMM with norm-scaled
+residuals. ``validate_kernels`` holds every CUDA kernel family against its
+plain PyTorch version on a CUDA device (on a CPU device the plain version
+is the route, so there is nothing to hold). The JAX package's TPU lowering
+and compile gates have no counterpart here: nvcc builds the kernels
+(``run_tests`` builds them first on a CUDA device), and a failure raises.
 """
 from __future__ import annotations
+
+import tempfile
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +35,20 @@ from .block.index import build_index
 from .block.store import store_layout
 from .core.errors import dbcsr_assert
 
-__all__ = ["matrix_from_arrays", "tensor_from_arrays", "to_numpy"]
+__all__ = [
+    "matrix_from_arrays",
+    "tensor_from_arrays",
+    "to_numpy",
+    "to_dense_local",
+    "impose_sparsity",
+    "check_multiply",
+    "test_mm",
+    "test_binary_io",
+    "test_tas",
+    "test_tensor",
+    "validate_kernels",
+    "run_tests",
+]
 
 
 def matrix_from_arrays(
@@ -83,3 +112,330 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
     """Host numpy copy of a tensor (bfloat16 widened to float32)."""
     x = x.detach().cpu()
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+# ---------------------------------------------------------------------------
+# built-in self-tests
+# ---------------------------------------------------------------------------
+
+def _kernel_validation_cases(device, tile: int, n_tiles: int, seed: int):
+    """One case per CUDA kernel family: ``[(name, tolerance, run_kernel,
+    run_plain), ...]`` thunks on small stacks and plans that reach each
+    kernel's paths (revisited C tiles, a clamped panel group, all three
+    run-fused tiers)."""
+    from .mm.band import band_matmul, band_matmul_plain, device_band_plan, plan_band
+    from .mm.f64_stack import tile_stack_matmul_f64, tile_stack_matmul_f64_plain
+    from .mm.kernels import (
+        device_group_plan,
+        device_stack,
+        tile_stack_matmul,
+        tile_stack_matmul_grouped,
+        tile_stack_matmul_grouped_plain,
+        tile_stack_matmul_plain,
+    )
+    from .mm.panel import (
+        device_panel_plan,
+        device_panel_run_plan,
+        plan_panel_runs,
+        plan_panel_stack,
+        tile_stack_matmul_panel,
+        tile_stack_matmul_panel_plain,
+        tile_stack_matmul_panel_runs,
+        tile_stack_matmul_panel_runs_plain,
+    )
+    from .mm.tileplan import plan_tile_stacks_stores
+
+    f32 = torch.float32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def stores(n, dtype=f32):
+        wide = torch.float64 if dtype == torch.float64 else f32
+        return [torch.randn((n, tile, tile), generator=gen, device=device,
+                            dtype=wide).to(dtype) for _ in range(2)]
+
+    cases = []
+    # flat stack with revisited C tiles (K1, K4 and the float64 kernel)
+    dbcsr_assert(n_tiles >= 4, "validate_kernels needs n_tiles >= 4")
+    stack = np.array([[0, 0, 0], [0, 1, 1], [1, 2, 2], [2, 0, 3], [2, 3, 0]],
+                     dtype=np.int32)
+    a, b = stores(n_tiles)
+    ds = device_stack(stack, 3, device)
+    cases.append(("flat (K1)", 1e-4,
+                  lambda: tile_stack_matmul(a, b, ds, out_dtype=f32),
+                  lambda: tile_stack_matmul_plain(a, b, ds, out_dtype=f32)))
+    gp = device_group_plan(stack, 3, n_tiles, device, group=2, cache=4)
+    cases.append(("grouped (K4)", 1e-4,
+                  lambda: tile_stack_matmul_grouped(a, b, gp, out_dtype=f32),
+                  lambda: tile_stack_matmul_grouped_plain(a, b, gp, out_dtype=f32)))
+    a64, b64 = stores(n_tiles, torch.float64)
+    cases.append(("float64 stack", 1e-12,
+                  lambda: tile_stack_matmul_f64(a64, b64, ds),
+                  lambda: tile_stack_matmul_f64_plain(a64, b64, ds)))
+
+    # a square band of tiles, |r - c| <= w (K5, K2, K3)
+    mt, w = 12, 2
+    r, c = np.meshgrid(np.arange(mt), np.arange(mt), indexing="ij")
+    near = np.abs(r - c) <= w
+    coords = np.stack([r[near], c[near]], 1).astype(np.int64)
+    n = len(coords)
+    tp = plan_tile_stacks_stores(coords, (mt, mt), coords, (mt, mt))
+    ab, bb = stores(n)
+    bp = plan_band(coords, (mt, mt), coords, (mt, mt), tp.c_tile_keys, tile=tile)
+    dbp = device_band_plan(bp, device)
+    cases.append(("band (K5)", 1e-4,
+                  lambda: band_matmul(ab, bb, dbp, out_dtype=f32),
+                  lambda: band_matmul_plain(ab, bb, bp, out_dtype=f32)))
+    pp = plan_panel_stack(tp.stack, tp.n_c_tiles, n, n, c_win=16, a_cap=48,
+                          b_cap=48, chunk=4)
+    dbcsr_assert(pp is not None and pp.gstart[-1] % 16 != 0,
+                 "validate_kernels: the panel plan must clamp its last group")
+    dpp = device_panel_plan(pp, device)
+    cases.append(("panel (K2)", 1e-4,
+                  lambda: tile_stack_matmul_panel(ab, bb, dpp, out_dtype=f32),
+                  lambda: tile_stack_matmul_panel_plain(ab, bb, pp, out_dtype=f32)))
+    a16, b16 = ab.to(torch.bfloat16), bb.to(torch.bfloat16)
+    cases.append(("panel-bf16 (K2)", 2e-2,
+                  lambda: tile_stack_matmul_panel(a16, b16, dpp, out_dtype=f32),
+                  lambda: tile_stack_matmul_panel_plain(a16, b16, pp, out_dtype=f32)))
+    cm = np.argsort(coords[:, 1] * mt + coords[:, 0]).astype(np.int32)
+    rp = plan_panel_runs(tp.stack, tp.n_c_tiles, n, n, b_cm_perm=cm, c_win=8,
+                         a_cap=32, b_cap=32, chunk=4, runlen=3)
+    dbcsr_assert(rp is not None and rp.n_quads > 0 and rp.n_pairs > 0,
+                 "validate_kernels: the run-fused plan must use its tiers")
+    drp = device_panel_run_plan(rp, device)
+    cases.append(("panel-runs (K3)", 1e-4,
+                  lambda: tile_stack_matmul_panel_runs(ab, bb, drp, out_dtype=f32),
+                  lambda: tile_stack_matmul_panel_runs_plain(ab, bb, rp, out_dtype=f32)))
+    return cases
+
+
+def validate_kernels(device, *, tile: int = 128, n_tiles: int = 4, seed: int = 0,
+                     verbose: bool = False) -> bool:
+    """Numeric self-validation of every CUDA kernel family (K1-K5, the
+    float64 stack kernel, K2 with bf16 inputs) against its plain PyTorch
+    version on ``device`` (the reference validates every JIT kernel at first
+    use, ``validate_kernel``, ``src/acc/libsmm_acc/libsmm_acc.cpp:55-89``).
+    On a CPU device the plain version is the route, and it returns True.
+
+    Tolerances, relative to the largest plain entry: bf16 inputs 2e-2,
+    float32 1e-4, float64 1e-12."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    all_ok = True
+    for name, tol, run_kernel, run_plain in _kernel_validation_cases(
+        device, tile, n_tiles, seed
+    ):
+        got, ref = run_kernel().double(), run_plain().double()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max()) or 1.0
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        if verbose or not ok:
+            print(f"validate_kernels[{name}]: max err {err:.3e} "
+                  f"(scale {scale:.3e}) {'OK' if ok else 'FAILED'}")
+        all_ok = all_ok and ok
+    return all_ok
+
+
+def to_dense_local(m: BCSRMatrix) -> np.ndarray:
+    """Dense copy on the host (``dbcsr_to_dense_local``,
+    ``src/ops/dbcsr_test_methods.F:213``)."""
+    return to_numpy(m.to_dense())
+
+
+def impose_sparsity(dense: np.ndarray, like: BCSRMatrix) -> np.ndarray:
+    """Zero ``dense`` outside the block pattern of ``like``
+    (``dbcsr_impose_sparsity``, ``src/ops/dbcsr_test_methods.F:102``)."""
+    out = np.zeros_like(dense)
+    ro = like.index.row_offsets
+    co = like.index.col_offsets
+    rows = like.index.blk_rows
+    cols = like.index.col_idx
+    for b in range(like.nblks):
+        i, j = int(rows[b]), int(cols[b])
+        out[ro[i]:ro[i + 1], co[j]:co[j + 1]] = dense[ro[i]:ro[i + 1], co[j]:co[j + 1]]
+        if like.sym != SYM_NONE and i != j:
+            out[ro[j]:ro[j + 1], co[i]:co[i + 1]] = dense[ro[j]:ro[j + 1], co[i]:co[i + 1]]
+    return out
+
+
+def check_multiply(
+    transa: str,
+    transb: str,
+    alpha,
+    a: BCSRMatrix,
+    b: BCSRMatrix,
+    beta,
+    c_in: Optional[BCSRMatrix],
+    c_out: BCSRMatrix,
+    *,
+    retain_sparsity: bool = False,
+    eps_factor: float = 100.0,
+) -> bool:
+    """Norm-scaled residual acceptance test (``dbcsr_check_multiply``,
+    ``tests/dbcsr_test_multiply.F:616-640``): accept when
+    ``|C_dense - C_sparse|_max <= eps_factor · ε_machine · scale`` with
+    ``scale = max(|A|, |B|, |C|)`` 1-norm products. Real matrices only, so
+    'C' transposes as 'T'."""
+    da = to_dense_local(a)
+    db = to_dense_local(b)
+    if transa.upper() in ("T", "C"):
+        da = da.T
+    if transb.upper() in ("T", "C"):
+        db = db.T
+    ref = alpha * (da @ db)
+    if c_in is not None:
+        ref = ref + beta * to_dense_local(c_in)
+    if retain_sparsity and c_in is not None:
+        ref = impose_sparsity(ref, c_in)
+    got = to_dense_local(c_out)
+    eps = np.finfo(got.dtype).eps
+    scale = max(
+        np.abs(da).sum(axis=0).max() * np.abs(db).sum(axis=0).max(),
+        np.abs(ref).max(),
+        1.0,
+    )
+    resid = np.abs(got - ref).max()
+    return bool(resid <= eps_factor * eps * scale)
+
+
+def test_mm(
+    device,
+    *,
+    nblkrows: int = 60,
+    nblkcols: int = 50,
+    nblkks: int = 55,
+    block_sizes: Sequence[int] = (2, 3, 5),
+    occupancy: float = 0.3,
+    dtype=np.float64,
+    seed: int = 0,
+    verbose: bool = False,
+) -> bool:
+    """Multiply self-test sweep (``dbcsr_test_mm``) on ``device``:
+    transposes × alpha/beta on random matrices, dense-oracle checked.
+    Returns True if all pass."""
+    from .mm.engine import multiply
+    from .ops.random import random_block_sizes, random_matrix
+
+    rng = np.random.default_rng(seed)
+    mbs = random_block_sizes(nblkrows, block_sizes, rng)
+    kbs = random_block_sizes(nblkks, block_sizes, rng)
+    nbs = random_block_sizes(nblkcols, block_sizes, rng)
+    ok = True
+    for transa in ("N", "T"):
+        for transb in ("N", "T"):
+            a = random_matrix(
+                kbs if transa == "T" else mbs, mbs if transa == "T" else kbs,
+                occupancy, rng, dtype=dtype, name="A", device=device,
+            )
+            b = random_matrix(
+                nbs if transb == "T" else kbs, kbs if transb == "T" else nbs,
+                occupancy, rng, dtype=dtype, name="B", device=device,
+            )
+            for alpha, beta, with_c in ((1.0, 0.0, False), (2.0, 0.5, True)):
+                c_in = (random_matrix(mbs, nbs, occupancy, rng, dtype=dtype,
+                                      name="C", device=device)
+                        if with_c else None)
+                c_out = multiply(transa, transb, alpha, a, b, beta, c_in)
+                good = check_multiply(transa, transb, alpha, a, b, beta, c_in, c_out)
+                if verbose or not good:
+                    print(f"test_mm {transa}{transb} alpha={alpha} beta={beta} "
+                          f"c={'Y' if with_c else 'N'}: {'OK' if good else 'FAILED'}")
+                ok = ok and good
+    return ok
+
+
+def test_binary_io(device, *, seed: int = 0, verbose: bool = False) -> bool:
+    """Checkpoint self-test (``dbcsr_test_binary_io``): write, read back
+    onto ``device``, compare checksums."""
+    from .ops.io import binary_read, binary_write, checksum
+    from .ops.random import random_block_sizes, random_matrix
+
+    rng = np.random.default_rng(seed)
+    rbs = random_block_sizes(40, [2, 3, 5], rng)
+    m = random_matrix(rbs, rbs, 0.3, rng, dtype=np.float64, name="io_test",
+                      device=device)
+    with tempfile.NamedTemporaryFile(suffix=".dbcsr") as f:
+        binary_write(m, f.name)
+        m2 = binary_read(f.name, device=device)
+    good = (
+        m2.nblks == m.nblks
+        and m2.device == m.device
+        and abs(checksum(m2) - checksum(m)) <= 1e-12 * max(checksum(m), 1.0)
+    )
+    if verbose or not good:
+        print(f"test_binary_io: {'OK' if good else 'FAILED'}")
+    return good
+
+
+def test_tas(device, *, seed: int = 0, verbose: bool = False) -> bool:
+    """TAS self-test: a tall multiply against a dense oracle (the
+    reference's ``dbcsr_tas_unittest`` checksum recipe in miniature)."""
+    from .ops.random import random_block_sizes, random_matrix
+    from .tas import tas_multiply
+
+    rng = np.random.default_rng(seed)
+    mbs = random_block_sizes(300, [2, 3], rng)
+    kbs = random_block_sizes(24, [3], rng)
+    nbs = random_block_sizes(20, [2], rng)
+    a = random_matrix(mbs, kbs, 0.3, rng, dtype=np.float64, name="A", device=device)
+    b = random_matrix(kbs, nbs, 0.6, rng, dtype=np.float64, name="B", device=device)
+    out = tas_multiply("N", "N", 1.0, a, b, nsplit=4).matrix
+    ref = to_dense_local(a) @ to_dense_local(b)
+    good = bool(np.abs(to_dense_local(out) - ref).max()
+                <= 1e-10 * max(np.abs(ref).max(), 1.0))
+    if verbose or not good:
+        print(f"test_tas: {'OK' if good else 'FAILED'}")
+    return good
+
+
+def test_tensor(device, *, seed: int = 0, verbose: bool = False) -> bool:
+    """Tensor self-test: a rank-3 contraction against an einsum oracle (the
+    reference's ``dbcsr_t_contract_test``)."""
+    from .tensors import NDMapping, TensorBuilder, contract
+
+    rng = np.random.default_rng(seed)
+    bs = [np.array([2, 3]), np.array([2, 2]), np.array([3, 1, 2])]
+    bs_l = [np.array([4])]
+
+    def build(sizes, occ, mapping=None):
+        bld = TensorBuilder(sizes, mapping, dtype=np.float64, device=device)
+        nbpd = [len(s) for s in sizes]
+        for flat in np.flatnonzero(rng.random(int(np.prod(nbpd))) < occ):
+            bi = np.unravel_index(flat, nbpd)
+            shp = tuple(int(sizes[d][bi[d]]) for d in range(len(sizes)))
+            bld.put_block(bi, rng.standard_normal(shp))
+        return bld.finalize()
+
+    a = build(bs, 0.7, NDMapping(3, (0, 1), (2,)))
+    b = build([bs[2]] + bs_l, 0.8)
+    out = contract(
+        1.0, a, b,
+        contract_1=(2,), notcontract_1=(0, 1),
+        contract_2=(0,), notcontract_2=(1,),
+    )
+    ref = np.einsum("ijk,kl->ijl", to_numpy(a.to_dense()), to_numpy(b.to_dense()))
+    good = bool(np.abs(to_numpy(out.to_dense()) - ref).max()
+                <= 1e-10 * max(np.abs(ref).max(), 1.0))
+    if verbose or not good:
+        print(f"test_tensor: {'OK' if good else 'FAILED'}")
+    return good
+
+
+def run_tests(device, *, verbose: bool = False) -> bool:
+    """Run every built-in self-test on ``device`` (``dbcsr_run_tests``).
+    On a CUDA device the kernels are built first; a build failure raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from . import _build
+
+        _build.build_kernels()
+    ok = test_mm(device, verbose=verbose)
+    ok = test_binary_io(device, verbose=verbose) and ok
+    ok = validate_kernels(device, verbose=verbose) and ok
+    ok = test_tas(device, verbose=verbose) and ok
+    ok = test_tensor(device, verbose=verbose) and ok
+    if verbose:
+        print(f"run_tests: {'ALL OK' if ok else 'FAILURES'}")
+    return ok

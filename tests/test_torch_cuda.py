@@ -751,3 +751,95 @@ def test_ri_24_atoms_runs_its_kernel(dev, dtype):
         assert counter.launches == before + 1
     np.testing.assert_array_equal(out.matrix.index.col_idx, once.matrix.index.col_idx)
     assert torch.equal(out.matrix.data, once.matrix.data)
+
+
+# ---- the host API around the multiply on the card ------------------------------
+
+def _banded_pair(rows=1200, tile=16, seed=1):
+    """A banded SCF-like matrix of blocks 3/5/7 (±3 blocks at 60% fill) on
+    the CPU, with its copy on the card."""
+    rng = np.random.default_rng(seed)
+    rbs = dtt.random_block_sizes(rows, [3, 5, 7], rng)
+    n = len(rbs)
+    i = np.repeat(np.arange(n), 7)
+    j = i + np.tile(np.arange(-3, 4), n)
+    keep = (j >= 0) & (j < n) & (rng.random(len(j)) < 0.6)
+    blocks = [rng.standard_normal((rbs[r], rbs[c])).astype(np.float32)
+              for r, c in zip(i[keep], j[keep])]
+    with config_override(tile_size=tile):
+        a = dtt.BCSRMatrix.from_blocks(i[keep], j[keep], blocks, rbs, rbs, device="cpu")
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_limits_window_on_the_card_runs_its_kernel(dev, dtype):
+    """A window over rows, cols and k (the middle half of each) with beta·C:
+    K2 in float32, the float64 stack kernel in float64, against the same
+    call on CPU tensors (the plain versions)."""
+    a = _banded_pair().astype(dtype)
+    ag = a.with_data(a.data.to(dev))
+    n = a.nblkrows
+    lim = {"rows": (n // 4, 3 * n // 4), "cols": (n // 4, 3 * n // 4),
+           "k": (n // 4, 3 * n // 4)}
+    counter = tile_stack_matmul_panel if dtype == torch.float32 else tile_stack_matmul_f64
+    with config_override(tile_size=16, matmul_precision="highest"):
+        ref = dtt.multiply("N", "T", 1.0, a, a, 0.5, a, limits=lim)
+        before = counter.launches
+        got = dtt.multiply("N", "T", 1.0, ag, ag, 0.5, ag, limits=lim)
+        assert counter.launches == before + 1
+    assert got.data.is_cuda
+    np.testing.assert_array_equal(got.index.col_idx, ref.index.col_idx)
+    assert rel_err(got.data, ref.data) <= (RTOL_F64 if dtype == torch.float64 else RTOL)
+
+
+@pytest.mark.parametrize("driver,dtype", [("auto", torch.float32), ("stack", torch.float32),
+                                          ("auto", torch.float64)])
+def test_retiled_executors_match_tile_128(dev, driver, dtype):
+    """The product at T = 64 (retiled operands) against the product at T =
+    128: the same block index, so the flat data compares."""
+    a = _banded_pair(rows=6000, tile=128, seed=3).astype(dtype)
+    ag = a.with_data(a.data.to(dev))
+    with config_override(matmul_precision="highest", mm_driver=driver):
+        f128, c_index, _ = dtt.build_multiply_executor("N", "N", ag, ag)
+        r64 = dtt.retile(ag, 64)
+        assert torch.equal(dtt.retile(r64, 128).data, ag.data)
+        f64, c64, _ = dtt.build_multiply_executor("N", "N", r64, r64)
+        out128, out64 = f128(ag.data, ag.data), f64(r64.data, r64.data)
+    np.testing.assert_array_equal(c64.col_idx, c_index.col_idx)
+    flat = [dtt.BCSRMatrix(name="C", index=ci, data=o).flat_host()
+            for ci, o in ((c_index, out128), (c64, out64))]
+    tol = RTOL_F64 if dtype == torch.float64 else 1e-4
+    assert np.abs(flat[1] - flat[0]).max() <= tol * np.abs(flat[0]).max()
+
+
+def test_checkpoint_of_a_card_matrix(dev, tmp_path):
+    a = _banded_pair(seed=4).astype(torch.float64)
+    ag = a.with_data(a.data.to(dev))
+    dtt.binary_write(ag, str(tmp_path / "a.bin"))
+    with config_override(tile_size=16):
+        back = dtt.binary_read(str(tmp_path / "a.bin"), device=dev)
+        csr_back = dtt.from_csr(dtt.to_csr(ag), a.row_block_sizes, a.col_block_sizes,
+                                device=dev, name=a.name)
+    assert back.data.is_cuda and torch.equal(back.data, ag.data)
+    assert dtt.checksum(back, pos=True) == dtt.checksum(a, pos=True)
+    assert csr_back.data.is_cuda and torch.equal(csr_back.data, ag.data)
+
+
+def test_validate_kernels_and_self_tests_on_the_card(dev):
+    from dbcsr_tpu_torch import testing
+
+    assert testing.validate_kernels(dev, verbose=True) is True
+    assert testing.validate_kernels(dev, tile=64) is True
+    assert testing.run_tests(dev) is True
+
+
+def test_device_memory_stats_follow_torch(dev):
+    from dbcsr_tpu_torch.core.machine import device_memory_stats
+
+    x = torch.empty(1 << 20, device=dev)
+    stats = device_memory_stats(dev)
+    assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(dev)
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated(dev)
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(dev).total_memory
+    assert device_memory_stats() is not None
+    del x

@@ -479,7 +479,7 @@ def test_import_does_not_load_jax():
 
 
 @pytest.mark.parametrize("what", [
-    "xla", "f64_slices", "limits", "dist", "k_dist", "complex",
+    "xla", "f64_slices", "dist", "k_dist", "complex",
 ])
 def test_unported_options_raise(what):
     _, at = pair("random", 13, np.float64, 8)
@@ -488,8 +488,6 @@ def test_unported_options_raise(what):
         cfg["mm_driver"] = what
     elif what == "f64_slices":
         cfg["f64_slices"] = 4
-    elif what == "limits":
-        kw["limits"] = {"rows": (0, 1)}
     elif what in ("dist", "k_dist"):
         kw[what] = object()
     elif what == "complex":
