@@ -32,7 +32,12 @@ Phases (any failure exits non-zero before the final line):
    store: split C runs joined by the ordered segment sum, the kernel writing
    the store past padding rows, and C slots that no row produces, which must
    be zero in a store on NaN-filled memory; ``runlen`` 2 and 4 with all
-   three tiers, the clamped last group); then K5 and K3 as Jobs of the
+   three tiers, the clamped last group); KC1 and KC2 (the complex64 and
+   complex128 flat-stack kernels) at T=128/64/32/16 on runs of 48, runs of
+   1, ragged runs, runs with empty C tiles first, last and in a row, a
+   banded stack and (T=128) slots past 2³¹ elements, against their plain
+   version and a host complex128 recomputation, two launches bitwise equal;
+   then K5 and K3 as Jobs of the
    pipelined routines (T=128/64): K5 on bands with holes planned over every
    band position of C, so that runs lose their first cell, their last,
    several in a row and every cell (a zero tile), in float32, bf16 and
@@ -95,9 +100,11 @@ Phases (any failure exits non-zero before the final line):
 10. the library yardstick: ``torch.sparse.mm`` (CSR × CSR, cuSPARSE
     SpGEMM), the one PyTorch call that computes the same product, beside
     the executor at 40,000 and 400,000 rows of the banded SCF shape, with
-    phase 4's float32 operands and phase 7's float64 operands; where
-    cuSPARSE refuses the product for want of resources, ``library_ms`` is
-    null; any other error fails the run.
+    phase 4's float32 operands, phase 7's float64 operands and phase 13's
+    complex ones, and at 40,000 rows each kernel that computes the product
+    (K1-K5 in float32) timed alone; where cuSPARSE refuses the product for
+    want of resources, ``library_ms`` is null; any other error fails the
+    run.
 11. the block-sparse tensor contraction through the TAS and tensor layers:
     shape R, an RI-type 3-center contraction C(μ,ν,Q) = Σ_P A(μ,ν,P)·B(P,Q)
     over a chain of 450 atoms (``ri_pattern``), in float32 (the panel route,
@@ -129,12 +136,27 @@ Phases (any failure exits non-zero before the final line):
     ``device_memory_stats`` against ``torch.cuda.max_memory_allocated``.
     Every leg holds the launch counters to the kernel its route names (none
     for the checkpoint, the CSR exchange and the dense path).
+13. complex matrices, after phase 12 and before phase 10: (a) the banded
+    SCF operands at 400,000 rows in complex64 and complex128 through
+    ``build_multiply_executor`` under ``auto`` (route ``c_stack``; KC1 /
+    KC2 the only launches of the main-path run), two calls bitwise equal,
+    against the plain version, a host complex128 recomputation of 64
+    sampled tiles and the TPU's schedule of four real products through K1 /
+    the float64 kernel on split planes, with CUDA-event medians of each and
+    the kernel's bound (8·T³ real flops a tile product); (b) a Hermitian A
+    (``sym="H"``), ``transa="C"``, alpha 0.5+0.25j and beta 1j on a complex
+    C, one-shot and executor, against a host recomputation of 256 sampled
+    blocks; (c) the complex128 filtered step (phase 7's decay and eps),
+    ``compact()`` equal to the one-shot ``multiply(filter_eps=...)``; (d)
+    shape R in complex128 through ``BatchedContract``; (e) the H2O recipe as
+    data type 7 through ``perf.run_perf`` (dense route), its checksum against
+    a host complex128 recomputation.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
-The kernel summary is one JSON line (six kernels; ``bound_ms`` is computed
-from this run's tile and product counts against NVIDIA's H100 SXM data-sheet
-peaks), then the ``nvidia-smi`` line, then the final line
-``{"ok": true, "device": {...}}``.
+The kernel summary is one JSON line (eight kernels: the six ports of the
+TPU's kernels and KC1, KC2; ``bound_ms`` is computed from this run's tile
+and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
+``nvidia-smi`` line, then the final line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -238,9 +260,14 @@ def log(msg: str) -> None:
 def rel_err(got, ref) -> tuple:
     """(max |got - ref|, that over max |ref|), taken in float64 over slices
     of the leading dimension so that two stores of several GB need no
-    float64 copies of their own; (inf, inf) if ``got`` is not finite."""
+    float64 copies of their own (complex stores: over their real and
+    imaginary parts); (inf, inf) if ``got`` is not finite."""
     import torch
 
+    if got.is_complex():
+        got = torch.view_as_real(got.resolve_conj())
+    if ref.is_complex():
+        ref = torch.view_as_real(ref.resolve_conj())
     if got.shape != ref.shape:
         return float("inf"), float("inf")
     if got.dim() == 0 or got.numel() == 0:
@@ -620,15 +647,18 @@ def phase_kernels(dev) -> dict:
 
 def host_f64_tiles(a, b, stack: np.ndarray, c_slots, in_dtype=None) -> np.ndarray:
     """C tiles ``c_slots`` of the product of a c-sorted stack, recomputed on
-    the host in float64 from the stores on the card, each first rounded to
-    the kernel's input dtype ``in_dtype`` (so the bound is the kernel's
-    accumulation alone)."""
+    the host in float64 (complex128 for complex stores) from the stores on
+    the card, each first rounded to the kernel's input dtype ``in_dtype``
+    (so the bound is the kernel's accumulation alone)."""
+    import torch
+
+    wide = torch.complex128 if a.is_complex() else torch.float64
     lo = np.searchsorted(stack[:, 0], c_slots, side="left")
     hi = np.searchsorted(stack[:, 0], c_slots, side="right")
     out = []
     for e0, e1 in zip(lo, hi):
         ga, gb = (m[stack[e0:e1, j].astype(np.int64)].to(in_dtype or m.dtype)
-                  .double().cpu().numpy() for m, j in ((a, 1), (b, 2)))
+                  .to(wide).cpu().numpy() for m, j in ((a, 1), (b, 2)))
         out.append(np.einsum("eik,ekj->ij", ga, gb))
     return np.stack(out)
 
@@ -682,6 +712,90 @@ def phase_kernels_f64(dev) -> float:
                 fail(f"the float64 kernel disagrees ({label}, T={tile})")
         del a, b
         torch.cuda.empty_cache()
+    return worst
+
+
+def gappy_stack(rng, n_c: int, n_a: int, n_b: int, run: int = 4):
+    """Runs of ``run`` entries, but the first C tile, the last and five in a
+    row in the middle have none (their product is a zero tile)."""
+    runs = np.full(n_c, run)
+    runs[[0, n_c - 1]] = 0
+    runs[n_c // 2: n_c // 2 + 5] = 0
+    c = np.repeat(np.arange(n_c, dtype=np.int32), runs)
+    return np.stack(
+        [c, rng.integers(0, n_a, len(c)).astype(np.int32),
+         rng.integers(0, n_b, len(c)).astype(np.int32)], axis=1,
+    )
+
+
+#: the complex stack kernels' bounds against their plain version and a host
+#: complex128 recomputation: each complex sum is four real sums of the
+#: float32 (complex64) or float64 (complex128) kernel's length and type, so
+#: the float32 and float64 bounds carry over
+C_RTOL = {"complex64": KERNEL_RTOL, "complex128": F64_RTOL}
+
+
+def phase_kernels_complex(dev) -> dict:
+    """KC1 (complex64) and KC2 (complex128) at T = 128, 64, 32 and 16 on
+    runs of 48, runs of 1, ragged runs, runs with empty C tiles first, last
+    and five in a row, a banded stack and (T = 128) tile offsets past 2³¹
+    elements: each against its plain version and a host complex128
+    recomputation of sampled C tiles, and bitwise against a second launch.
+    Returns the worst absolute error of each kernel."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.c_stack import (
+        tile_stack_matmul_c64, tile_stack_matmul_c128, tile_stack_matmul_c_plain,
+    )
+    from dbcsr_tpu_torch.mm.kernels import device_stack
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    worst = {"KC1": 0.0, "KC2": 0.0}
+    bstack, n_band = banded_tile_stack(mt=40, w=2)
+    n_st = max(96, n_band)
+    for kname, dtype, kernel in (("KC1", torch.complex64, tile_stack_matmul_c64),
+                                 ("KC2", torch.complex128, tile_stack_matmul_c128)):
+        tname = str(dtype)[6:]
+        for tile in (128, 64, 32, 16):
+            a = torch.randn((n_st, tile, tile), generator=gen, device=dev, dtype=dtype)
+            b = torch.randn((n_st, tile, tile), generator=gen, device=dev, dtype=dtype)
+            cases = [("runs of 48", long_run_stack(rng, n_c=32, run=48, n_a=96, n_b=96), 32),
+                     ("runs of 1", long_run_stack(rng, n_c=64, run=1, n_a=96, n_b=96), 64),
+                     ("ragged", ragged_stack(rng, 53, 96, 96), 53),
+                     ("empty runs", gappy_stack(rng, 40, 96, 96), 40),
+                     ("banded", bstack, n_band)]
+            if tile == 128:  # last: it swaps the stores for one past 2³¹ elements
+                cases.append(("far slots", far_stack(rng, 21, 3), 21))
+            for label, st, n_c in cases:
+                if label == "far slots":
+                    del a, b
+                    a = torch.empty((FAR_TILES, 128, 128), device=dev, dtype=dtype)
+                    a[-128:] = torch.randn((128, 128, 128), generator=gen, device=dev,
+                                           dtype=dtype)
+                    b = a
+                ds = device_stack(st, n_c, dev)
+                got = kernel(a, b, ds)
+                again = kernel(a, b, ds)
+                ref = tile_stack_matmul_c_plain(a, b, ds)
+                sync(dev)
+                if got.dtype != dtype or tuple(got.shape) != (n_c, tile, tile):
+                    fail(f"{kname} output {tuple(got.shape)} {got.dtype}")
+                err, rel = rel_err(torch.view_as_real(got), torch.view_as_real(ref))
+                picks = np.sort(rng.choice(n_c, size=6, replace=False))
+                hrel = rel_err(torch.view_as_real(got[picks].cpu()), torch.view_as_real(
+                    torch.as_tensor(host_f64_tiles(a, b, st, picks))))[1]
+                worst[kname] = max(worst[kname], err)
+                same = bool(torch.equal(got, again))
+                log(f"  {kname} T={tile} {tname:10s} {label:10s} S={len(st):5d} "
+                    f"max_abs_err={err:.3e} rel={rel:.2e}; vs host complex128 (6 tiles) "
+                    f"rel={hrel:.2e} (bound {C_RTOL[tname]:.0e}); two launches bitwise "
+                    f"equal: {same}")
+                if not (rel <= C_RTOL[tname] and hrel <= C_RTOL[tname] and same):
+                    fail(f"{kname} disagrees ({label}, T={tile})")
+            del a, b
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -998,7 +1112,8 @@ def banded_scf_matrices(nrows: int, dev, seed: int = 0, *, dtype=None,
     ``decay``, every element of block (bi, bj) is scaled by
     exp(-decay·|bi-bj|) as in bench.py's filtered configuration.
     Returns A, B = A·0.5 and ``n_variants`` A stores (the first is A's;
-    the others are new draws over the same pattern)."""
+    the others are new draws over the same pattern). A complex ``dtype``
+    draws complex normal data (real and imaginary parts of variance 1/2)."""
     import torch
 
     import dbcsr_tpu_torch as dt
@@ -1016,7 +1131,8 @@ def banded_scf_matrices(nrows: int, dev, seed: int = 0, *, dtype=None,
     lay = store_layout(idx, 128)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    scale = valid_mask(idx, 128, dev).to(dtype)
+    real = dtype.to_real()  # the scale's type: real for complex data
+    scale = valid_mask(idx, 128, dev).to(real)
     if decay:
         offs = np.concatenate(([0], np.cumsum(rbs.astype(np.int64))))
         blk_of = torch.as_tensor(
@@ -1026,7 +1142,7 @@ def banded_scf_matrices(nrows: int, dev, seed: int = 0, *, dtype=None,
         ec = np.minimum(lay.tile_coords[:, 1, None].astype(np.int64) * 128 + ar, offs[-1] - 1)
         bi = blk_of[torch.as_tensor(er, device=dev)]
         bj = blk_of[torch.as_tensor(ec, device=dev)]
-        scale = scale * torch.exp(-decay * (bi[:, :, None] - bj[:, None, :]).abs().to(dtype))
+        scale = scale * torch.exp(-decay * (bi[:, :, None] - bj[:, None, :]).abs().to(real))
         del bi, bj
     stores = []
     for _ in range(n_variants):
@@ -1042,6 +1158,7 @@ def plain_of(plan, a_data, b_data):
     import torch
 
     from dbcsr_tpu_torch.mm.band import band_matmul_plain
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c_plain
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64_plain
     from dbcsr_tpu_torch.mm.kernels import (
         tile_stack_matmul_grouped_plain, tile_stack_matmul_plain,
@@ -1056,6 +1173,8 @@ def plain_of(plan, a_data, b_data):
     acc = torch.float64 if plan.in_dtype == torch.float64 else torch.float32
     if plan.route == "f64_stack":
         return tile_stack_matmul_f64_plain(a_in, b_in, plan.stack)
+    if plan.route == "c_stack":
+        return tile_stack_matmul_c_plain(a_in, b_in, plan.stack)
     if plan.route == "panel":
         return tile_stack_matmul_panel_plain(a_in, b_in, plan.panel.plan, out_dtype=acc)
     if plan.route == "panel_runs":
@@ -1217,6 +1336,7 @@ def kernel_of(plan):
     import torch
 
     from dbcsr_tpu_torch.mm.band import band_matmul
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
     from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul, tile_stack_matmul_grouped
     from dbcsr_tpu_torch.mm.panel import (
@@ -1227,6 +1347,8 @@ def kernel_of(plan):
     acc = torch.float64 if plan.in_dtype == torch.float64 else torch.float32
     if plan.route == "f64_stack":
         return lambda x, y: tile_stack_matmul_f64(x, y, plan.stack)
+    if plan.route == "c_stack":
+        return lambda x, y: tile_stack_matmul_c(x, y, plan.stack)
     if plan.route == "panel":
         return lambda x, y: tile_stack_matmul_panel(x, y, plan.panel, out_dtype=acc)
     if plan.route == "panel_runs":
@@ -1320,6 +1442,7 @@ def phase_steady_state(dev) -> None:
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper (each counts its launches), by kernel."""
     from dbcsr_tpu_torch.mm.band import band_matmul
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
     from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
     from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul, tile_stack_matmul_grouped
     from dbcsr_tpu_torch.mm.panel import (
@@ -1328,7 +1451,8 @@ def kernel_wrappers() -> dict:
 
     return {"K1": tile_stack_matmul, "K2": tile_stack_matmul_panel,
             "K3": tile_stack_matmul_panel_runs, "K4": tile_stack_matmul_grouped,
-            "K5": band_matmul, "K6": tile_stack_matmul_f64}
+            "K5": band_matmul, "K6": tile_stack_matmul_f64,
+            "KC1": tile_stack_matmul_c64, "KC2": tile_stack_matmul_c128}
 
 
 def reset_launches() -> None:
@@ -2041,18 +2165,21 @@ def bench_tensor_pair(n_rows: int, dev, seed: int = 0):
             folded_tensor("B", [k_bs, l_bs], lb, b_idx, dev, torch.float32, gen))
 
 
-def sampled_block_check(c, a, b, n_samples: int = 256, seed: int = 1) -> tuple:
-    """float64 host recomputation of sampled blocks of C = A·B (folded
-    matrices, all 'N') from the host blocks of A and B: (max |C - ref|,
-    that over max |ref|)."""
+def sampled_block_check(c, a, b, n_samples: int = 256, seed: int = 1, *,
+                        alpha=1.0, beta=0.0, c_in=None) -> tuple:
+    """float64 (complex128 for complex data) host recomputation of sampled
+    blocks of C = alpha·A·B + beta·C_in (folded matrices, all 'N') from the
+    host blocks of A and B (and C_in): (max |C - ref|, that over max
+    |ref|)."""
     a_flat, b_flat = a.flat_host(), b.flat_host()
+    wide = np.complex128 if np.iscomplexobj(a_flat) or np.iscomplexobj(b_flat) else np.float64
     ai, bi = a.index, b.index
     picks = np.sort(np.random.default_rng(seed).choice(
         c.nblks, size=min(n_samples, c.nblks), replace=False))
     err = scale = 0.0
     for p in picks:
         i, j = int(c.index.blk_rows[p]), int(c.index.col_idx[p])
-        ref = np.zeros((int(c.row_block_sizes[i]), int(c.col_block_sizes[j])))
+        ref = np.zeros((int(c.row_block_sizes[i]), int(c.col_block_sizes[j])), dtype=wide)
         for ab in range(int(ai.row_ptr[i]), int(ai.row_ptr[i + 1])):
             k = int(ai.col_idx[ab])
             bb = bi.block_id(k, j)
@@ -2062,7 +2189,11 @@ def sampled_block_check(c, a, b, n_samples: int = 256, seed: int = 1) -> tuple:
                 int(ai.row_block_sizes[i]), int(ai.col_block_sizes[k]))
             bblk = b_flat[bi.blk_offset[bb]:bi.blk_offset[bb + 1]].reshape(
                 int(bi.row_block_sizes[k]), int(bi.col_block_sizes[j]))
-            ref += ablk.astype(np.float64) @ bblk.astype(np.float64)
+            ref += ablk.astype(wide) @ bblk.astype(wide)
+        ref = alpha * ref
+        old = c_in.get_block(i, j) if c_in is not None else None
+        if old is not None:
+            ref = ref + beta * old.astype(wide)
         got = c.get_block(i, j)
         if got is None or not np.isfinite(got).all():
             return float("inf"), float("inf")
@@ -2624,16 +2755,20 @@ def perf_reference_checksum(cfg, seed: int = 0) -> float:
     a, b, c, limits = perf_operands(cfg, device=torch.device("cpu"), seed=seed)
     if limits or cfg.retain_sparsity:
         fail("12e: the host recomputation covers plain products only")
-    da = dt.to_csr(a).toarray().astype(np.float64)
-    db = dt.to_csr(b).toarray().astype(np.float64)
-    da = da.T if cfg.transa in ("T", "C") else da
-    db = db.T if cfg.transb in ("T", "C") else db
-    ref = cfg.alpha.real * (da @ db)
+    cplx = a.dtype.is_complex  # complex128 then, with complex alpha/beta
+    wide = np.complex128 if cplx else np.float64
+    alpha, beta = (cfg.alpha, cfg.beta) if cplx else (cfg.alpha.real, cfg.beta.real)
+
+    def op(m, trans):
+        d = dt.to_csr(m).toarray().astype(wide)
+        return d.conj().T if trans == "C" else d.T if trans == "T" else d
+
+    ref = alpha * (op(a, cfg.transa) @ op(b, cfg.transb))
     if c is not None:
-        ref += cfg.beta.real * dt.to_csr(c).toarray().astype(np.float64)
+        ref += beta * dt.to_csr(c).toarray().astype(wide)
     w = np.log(np.arange(1, ref.shape[0] + 1, dtype=np.float64))[:, None] + np.log(
         np.arange(1, ref.shape[1] + 1, dtype=np.float64))[None, :]
-    return float((ref * w).sum())
+    return float((ref.real * w).sum())
 
 
 def phase_perf_recipes(dev) -> None:
@@ -2729,6 +2864,322 @@ def phase_host_api(dev, card: str) -> None:
 # the library yardstick: one PyTorch call for the same product
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: complex matrices (KC1 complex64, KC2 complex128)
+# ---------------------------------------------------------------------------
+
+#: phase 13: each complex type, its kernel, and the real type of its parts
+#: (the four-real-products yardstick runs K1 / the float64 kernel on them)
+C_TYPES = (("complex64", "KC1", "float32"), ("complex128", "KC2", "float64"))
+#: phase 13b: the coefficients of the Hermitian leg
+ALPHA_13B, BETA_13B = 0.5 + 0.25j, 1j
+
+
+def complex_bound(counts: tuple, tile: int, tname: str) -> tuple:
+    """The least time (ms) the card could take for a complex stack product:
+    the larger of its compulsory bytes (each A and B tile read once, each C
+    tile written once; 8 or 16 bytes an element) over the HBM rate and its
+    real flops (8·T³ a tile product) over the peak of its parts' type."""
+    n_a, n_b, n_c, n_products = counts
+    size = 8 if tname == "complex64" else 16
+    t_bytes = (n_a + n_b + n_c) * size * tile * tile / HBM_BYTES_PER_S * 1e3
+    peak = PEAK_FLOPS["float32" if tname == "complex64" else "float64"]
+    t_ops = 8.0 * n_products * tile**3 / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def four_real_products(plan, rname: str):
+    """The TPU's schedule for a complex product (dbcsr_tpu/ops/complex_emu.py,
+    emu_multiply): split A and B into real and imaginary planes, four real
+    products on the plan's stack through K1 (float32 parts) or the float64
+    kernel (float64 parts), then combine. Returns ``run(a_store, b_store)``,
+    the product tiles in the plan's order."""
+    import torch
+
+    from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
+    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
+
+    ds = plan.stack
+    real_kernel = tile_stack_matmul if rname == "float32" else tile_stack_matmul_f64
+
+    def run(a, b):
+        ar, ai = a.real.contiguous(), a.imag.contiguous()
+        br, bi = b.real.contiguous(), b.imag.contiguous()
+        re = real_kernel(ar, br, ds).sub_(real_kernel(ai, bi, ds))
+        im = real_kernel(ar, bi, ds).add_(real_kernel(ai, br, ds))
+        return torch.complex(re, im)
+
+    return run
+
+
+def phase_complex_main(dev) -> tuple:
+    """13a: the banded SCF operands at MAIN_ROWS rows in complex64 and
+    complex128 through ``build_multiply_executor`` under ``auto``: route
+    ``c_stack``, KC1 / KC2 the only launches of the main-path run, two calls
+    bitwise equal, against the plain version (every tile), a host
+    complex128 recomputation of 64 sampled tiles and the four-real-products
+    schedule; CUDA-event medians of the kernel, the executor, the plain
+    version and the yardstick. Returns ({kernel: row}, the complex128
+    operands and product for 13b)."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import take_tiles
+
+    rows, keep = {}, None
+    for tname, kname, rname in C_TYPES:
+        dtype = getattr(torch, tname)
+        rtol = C_RTOL[tname]
+        t0 = time.perf_counter()
+        a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=dtype)
+        sync(dev)
+        t_set = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b)
+        plan, tp = fn.plan, fn.plan.tile_plan
+        n_c = store_layout(c_index, 128).n_tiles
+        log(f"  13a {tname}: A/B {a.data.shape[0]} tiles "
+            f"({a.data.numel() * a.data.element_size() / 1e9:.2f} GB each), set-up "
+            f"{t_set:.1f} s; executor (auto) route={plan.route}, S={len(tp.stack)}, planned "
+            f"C tiles {tp.n_c_tiles} (C index {n_c}), plan {time.perf_counter() - t0:.1f} s")
+        if plan.route != "c_stack":
+            fail(f"13a {tname}: auto took route {plan.route}, expected c_stack")
+
+        # --- the main-path run: counts set to 0 just before, read just after
+        reset_launches()
+        out = fn(a.data, b.data)
+        sync(dev)
+        launched = {k: n for k, n in read_launches().items() if n}
+        log(f"  13a {tname} main-path launches: {launched}")
+        if launched != {kname: 1}:
+            fail(f"13a {tname}: launches {launched}, expected {kname} once and no other")
+        if tuple(out.shape) != (n_c, 128, 128) or out.dtype != dtype:
+            fail(f"13a {tname}: output {tuple(out.shape)} {out.dtype}")
+        same = bool(torch.equal(out, fn(a.data, b.data)))
+        ref = take_tiles(plain_of(plan, a.data, b.data),
+                         plan.align_map(store_layout(c_index, 128).tile_keys()), 128)
+        err, rel = rel_err(out, ref)
+        del ref
+        serr, srel = sampled_f64_check(plan, out, c_index, a.data, b.data)
+        kern = kernel_of(plan)
+        four = four_real_products(plan, rname)
+        yerr, yrel = rel_err(four(a.data, b.data), kern(a.data, b.data))
+        sync(dev)
+        log(f"  13a {tname}: two calls bitwise equal {same}; vs plain max_abs_err={err:.3e} "
+            f"rel={rel:.2e}; vs host complex128 (64 tiles) rel={srel:.2e}; four real "
+            f"products ({'K1' if rname == 'float32' else 'the float64 kernel'} on split "
+            f"planes) vs {kname} rel={yrel:.2e} (bound {rtol:.0e})")
+        if not (same and rel <= rtol and srel <= rtol and yrel <= rtol):
+            fail(f"13a {tname}: {kname} disagrees with its references")
+
+        # plain, kernel, executor, yardstick, kernel, yardstick, plain: one call
+        p1 = cuda_median_ms(lambda: plain_of(plan, a.data, b.data), reps=3, warmup=1)
+        k1 = cuda_median_ms(lambda: kern(a.data, b.data), reps=10)
+        ex = cuda_median_ms(lambda: fn(a.data, b.data), reps=10)
+        y1 = cuda_median_ms(lambda: four(a.data, b.data), reps=10)
+        k2 = cuda_median_ms(lambda: kern(a.data, b.data), reps=10)
+        y2 = cuda_median_ms(lambda: four(a.data, b.data), reps=10)
+        p2 = cuda_median_ms(lambda: plain_of(plan, a.data, b.data), reps=3, warmup=1)
+        km, pm, ym = (float(np.median(x)) for x in ((k1, k2), (p1, p2), (y1, y2)))
+        counts = (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))
+        bound_ms, bound_by = complex_bound(counts, 128, tname)
+        flop = 8.0 * len(tp.stack) * 128**3
+        log(f"  13a {tname}: {kname} {km:.3f} ms (runs {k1:.3f}/{k2:.3f}) = "
+            f"{flop / km / 1e9:.1f} TFLOP/s, bound {bound_ms:.3f} ms by {bound_by}: "
+            f"{bound_ms / km:.1%} of it; executor {ex:.3f} ms; plain {pm:.3f} ms; four real "
+            f"products {ym:.3f} ms (runs {y1:.3f}/{y2:.3f}, {ym / km:.2f}x {kname}); "
+            f"executor {eff / ex / 1e6:.1f} effective GFLOP/s (block-level 2·m·n·k)")
+        rows[kname] = {"launches": 1, "max_abs_err": err, "ms": km, "plain_ms": pm,
+                       "exec_ms": ex, "four_ms": ym, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        if tname == "complex128":
+            keep = (a, b, dt.BCSRMatrix(name="C", index=c_index, data=out))
+        else:
+            del out
+        del a, b, fn, plan, tp
+        torch.cuda.empty_cache()
+    return rows, keep
+
+
+def phase_complex_hermitian(dev, a, b, c_in) -> None:
+    """13b: a Hermitian A (``sym="H"``: the upper block triangle of 13a's
+    complex128 A, its diagonal made real), ``transa="C"``, alpha = 0.5+0.25j
+    and beta = 1j on a complex C (13a's product): the one-shot ``multiply``
+    and the executor (KC2 the only launches of each), against each other
+    and a host complex128 recomputation of 256 sampled blocks."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.block.tileops import coord_mask
+
+    h = dt.fold_symmetric(a, "H")
+    diag = coord_mask(h.layout, lambda r, c: r == c, dev)
+    h = h.with_data(torch.where(diag, h.data.real.to(h.dtype), h.data))
+    del diag
+    hf = dt.desymmetrize(h)
+    t0 = time.perf_counter()
+    before = read_launches()
+    out = dt.multiply("C", "N", ALPHA_13B, h, b, BETA_13B, c_in)
+    sync(dev)
+    t_one = time.perf_counter() - t0
+    expect_launches("13b one-shot multiply", before, "KC2")
+    fn, c_index, _ = dt.build_multiply_executor("C", "N", h, b)
+    if fn.plan.route != "c_stack" or not fn.plan.a_conj:
+        fail(f"13b: the executor took route {fn.plan.route}, a_conj {fn.plan.a_conj}")
+    before = read_launches()
+    prod = fn(hf.data, b.data)
+    sync(dev)
+    expect_launches("13b executor", before, "KC2")
+    via = dt.add(ALPHA_13B, dt.BCSRMatrix(name="P", index=c_index, data=prod), BETA_13B, c_in)
+    same_result("13b executor + add vs one-shot multiply", via, out, F64_RTOL)
+    del via, prod
+    ah = dt.transpose(hf, conjugate=True)
+    serr, srel = sampled_block_check(out, ah, b, alpha=ALPHA_13B, beta=BETA_13B, c_in=c_in)
+    log(f"  13b H ({h.nblks} stored blocks, {hf.nblks} expanded), 'C','N', alpha "
+        f"{ALPHA_13B}, beta {BETA_13B}: C {out.nblks} blocks; one-shot {t_one:.1f} s; vs "
+        f"host complex128 (256 blocks) max_abs_err={serr:.3e} rel={srel:.2e} "
+        f"(bound {F64_RTOL:.0e})")
+    if not srel <= F64_RTOL:
+        fail("13b: the Hermitian product disagrees with the host recomputation")
+
+
+def phase_complex_filtered(dev) -> None:
+    """13c: the complex128 filtered SCF step (phase 7's decay and eps) on
+    the banded shape: KC2 the only launch of the step, the kept share equal
+    to the one-shot ``multiply(filter_eps=...)``'s and ``compact()`` equal
+    to it element for element (the same kernel on the same stack)."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=torch.complex128, decay=DECAY)
+    t0 = time.perf_counter()
+    ex = dt.build_filtered_executor("N", "N", a, b, FILTER_EPS)
+    sync(dev)
+    t_plan = time.perf_counter() - t0
+    if ex.fn.plan.route != "c_stack":
+        fail(f"13c: the filtered executor took route {ex.fn.plan.route}")
+    reset_launches()
+    c, keep, _ = ex.step(a.data, b.data)
+    sync(dev)
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched != {"KC2": 1}:
+        fail(f"13c: the step launched {launched}, expected KC2 once and no other")
+    one_s = []
+    for _ in range(2):  # cold (plans the pattern), then warm
+        t0 = time.perf_counter()
+        one = dt.multiply("N", "N", 1.0, a, b, filter_eps=FILTER_EPS)
+        sync(dev)
+        one_s.append(time.perf_counter() - t0)
+    comp = ex.compact(c, keep)
+    kept = int(keep.sum())
+    same_index = (np.array_equal(one.index.row_ptr, comp.index.row_ptr)
+                  and np.array_equal(one.index.col_idx, comp.index.col_idx))
+    equal = same_index and bool(torch.equal(comp.data, one.data))
+    ms = cuda_median_ms(lambda: ex.step(a.data, b.data), reps=10)
+    log(f"  13c complex128 filtered step: kept {kept} of {ex.c_index.nblks} blocks (share "
+        f"{kept / ex.c_index.nblks:.4f}), one-shot kept {one.nblks}; compact() equal to the "
+        f"one-shot element for element: {equal}; step {ms:.3f} ms (CUDA-event median), plan "
+        f"{t_plan:.1f} s, one-shot {one_s[0]:.2f} s cold, {one_s[1]:.3f} s warm")
+    if not (kept == one.nblks and equal and 0 < kept < ex.c_index.nblks):
+        fail("13c: the filtered step disagrees with the one-shot filtered multiply")
+
+
+def phase_complex_tensor(dev) -> None:
+    """13d: shape R in complex128 through ``BatchedContract`` (KC2 the only
+    launches), bitwise equal to the folded 2-D executor, against the
+    kernel's plain version and a host complex128 recomputation of 256
+    sampled blocks."""
+    import torch
+
+    from dbcsr_tpu_torch.tensors import BatchedContract
+
+    t0 = time.perf_counter()
+    a, b = ri_tensors(TENSOR_ATOMS, dev, torch.complex128)
+    sync(dev)
+    ma, mb = a.matrix, b.matrix
+    t_set = time.perf_counter() - t0
+    reset_launches()
+    batch = BatchedContract()
+    out = batch.contract(a, b, **R_KW)
+    sync(dev)
+    launched = {k: n for k, n in read_launches().items() if n}
+    if set(launched) != {"KC2"}:
+        fail(f"13d: BatchedContract launched {launched}, expected KC2 only")
+    (fn, _, _), = batch._tas._cache.values()
+    if fn.plan.route != "c_stack" or not torch.equal(out.matrix.data, fn(ma.data, mb.data)):
+        fail(f"13d: route {fn.plan.route}, or BatchedContract and the folded executor differ")
+    kern, a_in, b_in = kernel_vs_plain("13d KC2", fn.plan, ma.data, mb.data, F64_RTOL)
+    serr, srel = sampled_block_check(out.matrix, ma, mb)
+    ms = cuda_median_ms(lambda: batch.contract(a, b, **R_KW), reps=10)
+    kms = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
+    tp = fn.plan.tile_plan
+    bound_ms, by = complex_bound((ma.data.shape[0], mb.data.shape[0], tp.n_c_tiles,
+                                  len(tp.stack)), 128, "complex128")
+    log(f"  13d shape R complex128 ({TENSOR_ATOMS} atoms, set-up {t_set:.1f} s): launches "
+        f"{launched}; S={len(tp.stack)}; vs host complex128 (256 blocks) max_abs_err="
+        f"{serr:.3e} rel={srel:.2e} (bound {F64_RTOL:.0e}); BatchedContract {ms:.3f} ms, "
+        f"KC2 {kms:.3f} ms (bound {bound_ms:.3f} ms by {by}: {bound_ms / kms:.1%})")
+    if not srel <= F64_RTOL:
+        fail("13d: shape R in complex128 disagrees with the host recomputation")
+    batch.finalize()
+
+
+def phase_complex_perf(dev) -> None:
+    """13e: the H2O recipe with data type 7 (complex128) and a complex
+    alpha, written to a temporary file and run as ``python -m
+    dbcsr_tpu_torch.perf`` runs it: the dense route (no stack kernel), its
+    checksum against a host complex128 recomputation."""
+    import tempfile
+
+    from dbcsr_tpu_torch.perf import parse_perf, run_perf
+
+    with open(os.path.join(REPO, "tests", "inputs", "H2O.perf")) as f:
+        lines = f.read().splitlines()
+    at = {line: i for i, line in enumerate(lines) if line.startswith("#")}
+    lines[at["# data type"] + 1] = "7"
+    lines[at["# alpha"] + 2] = "0.5d0"  # alpha = 1 + 0.5i
+    lines = lines[:at["# checksum"]] + ["F"]  # its references are the float64 recipe's
+    with tempfile.NamedTemporaryFile("w", suffix=".perf", delete=False) as f:
+        f.write("\n".join(lines) + "\n")
+        path = f.name
+    try:
+        cfg = parse_perf(path)
+        before = read_launches()
+        t0 = time.perf_counter()
+        res = run_perf(cfg, device=dev, seed=0, verbose=False)
+        secs = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    expect_launches("13e H2O complex128", before, None)
+    ref = perf_reference_checksum(cfg)
+    rel = abs(res["checksum"] - ref) / max(abs(ref), 1e-300)
+    log(f"  13e H2O.perf as data type 7 (alpha {cfg.alpha}, beta {cfg.beta}), nrep "
+        f"{cfg.nrep}: mean {res['mean_time_s'] * 1e3:.3f} ms, best "
+        f"{res['best_time_s'] * 1e3:.3f} ms, steady {res['steady_time_s'] * 1e3:.3f} ms, route "
+        f"{res['route']}; checksum {res['checksum']:.15e} vs host complex128 rel {rel:.2e} "
+        f"(bound 1e-12); {secs:.1f} s")
+    if res["route"] != "dense" or not rel <= 1e-12:
+        fail("13e: the complex128 recipe took another route or its checksum disagrees")
+
+
+def phase_complex(dev) -> dict:
+    """Phase 13: 13a-13e; returns 13a's rows by kernel."""
+    import torch
+
+    rows, (a, b, c) = phase_complex_main(dev)
+    phase_complex_hermitian(dev, a, b, c)
+    del a, b, c
+    torch.cuda.empty_cache()
+    phase_complex_filtered(dev)
+    torch.cuda.empty_cache()
+    phase_complex_tensor(dev)
+    torch.cuda.empty_cache()
+    phase_complex_perf(dev)
+    return rows
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -2751,17 +3202,23 @@ def phase_library(dev, sizes) -> dict:
     """``torch.sparse.mm`` (CSR × CSR) on the banded SCF shape beside the
     port's executor, in one call each way: the only single PyTorch call that
     computes the same product. Float32 operands as phase 4's (K1-K5), then
-    float64 operands as phase 7's (the float64 kernel). It is timed here and
-    used nowhere in the port. Returns {(type name, rows): ms or None}: None
-    where cuSPARSE refuses the product for want of resources (its message
-    is logged); any other error ends the run, and after a refusal the
-    executor must still reproduce its earlier result bitwise."""
+    float64 operands as phase 7's (the float64 kernel), then complex64 and
+    complex128 operands as phase 13's (KC1, KC2). It is timed here and used
+    nowhere in the port. Returns {(type name, rows): ms or None}: None
+    where cuSPARSE refuses the product for want of resources, or refuses a
+    complex type (its message is logged); any other error ends the run, and
+    after a refusal the executor must still reproduce its earlier result
+    bitwise."""
     import torch
 
     import dbcsr_tpu_torch as dt
 
+    def frob2(x):  # |x|_F² (a CSR tensor's values are no strided view: abs() copies)
+        return float((x.abs() if x.is_complex() else x).double().square().sum())
+
     out = {}
-    for dtype, decay in ((torch.float32, 0.0), (torch.float64, DECAY)):
+    for dtype, decay in ((torch.float32, 0.0), (torch.float64, DECAY),
+                         (torch.complex64, 0.0), (torch.complex128, 0.0)):
         name = str(dtype)[6:]
         for nrows in sizes:
             a, b, _ = banded_scf_matrices(nrows, dev, dtype=dtype, decay=decay)
@@ -2775,7 +3232,8 @@ def phase_library(dev, sizes) -> dict:
                 lib = cuda_median_ms(lambda: torch.sparse.mm(ac, bc), reps=3, warmup=1)
             except RuntimeError as e:
                 msg = str(e)
-                if "insufficient resources" not in msg or "cusparseSpGEMM" not in msg:
+                refused = "insufficient resources" in msg and "cusparseSpGEMM" in msg
+                if not (refused or dtype.is_complex):
                     raise
                 # the yardstick's refusal is a result, not the port's
                 sync(dev)
@@ -2786,14 +3244,30 @@ def phase_library(dev, sizes) -> dict:
                 log(f"{head}; torch.sparse.mm fails: {msg.splitlines()[0][:160]}")
             else:
                 c = torch.sparse.mm(ac, bc)
-                got = float(first.double().square().sum())
-                ref = float(c.values().double().square().sum())
+                got, ref = frob2(first), frob2(c.values())
                 log(f"{head}, torch.sparse.mm (CSR x CSR) {lib:.3f} ms "
                     f"({lib / ex:.1f}x the executor), |C|_F² {got:.6e} vs {ref:.6e}")
                 if not abs(got - ref) <= 1e-4 * abs(ref):
                     fail(f"torch.sparse.mm and the executor disagree ({name}, {nrows} rows)")
                 out[(name, nrows)] = lib
                 del c
+            if nrows == sizes[0]:
+                # each kernel that computes this product, alone, at this size
+                legs = ({"K1": {"mm_driver": "stack"}, "K2": {},
+                         "K3": {"mm_driver": "panel", "panel_runlen": 4},
+                         "K4": {"mm_driver": "grouped"}, "K5": {"mm_driver": "band"}}
+                        if dtype == torch.float32 else {"auto": {}})
+                times = []
+                for kname, knobs in legs.items():
+                    with dt.config_override(**knobs):
+                        fk, _, _ = dt.build_multiply_executor("N", "N", a, b)
+                    a_in, b_in = (x.to(fk.plan.in_dtype)
+                                  for x in fk.plan.op_stores(a.data, b.data))
+                    kern = kernel_of(fk.plan)
+                    times.append(f"{kname} ({fk.plan.route}) "
+                                 f"{cuda_median_ms(lambda: kern(a_in, b_in), reps=5):.3f} ms")
+                    del fk, a_in, b_in
+                log(f"    {name}, {nrows} rows, each kernel alone: " + ", ".join(times))
             del a, b, ac, bc, first, fn
             torch.cuda.empty_cache()
     return out
@@ -2865,6 +3339,7 @@ def main() -> int:
     new_err = phase_kernels_new(dev)
     for k, err in phase_kernels_jobs(dev).items():
         new_err[k] = max(new_err[k], err)
+    c_err = phase_kernels_complex(dev)
     if args.quick:
         log("[5] one-shot multiply through the dense path")
         phase_dense(dev)
@@ -2943,6 +3418,17 @@ def main() -> int:
     log(f"[12] took {time.perf_counter() - t12:.1f} s; peak device memory "
         f"{peak_memory(dev) / 1e9:.2f} GB")
 
+    # 13. complex matrices: KC1 and KC2 on the main path, then the Hermitian,
+    # filtered, tensor and .perf legs
+    log(f"[13] complex matrices: complex64 (KC1) and complex128 (KC2) at the banded SCF "
+        f"shape ({MAIN_ROWS} rows), a Hermitian 'C' product, the filtered step, shape R, "
+        f"H2O as data type 7 [{card}]")
+    t13 = time.perf_counter()
+    complex_rows = phase_complex(dev)
+    get_plan_cache().clear()
+    log(f"[13] took {time.perf_counter() - t13:.1f} s; peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")
     torch.cuda.empty_cache()
@@ -2971,6 +3457,15 @@ def main() -> int:
         return entry(kname, source, replaces, r["launches"],
                      max(r["max_abs_err"], new_err[key]), r["ms"], r["plain_ms"], r["counts"])
 
+    def entry13(kname, key, source, replaces, tname):
+        r = complex_rows[key]
+        lib = library[(tname, MAIN_ROWS)]
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": r["launches"], "max_abs_err": max(r["max_abs_err"], c_err[key]),
+                "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+                "bound_ms": round(r["bound_ms"], 4), "bound_by": r["bound_by"],
+                "library_ms": None if lib is None else round(lib, 4)}
+
     r64 = filtered[torch.float64]
     print(json.dumps({"kernels": [
         entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
@@ -2987,6 +3482,10 @@ def main() -> int:
               "dbcsr_tpu/mm/ozaki_panel.py:222", r64["launches"],
               max(f64_err, r64["max_abs_err"]), r64["kernel_ms"], r64["plain_ms"],
               r64["counts"], "float64"),
+        entry13("stack_matmul_c64 (KC1)", "KC1", "dbcsr_tpu_torch/csrc/stack_matmul_c64.cu",
+                "dbcsr_tpu/mm/kernels.py:76", "complex64"),
+        entry13("stack_matmul_c128 (KC2)", "KC2", "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
+                "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

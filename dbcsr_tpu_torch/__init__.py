@@ -6,7 +6,8 @@ tensors, host symbolic planning in numpy, and the local sparse multiply
 ``C := alpha·op(A)·op(B) + beta·C`` — eps-filtered, one-shot or planned
 once (``build_filtered_executor``), with the matrix ops of an SCF loop —
 whose stack products run through hand-written CUDA kernels on an H100
-(``csrc/``, built with nvcc at first use; float32/bfloat16 and float64);
+(``csrc/``, built with nvcc at first use; float32/bfloat16, float64,
+complex64 and complex128);
 over it, the tall-and-skinny layer (``tas/``) and block-sparse tensor
 contraction (``tensors/``) in one process.
 Plain PyTorch versions of the kernels serve CPU tensors and are the

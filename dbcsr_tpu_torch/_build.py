@@ -146,6 +146,11 @@ def kernels() -> ctypes.CDLL:
             lib.dbcsr_torch_stack_matmul_f64.argtypes = [
                 vp, vp, vp, vp, vp, vp, i64, i32, i32, vp,
             ]
+            # KC1 and KC2, the complex64 / complex128 flat stack kernels:
+            # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, device, stream)
+            for fn in (lib.dbcsr_torch_stack_matmul_c64, lib.dbcsr_torch_stack_matmul_c128):
+                fn.restype = i32
+                fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, vp]
             lib.dbcsr_torch_panel_matmul.restype = i32
             # (a, b, c, gstart, a_lo, b_lo, obounds, entries, n_slots, c_win,
             #  tile, dtype, device, stream)

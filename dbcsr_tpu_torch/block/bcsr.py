@@ -12,10 +12,12 @@ Port of ``dbcsr_tpu/block/bcsr.py`` (reference ``dbcsr_type``,
   host only, as the interchange format for assembly and block access
   (``flat_host``/``with_flat``).
 
-Stores are float32, bfloat16 or float64 tensors on any device. Complex
-stores are not ported. Symmetry (``N``/``S``/``A``/``H``) stores only the
-upper block triangle (i <= j); ``to_dense`` and ``ops.desymmetrize``
-expand it.
+Stores are float32, bfloat16, float64, complex64 or complex128 tensors on
+any device (complex interleaved, as torch keeps it; the JAX package splits
+complex into two real planes only where its device cannot hold complex).
+Symmetry (``N``/``S``/``A``/``H``) stores only the upper block triangle
+(i <= j); ``to_dense`` and ``ops.desymmetrize`` expand it, ``H`` as the
+conjugate transpose.
 """
 from __future__ import annotations
 
@@ -43,30 +45,29 @@ _SYMS = (SYM_NONE, SYM_SYMMETRIC, SYM_ANTISYMMETRIC, SYM_HERMITIAN)
 _TORCH_OF_NP = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
 }
+_NP_OF_TORCH = {v: k for k, v in _TORCH_OF_NP.items()}
 
 
 def torch_dtype(dtype) -> torch.dtype:
     """The torch dtype of a numpy or torch dtype (float32, float64,
-    bfloat16); complex and integer dtypes raise."""
+    bfloat16, complex64, complex128); integer dtypes raise."""
     if isinstance(dtype, torch.dtype):
-        if dtype in (torch.float32, torch.float64, torch.bfloat16):
+        if dtype in _NP_OF_TORCH or dtype == torch.bfloat16:
             return dtype
     else:
         dt = np.dtype(dtype)
         if dt in _TORCH_OF_NP:
             return _TORCH_OF_NP[dt]
-        if np.issubdtype(dt, np.complexfloating):
-            raise NotImplementedError(
-                "complex matrices are not ported yet (ROADMAP Queue 1 item 7)"
-            )
     raise TypeError(f"unsupported matrix dtype {dtype!r}")
 
 
 def _host_dtype(tdt: torch.dtype) -> np.dtype:
     """numpy dtype the host assembles a ``tdt`` store in (bfloat16 stores
     are assembled in float32 and rounded once on the device)."""
-    return np.dtype(np.float64 if tdt == torch.float64 else np.float32)
+    return _NP_OF_TORCH.get(tdt, np.dtype(np.float32))
 
 
 def default_tile() -> int:
@@ -153,7 +154,7 @@ class BCSRMatrix:
         """Replace data from host-side flat block data (reference layout)."""
         flat = np.asarray(flat).reshape(-1)
         dbcsr_assert(len(flat) == self.index.nelems, "flat size mismatch")
-        torch_dtype(flat.dtype)  # rejects complex
+        torch_dtype(flat.dtype)  # rejects integer data
         store = torch.from_numpy(self.layout.store_from_flat(flat))
         return replace(self, data=store.to(self.device))
 
@@ -191,6 +192,8 @@ class BCSRMatrix:
             blk = blk.T
             if self.sym == SYM_ANTISYMMETRIC:
                 blk = -blk
+            elif self.sym == SYM_HERMITIAN:
+                blk = np.conj(blk)
         return blk
 
     def iter_blocks(self) -> Iterator[Tuple[int, int, np.ndarray]]:
@@ -222,7 +225,11 @@ class BCSRMatrix:
         out = dense[: self.index.nfullrows, : self.index.nfullcols]
         if self.sym != SYM_NONE:
             lower = torch.ones(out.shape, dtype=torch.bool, device=self.device).tril(-1)
-            refl = -out.T if self.sym == SYM_ANTISYMMETRIC else out.T
+            refl = out.T
+            if self.sym == SYM_ANTISYMMETRIC:
+                refl = -refl
+            elif self.sym == SYM_HERMITIAN:
+                refl = refl.conj()
             out = torch.where(lower, refl, out)
         return out
 

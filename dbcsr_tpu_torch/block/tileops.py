@@ -34,6 +34,7 @@ __all__ = [
     "tile_block_info",
     "DeviceBlockInfo",
     "device_block_info",
+    "squares",
     "per_tile_block_sums",
     "block_sums_sq",
     "block_mask_store",
@@ -281,11 +282,18 @@ def device_block_info(index: BCSRIndex, tile: int, device) -> DeviceBlockInfo:
     return index._cached(("device_block_info", tile, str(dev)), mk)
 
 
+def squares(x: torch.Tensor) -> torch.Tensor:
+    """|x|² in x's precision, real: ``x·x`` for real data, the real part of
+    ``x·conj(x)`` for complex data (re² + im²), as the JAX package takes it."""
+    return (x * x.conj()).real if x.is_complex() else x * x
+
+
 def per_tile_block_sums(store: torch.Tensor, info: DeviceBlockInfo) -> torch.Tensor:
     """``z[t, a, b] = Σ_ij J[t,i,a]·|x[t,i,j]|²·I[t,j,b]`` in float32 (IEEE,
     TF32 off): norms are true single precision like the reference's
-    (``calculate_norms.cpp``). Squares are taken in the store's dtype and
-    rounded to float32, as the JAX package does."""
+    (``calculate_norms.cpp``). Squares are taken in the store's precision
+    (|z|² for complex stores) and rounded to float32, as the JAX package
+    does."""
     from ..mm.kernels import tf32_matmul
 
     n = store.shape[0]
@@ -295,14 +303,15 @@ def per_tile_block_sums(store: torch.Tensor, info: DeviceBlockInfo) -> torch.Ten
             e = min(s + _TILE_STEP, n)
             x = store[s:e]
             y = torch.bmm(info.J.index_select(0, info.rows[s:e]).transpose(1, 2),
-                          (x * x).float())
+                          squares(x).float())
             z[s:e] = torch.bmm(y, info.I.index_select(0, info.cols[s:e]))
     return z
 
 
 def block_sums_sq(index: BCSRIndex, tile: int, store: torch.Tensor) -> np.ndarray:
     """Per-block Frobenius-norm² (float32 like the reference's norms,
-    ``src/mm/dbcsr_mm_common.F:629-694``): two batched indicator matmuls on
+    ``src/mm/dbcsr_mm_common.F:629-694``; real for complex stores): two
+    batched indicator matmuls on
     the device, the combine of blocks spanning several tiles on the host
     (float64, then rounded to float32, as the JAX package does)."""
     if index.nblks == 0:
@@ -377,14 +386,13 @@ def transpose_store(
     (tile-level gather) + per-tile transpose.
 
     Returns (store_T, tile_coords_T) where ``tile_coords_T`` is row-major
-    over the transposed tile grid. ``conj`` is accepted for the reference's
-    signature; on real stores it is the identity.
+    over the transposed tile grid. ``conj`` conjugates a complex store
+    (physically, not as torch's lazy view); on real stores it is the
+    identity.
     """
-    if store.is_complex():
-        raise NotImplementedError(
-            "complex tile stores are not ported yet (ROADMAP Queue 1 item 7)"
-        )
     order, coords_t = transpose_order(m_index, tile)
     perm = torch.as_tensor(order, dtype=torch.int64, device=store.device)
     out = store.index_select(0, perm).transpose(1, 2).contiguous()
+    if conj and out.is_complex():
+        out = out.conj_physical_()
     return out, coords_t

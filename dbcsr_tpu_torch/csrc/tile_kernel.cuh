@@ -1,5 +1,5 @@
 // The one place where a stack kernel picks its device routine, sizes its
-// shared memory and is launched: all six .cu files launch through here.
+// shared memory and is launched: every .cu file launches through here.
 // Every one of these kernels is "for
 // each output tile, sum A[i]·B[j] over a run of (i, j) pairs in run order and
 // write the sum once"; they differ only in how an output tile finds its C
@@ -26,7 +26,14 @@
 //                       per C tile, register-blocked FFMA on a cp.async ring,
 //                       two blocks an SM;
 //   T >= 64, f64        tile_run_mma_f64 (tile_mma_f64.cuh): FP64 tensor
-//                       cores, one block an SM at T = 128, two at T = 64.
+//                       cores, one block an SM at T = 128, two at T = 64;
+//   T >= 64, complex64  tile_run_blocked_c64 (tile_product_c64.cuh): FFMA on
+//   (float2)            a cp.async ring, one block a C tile, one block an SM
+//                       at T = 128, two at T = 64;
+//   T >= 64, complex128 tile_run_mma_c128 (tile_mma_c128.cuh): FP64 tensor
+//   (double2)           cores, a block owns 64 rows of a C tile (two blocks
+//                       a C tile at T = 128), registers uncapped below 255.
+// T <= 32 takes tile_run for every input type, complex ones included.
 // The pipelined routines take dynamic shared memory above the 48 KB static
 // limit, so launch_tile_kernel opts in with cudaFuncSetAttribute (per device,
 // so on every call) before it launches.
@@ -38,7 +45,9 @@
 
 #include <type_traits>
 
+#include "tile_mma_c128.cuh"
 #include "tile_mma_f64.cuh"
+#include "tile_product_c64.cuh"
 #include "tile_product_f32.cuh"
 
 namespace dbcsr_torch {
@@ -125,8 +134,38 @@ tile_mma_kernel(const double* __restrict__ A, const double* __restrict__ B,
     });
 }
 
-// One block per output tile, n_out of them, through the routine for (In, T);
-// returns a cudaError_t as int (an overflowing grid is refused).
+template <int T, typename Job>
+__global__ void __launch_bounds__(kThreads, T == 128 ? 1 : 2)
+tile_c64_blocked_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
+                        float2* __restrict__ C, const Job job)
+{
+    extern __shared__ __align__(16) unsigned char ring[];
+    job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
+        tile_run_blocked_c64<T>(A, B, C + slot * (T * T), e0, e1, pair,
+                                reinterpret_cast<float2*>(ring));
+    });
+}
+
+// kSplit blocks a C tile, block q taking rows of part q % kSplit of tile
+// q / kSplit; no register cap below 255 (at T = 64 a cap of 128, two
+// blocks an SM, spills)
+template <int T, typename Job>
+__global__ void __launch_bounds__(kThreads, 1)
+tile_c128_mma_kernel(const double2* __restrict__ A, const double2* __restrict__ B,
+                     double2* __restrict__ C, const Job job)
+{
+    extern __shared__ __align__(16) unsigned char ring[];
+    constexpr int kSplit = MmaC128<T>::kSplit;
+    const int part = (int)(blockIdx.x % kSplit);
+    job((int64_t)(blockIdx.x / kSplit), [&](int64_t slot, int e0, int e1, auto pair) {
+        tile_run_mma_c128<T>(A, B, C + slot * (T * T), e0, e1, pair,
+                             reinterpret_cast<double2*>(ring), part);
+    });
+}
+
+// One block per output tile, n_out of them (complex128 at T = 128: two a
+// tile), through the routine for (In, T); returns a cudaError_t as int (an
+// overflowing grid is refused).
 template <typename In, int T, typename Job>
 static int launch_tile_kernel(const In* A, const In* B, typename AccOf<In>::type* C,
                               long long n_out, const Job& job, cudaStream_t s)
@@ -135,6 +174,21 @@ static int launch_tile_kernel(const In* A, const In* B, typename AccOf<In>::type
     const unsigned blocks = (unsigned)n_out;
     if constexpr (T < 64) {
         tile_run_kernel<In, T, Job><<<blocks, kThreads, 0, s>>>(A, B, C, job);
+    } else if constexpr (std::is_same_v<In, float2>) {
+        constexpr int smem = BlockedC64<T>::kSmemBytes;
+        const int err = (int)cudaFuncSetAttribute(
+            tile_c64_blocked_kernel<T, Job>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err) return err;
+        tile_c64_blocked_kernel<T, Job><<<blocks, kThreads, smem, s>>>(A, B, C, job);
+    } else if constexpr (std::is_same_v<In, double2>) {
+        constexpr int smem = MmaC128<T>::kSmemBytes;
+        constexpr long long split = MmaC128<T>::kSplit;
+        if (n_out * split > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+        const int err = (int)cudaFuncSetAttribute(
+            tile_c128_mma_kernel<T, Job>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err) return err;
+        tile_c128_mma_kernel<T, Job><<<(unsigned)(n_out * split), kThreads, smem, s>>>(
+            A, B, C, job);
     } else if constexpr (std::is_same_v<In, double>) {
         constexpr int smem = MmaF64<T>::kSmemBytes;
         const int err = (int)cudaFuncSetAttribute(

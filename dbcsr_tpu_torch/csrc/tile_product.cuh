@@ -1,8 +1,8 @@
 // The device routine of the stack kernels at the small tile edges: for one C
 // tile, sum A[i]·B[j] over a contiguous run of (i, j) pairs, in run order,
 // and write the sum once. A pair with a negative slot is an absent tile (a
-// zero tile) and is skipped. All six stack kernels run it at T = 16 and 32
-// and take the pipelined routines at T = 64 and 128 (tile_kernel.cuh picks).
+// zero tile) and is skipped. Every stack kernel runs it at T = 16 and 32
+// and takes a pipelined routine at T = 64 and 128 (tile_kernel.cuh picks).
 //
 // Tile stores are [n, T, T] row-major. A block of 256 threads owns one whole
 // C tile: each is written exactly once, with no atomics, every element's sum
@@ -14,7 +14,12 @@
 // rows/cols so shared-memory reads are free of bank conflicts. f32 inputs run
 // IEEE FFMA; bf16 inputs are widened to f32 in shared memory, so every product
 // is exact and only the f32 sums round; f64 inputs accumulate in f64 (DFMA):
-// the accumulator type follows the input type (AccOf).
+// the accumulator type follows the input type (AccOf). Complex tiles
+// (float2 = complex64, double2 = complex128, interleaved re/im as torch
+// stores them) accumulate in their own type: each complex multiply-add is
+// the four fused multiply-adds of fma_acc, in its fixed order, so K1's
+// complex64 instantiation (KC1) and the complex128 one (KC2) at T <= 32 sum
+// every element in one fixed order too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,13 +34,43 @@ constexpr int kKC = 16;        // K chunk staged through shared memory
 // accumulator (and shared-memory staging) type of an input type
 template <typename In> struct AccOf { using type = float; };
 template <> struct AccOf<double> { using type = double; };
+template <> struct AccOf<float2> { using type = float2; };
+template <> struct AccOf<double2> { using type = double2; };
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float2 widen(float2 x) { return x; }
+__device__ __forceinline__ double2 widen(double2 x) { return x; }
 
 __device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
+
+// c += a·b for complex a = (ar, ai), b = (br, bi): four fused multiply-adds
+// in this order, which fixes the complex kernels' bits (every routine that
+// sums complex tiles, tile_product_c64.cuh's too, uses it):
+//   re = fma(ar, br, re); re = fma(-ai, bi, re);
+//   im = fma(ar, bi, im); im = fma(ai, br, im)
+template <typename R>
+__device__ __forceinline__ void cmac(R& re, R& im, R ar, R ai, R br, R bi)
+{
+    re = fma_acc(ar, br, re);
+    re = fma_acc(-ai, bi, re);
+    im = fma_acc(ar, bi, im);
+    im = fma_acc(ai, br, im);
+}
+
+__device__ __forceinline__ float2 fma_acc(float2 a, float2 b, float2 c)
+{
+    cmac(c.x, c.y, a.x, a.y, b.x, b.y);
+    return c;
+}
+
+__device__ __forceinline__ double2 fma_acc(double2 a, double2 b, double2 c)
+{
+    cmac(c.x, c.y, a.x, a.y, b.x, b.y);
+    return c;
+}
 
 // The whole C tile `out` = Σ_{e in [e0, e1)} A[ia(e)] @ B[ib(e)]; `pair(e)`
 // returns (ia, ib) as int2, either negative for an absent tile (the same for
@@ -58,7 +93,7 @@ __device__ __forceinline__ void tile_run(
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = Acc(0);
+        for (int j = 0; j < TM; ++j) acc[i][j] = Acc{};
 
     for (int e = e0; e < e1; ++e) {
         const int2 ij = pair(e);
@@ -98,8 +133,8 @@ __device__ __forceinline__ void tile_run(
             out[(ty + 16 * i) * T + tx + 16 * j] = acc[i][j];
 }
 
-// input types of the entry points that take a dtype code (K6's port has an
-// entry point of its own and takes none)
+// input types of the entry points that take a dtype code (K6's port and the
+// complex stack kernels have entry points of their own and take none)
 enum DType : int { kF32 = 0, kBF16 = 1, kF64 = 2 };
 
 // Tile-edge and input-type dispatch for entry points that take both as run

@@ -1,6 +1,7 @@
 // The shared-memory ring of the pipelined routines (tile_product_f32.cuh
 // under K1 to K5, tile_mma_f64.cuh under the float64 stack kernel and the
-// double instantiations of K4 and K5): cp.async copies, a cursor that walks
+// double instantiations of K4 and K5, tile_product_c64.cuh under KC1 and
+// tile_mma_c128.cuh under KC2): cp.async copies, a cursor that walks
 // one C tile's run of (A tile, B tile) pairs K chunk by K chunk, and the loop
 // that keeps NSTAGE-1 chunks in flight while one is multiplied.
 //

@@ -1,4 +1,10 @@
 from .band import BandPlan, band_matmul, band_matmul_plain, plan_band
+from .c_stack import (
+    tile_stack_matmul_c,
+    tile_stack_matmul_c64,
+    tile_stack_matmul_c128,
+    tile_stack_matmul_c_plain,
+)
 from .engine import LocalPlan, build_multiply_executor, multiply
 from .f64_stack import tile_stack_matmul_f64, tile_stack_matmul_f64_plain
 from .filtered import FilteredExecutor, build_filtered_executor
@@ -29,6 +35,8 @@ from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
 __all__ = [
     "BandPlan", "band_matmul", "band_matmul_plain", "plan_band",
+    "tile_stack_matmul_c", "tile_stack_matmul_c64", "tile_stack_matmul_c128",
+    "tile_stack_matmul_c_plain",
     "LocalPlan", "build_multiply_executor", "multiply",
     "tile_stack_matmul_f64", "tile_stack_matmul_f64_plain",
     "FilteredExecutor", "build_filtered_executor",

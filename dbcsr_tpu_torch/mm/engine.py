@@ -42,6 +42,14 @@ port of K6 (``f64_stack.py``), as the JAX package never gives float64 to its
 f32 panel or flat kernels; an explicit "band" or "grouped" runs that
 driver's kernel in float64; the dense class stays a float64 ``torch.mm``.
 
+Complex data (complex64, complex128): every sparse driver takes the complex
+flat stack kernels KC1/KC2 (``c_stack.py``, route ``"c_stack"``), as the JAX
+package's native complex always takes its flat stack; the dense class stays
+a complex ``torch.mm``. 'C' conjugates the transposed store physically
+(``torch.conj_physical``: the kernels read raw memory, so torch's lazy
+conjugation bit must never reach them). A real operand times a complex one
+is computed in the promoted complex type.
+
 ``multiply(filter_eps=...)`` is the reference's on-the-fly filtering:
 operand block norms → the filtered symbolic product (``plan.py``) → the
 product masked to the surviving blocks → the final norm filter
@@ -79,6 +87,7 @@ from ..core.errors import DbcsrError, dbcsr_assert
 from ..core.stats import get_stats
 from ..core.timing import timed
 from .band import DeviceBandPlan, band_matmul, device_band_plan, plan_band
+from .c_stack import tile_stack_matmul_c
 from .f64_stack import tile_stack_matmul_f64
 from .kernels import (
     DeviceGroupPlan,
@@ -128,17 +137,31 @@ _UNPORTED_DRIVERS = {
 }
 
 
-def _reject_unported(a, b, c, *, dist=None, k_dist=None) -> None:
+def _reject_unported(*, dist=None, k_dist=None) -> None:
     if dist is not None or k_dist is not None:
         raise NotImplementedError(
             "distributed multiplies (dist, k_dist) are not ported yet: "
             "ROADMAP Queue 1 item 9"
         )
-    for m in (a, b, c):
-        if m is not None and m.data.is_complex():
-            raise NotImplementedError(
-                "complex matrices are not ported yet: ROADMAP Queue 1 item 7"
-            )
+
+
+def _promote_operands(a: BCSRMatrix, b: BCSRMatrix):
+    """A real operand times a complex one: both in the promoted complex
+    type (the JAX package's CPU path promotes a real B against a complex A
+    the same way). Operands of one type, or of two real types, are
+    returned as they are."""
+    if a.dtype == b.dtype or not (a.dtype.is_complex or b.dtype.is_complex):
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.with_data(a.data.to(dt)), b.with_data(b.data.to(dt))
+
+
+def _coefficient(x, dtype: torch.dtype):
+    """alpha/beta as the JAX package applies them (``jnp.asarray(x,
+    a.dtype)``): a complex coefficient on real data keeps its real part."""
+    if isinstance(x, complex) and not dtype.is_complex:
+        return x.real
+    return x
 
 
 def _check_config(cfg, driver: str) -> None:
@@ -183,12 +206,17 @@ def _op_pattern(m: BCSRMatrix, trans: bool) -> _OpPattern:
     return _OpPattern(coords_t, (lay.ntc, lay.ntr), order)
 
 
-def _op_store(data: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+def _op_store(data: torch.Tensor, perm: Optional[torch.Tensor],
+              conj: bool = False) -> torch.Tensor:
     """op(M)'s tile store: 'N' is free; 'T' (and 'C' on real data) is one
-    tile permutation plus a per-tile transpose."""
+    tile permutation plus a per-tile transpose; 'C' on complex data also
+    conjugates, physically: a kernel reading the raw memory of a lazy
+    ``torch.conj`` view would multiply the unconjugated values."""
+    conj = conj and data.is_complex()
     if perm is None:
-        return data
-    return data.index_select(0, perm).transpose(1, 2).contiguous()
+        return torch.conj_physical(data) if conj else data
+    out = data.index_select(0, perm).transpose(1, 2).contiguous()
+    return out.conj_physical_() if conj else out
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +476,8 @@ class LocalPlan:
     grouped: Optional[DeviceGroupPlan] = None
     a_perm: Optional[torch.Tensor] = None
     b_perm: Optional[torch.Tensor] = None
+    a_conj: bool = False  # 'C': op(M)'s store is conjugated
+    b_conj: bool = False
     reorder: Optional[ReorderPlan] = None
     a_gather: Optional[torch.Tensor] = None
     b_gather: Optional[torch.Tensor] = None
@@ -455,8 +485,8 @@ class LocalPlan:
 
     def op_stores(self, a_data: torch.Tensor, b_data: torch.Tensor):
         """The op(A), op(B) tile stores as the plan's kernel reads them."""
-        a_st = _op_store(a_data, self.a_perm)
-        b_st = _op_store(b_data, self.b_perm)
+        a_st = _op_store(a_data, self.a_perm, self.a_conj)
+        b_st = _op_store(b_data, self.b_perm, self.b_conj)
         if self.a_gather is not None:
             a_st = a_st.index_select(0, self.a_gather)
         if self.b_gather is not None:
@@ -672,6 +702,21 @@ def _f64_route(p: _Problem) -> LocalPlan:
     )
 
 
+def _c_route(p: _Problem) -> LocalPlan:
+    """Every complex sparse stack product: KC1 (complex64) or KC2
+    (complex128) over the flat c-sorted stack."""
+    tplan = p.tile_plan()
+    ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device)
+
+    def run(a_st, b_st):
+        return tile_stack_matmul_c(a_st, b_st, ds)
+
+    return LocalPlan(
+        "c_stack", tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3, run,
+        in_dtype=p.dtype, tile_plan=tplan, stack=ds,
+    )
+
+
 def _empty_route(p: _Problem) -> LocalPlan:
     """No tile triples: the product has no tiles (the caller's alignment
     fills C's tiles with zeros)."""
@@ -694,6 +739,8 @@ def _select_route(p: _Problem) -> LocalPlan:
             return _dense_route(p, False)
     if len(tplan.stack) == 0:
         return _empty_route(p)
+    if p.dtype.is_complex:
+        return _c_route(p)
     if p.dtype == torch.float64 and p.driver in ("auto", "stack", "panel"):
         return _f64_route(p)
     if p.driver != "auto":
@@ -706,7 +753,8 @@ def _select_route(p: _Problem) -> LocalPlan:
 
 
 def _plan_local(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, cfg,
-                driver: str, *, may_reorder: bool = False) -> LocalPlan:
+                driver: str, *, may_reorder: bool = False,
+                conj: Tuple[bool, bool] = (False, False)) -> LocalPlan:
     dbcsr_assert(a.tile == b.tile, "operand tile sizes differ")
     dbcsr_assert(a.dtype == b.dtype, f"operand dtypes differ ({a.dtype}, {b.dtype})")
     dbcsr_assert(a.device == b.device, f"operands on {a.device} and {b.device}")
@@ -720,6 +768,7 @@ def _plan_local(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, cfg,
     )
     with timed("multiply/route"):
         plan = _select_route(p)
+    plan.a_conj, plan.b_conj = conj
     for op, name, gname, gather in (
         (a_op, "a_perm", "a_gather", plan.reorder and plan.reorder.a_gather),
         (b_op, "b_perm", "b_gather", plan.reorder and plan.reorder.b_gather),
@@ -747,20 +796,21 @@ def _align_old_c(c: Optional[BCSRMatrix], c_index: BCSRIndex, tile: int):
     return take_tiles(c.data, amap, tile)
 
 
-def _execute_local(a, ta, b, tb, c, c_index, alpha, beta, cfg, *,
+def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
                    mask_result: bool) -> torch.Tensor:
     tile = a.tile
+    conj = (ca and a.dtype.is_complex, cb and b.dtype.is_complex)
     pcache = get_plan_cache()
     key = pcache.key(
         a.index, ta, b.index, tb,
-        extra=("local_plan", tile, str(a.dtype), str(a.device),
+        extra=("local_plan", tile, str(a.dtype), str(a.device), conj,
                config_fingerprint(cfg)),
     )
     cached = pcache.get(key)
     if cached is not None:
         lp = cached[0]
     else:
-        lp = _plan_local(a, ta, b, tb, cfg, cfg.mm_driver)
+        lp = _plan_local(a, ta, b, tb, cfg, cfg.mm_driver, conj=conj)
         pcache.put(key, (lp,))
     prod = lp.run(a.data, b.data)
     get_stats().hardware_flops += lp.hw_flops
@@ -768,6 +818,7 @@ def _execute_local(a, ta, b, tb, c, c_index, alpha, beta, cfg, *,
     prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
     if mask_result and len(c_keys):
         prod = prod * valid_mask(c_index, tile, prod.device).to(prod.dtype)
+    alpha, beta = _coefficient(alpha, a.dtype), _coefficient(beta, a.dtype)
     old = _align_old_c(c, c_index, tile)
     if old is None:
         return alpha * prod
@@ -796,8 +847,9 @@ def multiply(
     block discovery, epsilon filtering (``filter_eps``: blocks of the result
     with Frobenius norm below eps are dropped), retain-sparsity mode and
     symmetric operands, sub-matrix windows (``limits``), on the operands'
-    device. ``dist``/``k_dist`` and complex operands raise
-    NotImplementedError naming the ROADMAP item that ports them.
+    device. Complex operands take complex ``alpha``/``beta``; a real and a
+    complex operand multiply in the promoted type. ``dist``/``k_dist``
+    raise NotImplementedError naming the ROADMAP item that ports them.
 
     Iterative filtered callers (SCF: same patterns, new data every step)
     should hold a ``build_filtered_executor`` instead: it plans once and
@@ -805,14 +857,15 @@ def multiply(
     norms on the host and replans the filtered pattern on every call."""
     from ..ops.transform import desymmetrize, fold_symmetric
 
-    _reject_unported(a, b, c, dist=dist, k_dist=k_dist)
+    _reject_unported(dist=dist, k_dist=k_dist)
     cfg = get_config()
     _check_config(cfg, cfg.mm_driver)
-    ta, _ = _effective_trans(transa)
-    tb, _ = _effective_trans(transb)
+    ta, ca = _effective_trans(transa)
+    tb, cb = _effective_trans(transb)
+    a, b = _promote_operands(a, b)
     if limits is not None:
         return _multiply_limited(
-            ta, tb, alpha, a, b, beta, c, filter_eps=filter_eps,
+            transa, transb, alpha, a, b, beta, c, filter_eps=filter_eps,
             return_flops=return_flops, limits=limits,
         )
 
@@ -863,7 +916,7 @@ def multiply(
 
         with timed("multiply/exec"):
             out_data = _execute_local(
-                a, ta, b, tb, c, c_index, alpha, beta, cfg,
+                a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg,
                 mask_result=filter_eps is not None or retain_sparsity,
             )
         result = BCSRMatrix(
@@ -889,9 +942,9 @@ def multiply(
     return result
 
 
-def _multiply_limited(ta: bool, tb: bool, alpha, a: BCSRMatrix, b: BCSRMatrix,
-                      beta, c: Optional[BCSRMatrix], *, filter_eps,
-                      return_flops: bool, limits: dict):
+def _multiply_limited(transa: str, transb: str, alpha, a: BCSRMatrix,
+                      b: BCSRMatrix, beta, c: Optional[BCSRMatrix], *,
+                      filter_eps, return_flops: bool, limits: dict):
     """Sub-matrix multiplication window (the reference's
     ``first_row/last_row/first_column/last_column/first_k/last_k``,
     ``src/mm/dbcsr_mm.F:630-709``): the product is computed only over the
@@ -909,6 +962,8 @@ def _multiply_limited(ta: bool, tb: bool, alpha, a: BCSRMatrix, b: BCSRMatrix,
     from ..ops.transform import desymmetrize
     from ..tas.matrix import extract_block_subset
 
+    ta, _ = _effective_trans(transa)
+    tb, _ = _effective_trans(transb)
     a = desymmetrize(a)
     b = desymmetrize(b)
     m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
@@ -928,7 +983,7 @@ def _multiply_limited(ta: bool, tb: bool, alpha, a: BCSRMatrix, b: BCSRMatrix,
     b_sub = (extract_block_subset(b, row_blocks=cols_sel, col_blocks=k_sel) if tb
              else extract_block_subset(b, row_blocks=k_sel, col_blocks=cols_sel))
     window, fl = multiply(
-        "T" if ta else "N", "T" if tb else "N", alpha, a_sub, b_sub,
+        transa, transb, alpha, a_sub, b_sub,
         filter_eps=filter_eps, return_flops=True,
     )
     with timed("multiply/limits_expand"):
@@ -1020,15 +1075,16 @@ def build_multiply_executor(
     RCM tile renumbering when it makes the panel plan admissible (config
     ``reorder``) — and every index upload happen here; a call is the device
     work alone. ``fn.plan`` is the ``LocalPlan`` (its ``route`` names the
-    driver)."""
-    _reject_unported(a, b, None)
+    driver). A real and a complex operand run in the promoted complex type;
+    ``fn`` converts its inputs to it."""
     cfg = get_config()
     drv = driver or cfg.mm_driver
     _check_config(cfg, drv)
-    ta, _ = _effective_trans(transa)
-    tb, _ = _effective_trans(transb)
+    ta, ca = _effective_trans(transa)
+    tb, cb = _effective_trans(transb)
     from ..ops.transform import desymmetrize
 
+    a, b = _promote_operands(a, b)
     a = desymmetrize(a)
     b = desymmetrize(b)
     m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
@@ -1036,10 +1092,14 @@ def build_multiply_executor(
     symb = symbolic_product(a.index, ta, b.index, tb)
     c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
     c_keys = store_layout(c_index, a.tile).tile_keys()
-    lp = _plan_local(a, ta, b, tb, cfg, drv, may_reorder=True)
+    lp = _plan_local(a, ta, b, tb, cfg, drv, may_reorder=True,
+                     conj=(ca and a.dtype.is_complex, cb and b.dtype.is_complex))
     gather = tile_gather(lp.align_map(c_keys), len(lp.prod_keys), a.device)
+    dtype = a.dtype
 
     def fn(a_data: torch.Tensor, b_data: torch.Tensor) -> torch.Tensor:
+        if a_data.dtype != dtype or b_data.dtype != dtype:
+            a_data, b_data = a_data.to(dtype), b_data.to(dtype)
         return apply_tile_gather(lp.run(a_data, b_data), gather)
 
     fn.plan = lp

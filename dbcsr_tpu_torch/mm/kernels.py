@@ -44,6 +44,7 @@ import torch
 
 __all__ = [
     "KERNEL_TILES",
+    "accumulator_dtype",
     "DeviceStack",
     "device_stack",
     "stack_of_runs",
@@ -166,7 +167,8 @@ def check_cuda_operands(a, b, index_tensors, what: str, dtypes) -> int:
     if a.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {a.device}")
     if a.dtype not in dtypes:
-        hint = " (float64 stacks take mm/f64_stack.py)" if a.dtype == torch.float64 else ""
+        hint = (" (float64 stacks take mm/f64_stack.py)" if a.dtype == torch.float64
+                else " (complex stacks take mm/c_stack.py)" if a.dtype.is_complex else "")
         raise TypeError(f"{what}: no kernel for dtype {a.dtype}{hint}")
     if tile not in KERNEL_TILES:
         raise ValueError(f"{what}: tile edge {tile} not in {KERNEL_TILES}")
@@ -188,6 +190,15 @@ def check_kernel_operands(a, b, index_tensors, out_dtype, what: str) -> int:
     return _DTYPE_CODE[a.dtype]
 
 
+def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a stack product sums in: float64 and complex stores in
+    their own type (a float32 accumulator would drop a complex product's
+    imaginary part), float32 and bfloat16 in float32."""
+    if dtype == torch.float64 or dtype.is_complex:
+        return dtype
+    return torch.float32
+
+
 def run_sums_plain(
     a: torch.Tensor, b: torch.Tensor, c_ptr: np.ndarray,
     a_idx: torch.Tensor, b_idx: torch.Tensor, out_dtype,
@@ -197,10 +208,11 @@ def run_sums_plain(
     ``bmm``, then for j = 0, 1, ... the j-th product of every run of length
     > j is added to its C tile. Destinations within one step are distinct,
     so the reduction is deterministic (no ``index_add_``). Entries are
-    gathered ``PLAIN_CHUNK`` at a time, at C-run boundaries."""
+    gathered ``PLAIN_CHUNK`` at a time, at C-run boundaries. The sums are
+    taken in ``accumulator_dtype(a.dtype)``."""
     tile = a.shape[1]
     n_c = len(c_ptr) - 1
-    acc = torch.float64 if a.dtype == torch.float64 else torch.float32
+    acc = accumulator_dtype(a.dtype)
     out = torch.zeros((n_c, tile, tile), dtype=acc, device=a.device)
     run_len = np.diff(c_ptr)
     c0 = 0

@@ -62,7 +62,10 @@ def _align_to(keys: np.ndarray, m: BCSRMatrix) -> torch.Tensor:
 
 
 def _scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
-    """A scalar rounded to ``dtype`` first, as ``jnp.asarray(x, dtype)``."""
+    """A scalar rounded to ``dtype`` first, as ``jnp.asarray(x, dtype)``
+    (which keeps a complex scalar's real part for a real ``dtype``)."""
+    if isinstance(x, complex) and not dtype.is_complex:
+        x = x.real
     return torch.tensor(x, dtype=dtype, device=device)
 
 
@@ -130,20 +133,26 @@ def _diag_tiles(m: BCSRMatrix, slots: np.ndarray) -> torch.Tensor:
     return m.data.index_select(0, torch.as_tensor(slots.astype(np.int64), device=m.device))
 
 
-def trace(m: BCSRMatrix) -> float:
-    """Sum of diagonal elements (``dbcsr_trace``). Only diagonal tiles
-    (tr == tc) intersect the diagonal; padding zeros make the raw diagonal
-    sum exact."""
+def _host_scalar(x: torch.Tensor):
+    """A 0-d tensor as a Python ``complex`` (complex data) or ``float``."""
+    return complex(x) if x.is_complex() else float(x)
+
+
+def trace(m: BCSRMatrix):
+    """Sum of diagonal elements (``dbcsr_trace``): a ``float``, or a
+    ``complex`` for complex data. Only diagonal tiles (tr == tc) intersect
+    the diagonal; padding zeros make the raw diagonal sum exact."""
     mm = desymmetrize(m)
     slots = _diag_slots(mm)
     if len(slots) == 0:
         return 0.0
-    return float(torch.diagonal(_diag_tiles(mm, slots), dim1=1, dim2=2).sum())
+    return _host_scalar(torch.diagonal(_diag_tiles(mm, slots), dim1=1, dim2=2).sum())
 
 
-def dot(a: BCSRMatrix, b: BCSRMatrix) -> float:
-    """Frobenius inner product Tr(A^T B) (``dbcsr_dot``): elementwise on the
-    tile intersection — positions where either operand stores nothing are 0."""
+def dot(a: BCSRMatrix, b: BCSRMatrix):
+    """Frobenius inner product Tr(A^H B) (``dbcsr_dot``; a ``complex`` for
+    complex data, A conjugated): elementwise on the tile intersection —
+    positions where either operand stores nothing are 0."""
     dbcsr_assert(_same_structure(a, b), "incompatible block structures")
     dbcsr_assert(a.tile == b.tile, "tile sizes differ")
     a = desymmetrize(a)
@@ -151,7 +160,8 @@ def dot(a: BCSRMatrix, b: BCSRMatrix) -> float:
     keys = np.intersect1d(a.layout.tile_keys(), b.layout.tile_keys())
     if len(keys) == 0:
         return 0.0
-    return float(torch.sum(_align_to(keys, a) * _align_to(keys, b)))
+    # conj() is the identity on real data
+    return _host_scalar(torch.sum(_align_to(keys, a).conj() * _align_to(keys, b)))
 
 
 def hadamard_product(a: BCSRMatrix, b: BCSRMatrix) -> BCSRMatrix:

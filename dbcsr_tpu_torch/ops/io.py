@@ -21,8 +21,10 @@ Port of ``dbcsr_tpu/ops/io.py`` (reference ``src/ops/dbcsr_io.F``):
   latter computed on the host in float64 exactly as the JAX package does,
   so identical flat data gives bitwise-identical checksums.
 
-Complex matrices raise ``NotImplementedError`` (ROADMAP item 7), a target
-distribution too (item 9).
+Complex64 and complex128 matrices are written with the dtype strings
+``'<c8'`` / ``'<c16'`` and their flat data as numpy writes it, the JAX
+package's bytes. A target distribution raises ``NotImplementedError``
+(ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -55,19 +57,8 @@ _MAGIC = b"DBCSR_TPU_BIN"
 _VERSION = 1
 #: numpy's name for a bfloat16 array's dtype (ml_dtypes' ``bfloat16.str``)
 _BF16_STR = "<V2"
-_NP_STR = {torch.float32: "<f4", torch.float64: "<f8", torch.bfloat16: _BF16_STR}
-
-
-def _reject_complex(dtype) -> None:
-    """Raise for a complex torch dtype or numpy dtype string."""
-    if isinstance(dtype, torch.dtype):
-        is_complex = dtype.is_complex
-    else:
-        is_complex = np.dtype(dtype).kind == "c"
-    if is_complex:
-        raise NotImplementedError(
-            "complex matrices are not ported yet: ROADMAP Queue 1 item 7"
-        )
+_NP_STR = {torch.float32: "<f4", torch.float64: "<f8", torch.bfloat16: _BF16_STR,
+           torch.complex64: "<c8", torch.complex128: "<c16"}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -122,7 +113,6 @@ def _flat_words(m: BCSRMatrix) -> np.ndarray:
 def binary_write(m: BCSRMatrix, path: str) -> None:
     """Serialize a matrix snapshot (``dbcsr_binary_write`` analog,
     ``src/ops/dbcsr_io.F:576``). Versioned header + index + flat data."""
-    _reject_complex(m.dtype)
     header = {
         "version": _VERSION,
         "name": m.name,
@@ -181,8 +171,6 @@ def binary_read(path: str, *, device, name: Optional[str] = None,
         blk_offset = _read_array(f)
         data = _read_array(f)
     bf16 = header["dtype"] == _BF16_STR
-    if not bf16:
-        _reject_complex(header["dtype"])
     idx = BCSRIndex(
         row_block_sizes=rbs.astype(np.int32),
         col_block_sizes=cbs.astype(np.int32),

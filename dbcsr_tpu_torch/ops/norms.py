@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..block.bcsr import BCSRMatrix, SYM_NONE
-from ..block.tileops import block_sums_sq, ordered_segment_sum
+from ..block.tileops import block_sums_sq, ordered_segment_sum, squares
 from .transform import desymmetrize
 
 __all__ = [
@@ -76,12 +76,12 @@ def norm_frobenius(m: BCSRMatrix) -> float:
             c_loc = off_in_blk % ncols
             w = np.where(r_loc < c_loc, 2.0, np.where(r_loc == c_loc, 1.0, 0.0))
             vals = host[spans]
-            diag_sum = float(((vals * vals).astype(np.float64) * w).sum())
+            diag_sum = float(((vals * np.conj(vals)).real.astype(np.float64) * w).sum())
         return float(np.sqrt(2.0 * off_sum + diag_sum))
     if m.data.numel() == 0:
         return 0.0
     # padding positions are exactly 0, so the raw store sum is the norm
-    return float(torch.sqrt(torch.sum(m.data * m.data)))
+    return float(torch.sqrt(torch.sum(squares(m.data))))
 
 
 def norm_maxabs(m: BCSRMatrix) -> float:

@@ -46,7 +46,9 @@ def random_matrix(
 ) -> BCSRMatrix:
     """Random block-sparse matrix with the given block occupancy
     (``dbcsr_make_random_matrix``), its tile store on ``device``. A
-    bfloat16 ``dtype`` draws float32 blocks and rounds the store once."""
+    bfloat16 ``dtype`` draws float32 blocks and rounds the store once; a
+    complex ``dtype`` draws each block's imaginary part right after its
+    real part."""
     tdt = torch_dtype(dtype)
     hdt = _host_dtype(tdt)
     rbs = np.asarray(row_block_sizes, dtype=np.int32)
@@ -59,6 +61,8 @@ def random_matrix(
     blocks = []
     for i, j in zip(rows, cols):
         blk = rng.standard_normal((rbs[i], cbs[j]))
+        if tdt.is_complex:
+            blk = blk + 1j * rng.standard_normal((rbs[i], cbs[j]))
         if sym != SYM_NONE and i == j:
             if sym == "S":
                 blk = 0.5 * (blk + blk.T)

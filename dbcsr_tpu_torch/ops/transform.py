@@ -4,9 +4,9 @@ conversion.
 Port of the single-device part of ``dbcsr_tpu/ops/transform.py``
 (reference ``src/ops/dbcsr_transformations.F:101-150``). On the tile-store
 layout, transpose is a tile permutation plus a per-tile transpose (no
-element maps), and desymmetrize is the transposed store selected on the
-strict-lower global triangle by a coordinate mask. Stores are real (complex
-is not ported), so hermitian storage behaves as symmetric.
+element maps), and desymmetrize is the transposed store (negated for
+antisymmetric, conjugated for hermitian storage) selected on the
+strict-lower global triangle by a coordinate mask.
 ``make_dense``/``make_undense`` convert between block structures through
 the dense matrix (``dbcsr_make_dense``/``dbcsr_make_undense``); ``retile``
 re-lays a store at another tile edge with one device element gather. The
@@ -20,7 +20,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..block.bcsr import BCSRMatrix, SYM_ANTISYMMETRIC, SYM_NONE, SYM_SYMMETRIC
+from ..block.bcsr import (
+    BCSRMatrix,
+    SYM_ANTISYMMETRIC,
+    SYM_HERMITIAN,
+    SYM_NONE,
+    SYM_SYMMETRIC,
+)
 from ..block.index import build_index
 from ..block.store import store_layout
 from ..block.tileops import (
@@ -85,11 +91,12 @@ def may_be_dense(m: BCSRMatrix, threshold: float = 0.5) -> bool:
 def transpose(m: BCSRMatrix, *, conjugate: bool = False) -> BCSRMatrix:
     """Deep transpose (``dbcsr_new_transposed``): tile permutation +
     per-tile transpose. Symmetric inputs are expanded first; the result has
-    symmetry 'N'. ``conjugate`` is the identity on the port's real stores."""
+    symmetry 'N'. ``conjugate`` gives the conjugate transpose of a complex
+    matrix (the identity on real ones)."""
     m = desymmetrize(m)
     with timed("transpose"):
         new_index, _ = m.index.transposed()
-        data, coords_t = transpose_store(m.index, m.tile, m.data)
+        data, coords_t = transpose_store(m.index, m.tile, m.data, conj=conjugate)
         dbcsr_assert(
             np.array_equal(store_layout(new_index, m.tile).tile_coords, coords_t),
             "transposed tile sets must agree",
@@ -124,6 +131,8 @@ def desymmetrize(m: BCSRMatrix) -> BCSRMatrix:
         refl = take_tiles(refl_store, tile_align_map(keys, keys_t), m.tile)
         if m.sym == SYM_ANTISYMMETRIC:
             refl = -refl
+        elif m.sym == SYM_HERMITIAN:
+            refl = refl.conj_physical()
         lower = coord_mask(new_lay, lambda r, c: r > c, m.device)
         return BCSRMatrix(name=m.name, index=new_index,
                           data=torch.where(lower, refl, up), sym=SYM_NONE)

@@ -15,8 +15,9 @@ executor of the plain product ``op(A)·op(B)`` (``autotune.
 steady_state_time``: CUDA events on a CUDA device). It runs where
 ``build_multiply_executor`` takes the recipe's operands, and its failure
 fails the run. One process drives one device (``n_devices`` is 1); the
-grid and RMA fields select nothing. Complex recipes (data types 5 and 7)
-wait for ROADMAP Queue 1 item 7.
+grid and RMA fields select nothing. Complex recipes (data types 5 and 7:
+complex64, complex128) take complex ``alpha``/``beta``, as the JAX package
+reads them; real recipes keep their real parts.
 
 The checksum references in ``tests/inputs/*.perf`` were recorded by the
 JAX package on a TPU: a CUDA run prints whether it matches them, and gates
@@ -40,8 +41,7 @@ import torch
 
 __all__ = ["PerfConfig", "parse_perf", "perf_operands", "run_perf", "main"]
 
-_DTYPES = {1: torch.float32, 3: torch.float64}
-_COMPLEX = (5, 7)
+_DTYPES = {1: torch.float32, 3: torch.float64, 5: torch.complex64, 7: torch.complex128}
 
 
 @dataclass
@@ -158,10 +158,9 @@ def _elem_to_block_range(
 
 
 def executor_takes(a, b) -> bool:
-    """Whether ``build_multiply_executor`` plans A·B: one real type, one
-    tile edge and one device for both operands (what its planner asserts)."""
-    return (a.dtype == b.dtype and not a.dtype.is_complex
-            and a.tile == b.tile and a.device == b.device)
+    """Whether ``build_multiply_executor`` plans A·B: one type, one tile
+    edge and one device for both operands (what its planner asserts)."""
+    return a.dtype == b.dtype and a.tile == b.tile and a.device == b.device
 
 
 def _sync(device: torch.device) -> None:
@@ -175,11 +174,6 @@ def perf_operands(cfg: PerfConfig, *, device, seed: int = 0):
     made on the host, so every device gets the same values."""
     from .ops.random import random_matrix
 
-    if cfg.data_type in _COMPLEX:
-        raise NotImplementedError(
-            f"data type {cfg.data_type} (complex) is not ported yet: ROADMAP "
-            "Queue 1 item 7"
-        )
     if cfg.data_type not in _DTYPES:
         raise ValueError(f"unknown .perf data type {cfg.data_type}")
     dtype = _DTYPES[cfg.data_type]
@@ -228,7 +222,10 @@ def run_perf(cfg: PerfConfig, *, device, seed: int = 0, verbose: bool = True) ->
     if cfg.use_rma and verbose:
         print("# note: RMA flag ignored (one process drives one device)")
 
-    alpha, beta = cfg.alpha.real, cfg.beta.real
+    if a.dtype.is_complex:
+        alpha, beta = cfg.alpha, cfg.beta
+    else:
+        alpha, beta = cfg.alpha.real, cfg.beta.real
     times = []
     flops = 0.0
     out = None

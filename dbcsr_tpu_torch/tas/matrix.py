@@ -36,13 +36,6 @@ __all__ = [
 ]
 
 
-def _reject_complex(*ms: BCSRMatrix) -> None:
-    if any(m.data.is_complex() for m in ms):
-        raise NotImplementedError(
-            "complex matrices are not ported yet: ROADMAP Queue 1 item 7"
-        )
-
-
 @dataclass(frozen=True)
 class TASMatrix:
     """A BCSR matrix + split of its long dimension."""
@@ -122,7 +115,6 @@ def extract_block_subset(
     form of the reference's subgroup matrix extraction inside TAS reshape
     (``dbcsr_tas_reshape_ops.F``).
     """
-    _reject_complex(m)
     dbcsr_assert(m.sym == SYM_NONE, "desymmetrize before subset extraction")
     idx = m.index
     rows_sel = (
@@ -225,7 +217,6 @@ def _merge_groups(
     dtype=None,
     device=None,
 ) -> BCSRMatrix:
-    _reject_complex(*(sub for sub, _ in parts))
     nnz = sum(sub.nblks for sub, _ in parts)
     if nnz == 0:
         dbcsr_assert(bool(parts) or device is not None,

@@ -136,3 +136,22 @@ def test_cuda_checks_refuse_cpu_tensors_before_anything_else():
     a = torch.zeros(2, 16, 16)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         check_cuda_operands(a, a, (), "test", (torch.float32,))
+
+
+def test_complex_kernels_are_built_and_hashed():
+    """KC1 (complex64) and KC2 (complex128): their sources are compiled into
+    the library, their routines' headers enter its name, and each entry
+    point has a ctypes signature and a wrapper that names it."""
+    from dbcsr_tpu_torch.mm.c_stack import COMPLEX_DTYPES
+
+    assert {"stack_matmul_c64.cu", "stack_matmul_c128.cu"} <= set(_build._SOURCES)
+    assert {"tile_product_c64.cuh", "tile_mma_c128.cuh"} <= set(_build._HEADERS)
+    with open(_build.__file__) as f:
+        build_py = f.read()
+    for src, entry in (("stack_matmul_c64.cu", COMPLEX_DTYPES[torch.complex64]),
+                       ("stack_matmul_c128.cu", COMPLEX_DTYPES[torch.complex128])):
+        assert f'extern "C" int {entry}(' in _csrc_text(src)
+        assert f"lib.{entry}" in build_py
+    kernel = _csrc_text("tile_kernel.cuh")
+    for header in ("tile_product_c64.cuh", "tile_mma_c128.cuh"):
+        assert f'#include "{header}"' in kernel

@@ -843,3 +843,115 @@ def test_device_memory_stats_follow_torch(dev):
     assert stats["bytes_limit"] == torch.cuda.get_device_properties(dev).total_memory
     assert device_memory_stats() is not None
     del x
+
+
+# ---------------------------------------------------------------------------
+# KC1 (complex64) and KC2 (complex128), the complex flat stack kernels
+# ---------------------------------------------------------------------------
+
+RTOL_C = {torch.complex64: 1e-4, torch.complex128: RTOL_F64}
+
+
+def complex_rel_err(got, ref) -> float:
+    return rel_err(torch.view_as_real(got), torch.view_as_real(ref))
+
+
+def gappy_stack(rng, n_c=24, run=5, n_tiles=12):
+    """Runs of ``run`` entries, except for C tiles with none: the first, the
+    last and four in a row in the middle (their products are zero tiles)."""
+    runs = np.full(n_c, run)
+    runs[[0, n_c - 1]] = 0
+    runs[10:14] = 0
+    c = np.repeat(np.arange(n_c), runs)
+    return np.stack([c, rng.integers(0, n_tiles, len(c)),
+                     rng.integers(0, n_tiles, len(c))], axis=1).astype(np.int32), n_c
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_complex_kernels_match_plain(dev, tile, dtype):
+    """KC1 / KC2 against their plain version on runs of random length, runs
+    of 1, runs of 48 and runs with empty C tiles first, last and in a row;
+    each launch counted; two launches bitwise equal."""
+    from dbcsr_tpu_torch.mm.c_stack import (
+        tile_stack_matmul_c, tile_stack_matmul_c64, tile_stack_matmul_c128,
+        tile_stack_matmul_c_plain,
+    )
+
+    wrapper = tile_stack_matmul_c64 if dtype == torch.complex64 else tile_stack_matmul_c128
+    rng = np.random.default_rng(tile)
+    a = torch.randn(12, tile, tile, device=dev, dtype=dtype)
+    b = torch.randn(12, tile, tile, device=dev, dtype=dtype)
+    cases = [random_stack(rng), random_stack(rng, n_c=30, s=30),
+             (run_stack(rng, 7, 48), 7), gappy_stack(rng)]
+    for stack, n_c in cases:
+        ds = device_stack(stack, n_c, dev)
+        before = wrapper.launches
+        got = tile_stack_matmul_c(a, b, ds)
+        assert wrapper.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == (n_c, tile, tile)
+        assert complex_rel_err(got, tile_stack_matmul_c_plain(a, b, ds)) <= RTOL_C[dtype]
+        assert torch.equal(got, wrapper(a, b, ds))  # deterministic
+        empty = np.setdiff1d(np.arange(n_c), stack[:, 0])
+        assert not got[torch.as_tensor(empty, device=dev)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_kernels_read_memory_not_the_conj_bit(dev, dtype):
+    """A lazy ``torch.conj`` view carries the unconjugated values in memory:
+    the wrapper resolves it before the kernel reads raw pointers, so the
+    product is that of the conjugated stores."""
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c, tile_stack_matmul_c_plain
+
+    stack, n_c = random_stack(np.random.default_rng(2))
+    ds = device_stack(stack, n_c, dev)
+    a = torch.randn(12, 64, 64, device=dev, dtype=dtype)
+    b = torch.randn(12, 64, 64, device=dev, dtype=dtype)
+    got = tile_stack_matmul_c(a.conj(), b, ds)
+    ref = tile_stack_matmul_c_plain(a.conj_physical(), b, ds)
+    assert complex_rel_err(got, ref) <= RTOL_C[dtype]
+    assert complex_rel_err(got, tile_stack_matmul_c(a, b, ds)) > 0.1
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("trans", ["NN", "CN", "NC", "TC"])
+def test_complex_executor_routes_through_the_kernel(dev, dtype, trans):
+    """``multiply`` and the executor on the card under every sparse driver:
+    route ``c_stack``, the kernel launched, the result equal to the same
+    multiply on CPU tensors (the plain version) within the kernel's bound."""
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
+
+    wrapper = tile_stack_matmul_c64 if dtype == np.complex64 else tile_stack_matmul_c128
+    rng = np.random.default_rng(5)
+    rbs = dtt.random_block_sizes(400, [5, 13, 23], rng)
+    with config_override(tile_size=32):
+        a = dtt.random_matrix(rbs, rbs, 0.05, rng, dtype=dtype, device="cpu")
+        b = dtt.random_matrix(rbs, rbs, 0.05, rng, dtype=dtype, device="cpu")
+        ref = dtt.multiply(trans[0], trans[1], 0.5 - 1j, a, b)
+        ag, bg = (m.with_data(m.data.to(dev)) for m in (a, b))
+        for driver in ("auto", "stack", "panel", "band", "grouped"):
+            with config_override(mm_driver=driver):
+                before = wrapper.launches
+                got = dtt.multiply(trans[0], trans[1], 0.5 - 1j, ag, bg)
+                fn, _, _ = dtt.build_multiply_executor(trans[0], trans[1], ag, bg)
+                fn(ag.data, bg.data)
+            assert fn.plan.route == "c_stack" and wrapper.launches == before + 2
+            np.testing.assert_array_equal(got.index.col_idx, ref.index.col_idx)
+            assert complex_rel_err(got.data.cpu(), ref.data) <= RTOL_C[got.dtype]
+
+
+def test_complex_wrappers_refuse(dev):
+    """Misaligned complex stores, a real store, a CPU/GPU mix."""
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
+
+    stack, n_c = random_stack(np.random.default_rng(0))
+    ds = device_stack(stack, n_c, dev)
+    flat = torch.randn(12 * 32 * 32 + 1, device=dev, dtype=torch.complex64)
+    bad = flat[1: 1 + 12 * 32 * 32].view(12, 32, 32)  # 8 bytes in
+    good = flat[: 12 * 32 * 32].view(12, 32, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tile_stack_matmul_c64(bad, good, ds)
+    with pytest.raises(TypeError):
+        tile_stack_matmul_c128(good, good, ds)
+    with pytest.raises(TypeError):
+        tile_stack_matmul_c64(good.real.contiguous(), good.real.contiguous(), ds)

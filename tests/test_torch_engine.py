@@ -491,7 +491,18 @@ def test_unported_options_raise(what):
     elif what in ("dist", "k_dist"):
         kw[what] = object()
     elif what == "complex":
-        at = at.with_data(at.data.to(torch.complex128))
+        # ported since: complex stores run through both entry points (the
+        # complex stack kernels' route), and equal the real product there
+        ac = at.with_data(at.data.to(torch.complex128))
+        with torch_override(tile_size=8):
+            got = dtt.multiply("N", "N", 1.0, ac, ac)
+            fn, _, _ = dtt.build_multiply_executor("N", "N", ac, ac)
+            ref = dtt.multiply("N", "N", 1.0, at, at)
+        assert got.dtype == torch.complex128 and fn.plan.route in ("c_stack", "dense")
+        assert torch.equal(got.data.imag, torch.zeros_like(ref.data))
+        assert torch.allclose(got.data.real, ref.data, rtol=1e-12, atol=1e-12)
+        assert torch.equal(fn(ac.data, ac.data), got.data)
+        return
     # every message names where the option comes from: the ROADMAP item
     # that ports it, or (for the JAX-only XLA twin) the port's alternative
     match = "XLA twin" if what == "xla" else "ROADMAP"

@@ -155,9 +155,16 @@ def test_limits_still_refuse_dist_and_complex():
     with torch_override(tile_size=8):
         with pytest.raises(NotImplementedError, match="item 9"):
             dtt.multiply("N", "N", 1.0, at, bt, limits={"rows": (0, 2)}, dist=object())
+        # complex is ported since: the window of a complex product is the
+        # window of the real one (the data here is real)
         ac = at.with_data(at.data.to(torch.complex128))
-        with pytest.raises(NotImplementedError, match="item 7"):
-            dtt.multiply("N", "N", 1.0, ac, ac, limits={"rows": (0, 2)})
+        bc = bt.with_data(bt.data.to(torch.complex128))
+        got = dtt.multiply("N", "N", 1.0, ac, bc, limits={"rows": (0, 2)})
+        ref = dtt.multiply("N", "N", 1.0, at, bt, limits={"rows": (0, 2)})
+        assert got.dtype == torch.complex128
+        assert np.array_equal(got.index.col_idx, ref.index.col_idx)
+        assert torch.allclose(got.data.real, ref.data, rtol=1e-12, atol=1e-12)
+        assert not got.data.imag.any()
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

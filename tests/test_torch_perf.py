@@ -88,9 +88,14 @@ def test_run_perf_limits_and_float32():
 
 @pytest.mark.parametrize("data_type", [5, 7])
 def test_run_perf_complex_raises(data_type):
-    cfg = dataclasses.replace(perf.parse_perf(RECIPES[0]), data_type=data_type)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        perf.run_perf(cfg, device=CPU, verbose=False)
+    # complex recipes are ported since: they run, in their complex type, and
+    # match the JAX package's checksum (tests/test_torch_complex.py holds a
+    # sparse recipe of data type 7 to its driver too)
+    cfg = dataclasses.replace(perf.parse_perf(RECIPES[0]), data_type=data_type, nrep=1)
+    res = perf.run_perf(cfg, device=CPU, verbose=False)
+    a, _, _, _ = perf.perf_operands(cfg, device=CPU)
+    assert a.dtype == (torch.complex64 if data_type == 5 else torch.complex128)
+    assert np.isfinite(res["checksum"]) and res["route"] is not None
 
 
 def test_run_perf_prints_its_report(capsys):
@@ -213,11 +218,13 @@ def test_validation_cases_build_on_the_cpu():
     wrappers take their plain versions on CPU tensors)."""
     cases = testing._kernel_validation_cases(CPU, 16, 4, 0)
     assert [c[0].split(" ")[0] for c in cases] == [
-        "flat", "grouped", "float64", "band", "panel", "panel-bf16", "panel-runs"]
+        "flat", "grouped", "float64", "band", "panel", "panel-bf16", "panel-runs",
+        "complex64", "complex128"]
     for name, tol, run_kernel, run_plain in cases:
         got, ref = run_kernel(), run_plain()
         assert got.shape == ref.shape and torch.equal(got, ref), name
-        assert tol == {"float64": 1e-12, "panel-bf16": 2e-2}.get(name.split(" ")[0], 1e-4)
+        assert tol == {"float64": 1e-12, "complex128": 1e-12,
+                       "panel-bf16": 2e-2}.get(name.split(" ")[0], 1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -346,12 +346,14 @@ def test_unported_options_raise():
         ttas.tas_multiply("N", "T", 1.0, at, at, nsplit=1, dist=object())
     from dataclasses import replace
 
-    cplx = replace(at, data=at.data.to(torch.complex128))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttas.extract_block_subset(cplx, row_blocks=np.arange(3))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttas.merge_row_groups([(cplx, np.arange(12))], at.row_block_sizes,
-                              at.col_block_sizes)
+    # complex is ported since: extraction and merges move complex stores
+    cplx = replace(at, data=at.data.to(torch.complex128) * 1j)
+    sub = ttas.extract_block_subset(cplx, row_blocks=np.arange(3))
+    assert torch.equal(sub.data, ttas.extract_block_subset(at, row_blocks=np.arange(3))
+                       .data.to(torch.complex128) * 1j)
+    merged = ttas.merge_row_groups([(cplx, np.arange(12))], at.row_block_sizes,
+                                   at.col_block_sizes)
+    assert merged.dtype == torch.complex128 and torch.equal(merged.data, cplx.data)
     empty = ttas.merge_row_groups([], at.row_block_sizes, at.col_block_sizes,
                                   device="cpu", dtype=torch.float64)
     assert empty.nblks == 0 and empty.dtype == torch.float64
