@@ -151,6 +151,25 @@ Phases (any failure exits non-zero before the final line):
     shape R in complex128 through ``BatchedContract``; (e) the H2O recipe as
     data type 7 through ``perf.run_perf`` (dense route), its checksum against
     a host complex128 recomputation.
+14. the distributed multiply over virtual ranks of this card, after phase
+    13 and before phase 10: (a) ``build_distributed_executor`` with a
+    ``tile_aligned_dist``, Cannon on a 2×2 grid at the phase-4 shape in
+    float32 (K1 ticks) and float64 (the float64 kernel's ticks), and the
+    one-shot ``multiply(dist=...)`` with its message statistics; (b) the
+    8-rank dryrun at T = 128 in float32: 2.5D Cannon 2×2×2, SUMMA 2×4 and
+    2.5D SUMMA 2×2×2; (c) a block-cyclic distribution through the
+    element-granular Cannon plan at 40,000 rows with ``filter_eps=1e-9``
+    against the local one-shot, and Cannon 2×2 in complex128 (KC2 ticks);
+    (d) the sharded at-rest form in float64 (``shard_matrix``,
+    ``build_sharded_multiply``, ``sharded_filter``/``sharded_trace``/
+    ``sharded_frobenius`` against the local ops, a sharded checkpoint round
+    trip, bitwise); (e) shape R through ``tas_multiply_parallel``
+    (``long_dim="auto"``, 4 groups) in float32 and float64 and ``contract``
+    over a ``TensorPGrid``. Every leg: its dtype's stack kernel the only
+    launch, once per non-empty (rank, tick) stack (group), two calls bitwise
+    equal, against the local product and (a-c) a host float64
+    recomputation of 64 sampled tiles, CUDA-event medians of the executor
+    and its parts (packing, ticks, unpacking) beside the local executor.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (eight kernels: the six ports of the
@@ -3180,6 +3199,365 @@ def phase_complex(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distributed multiply on virtual ranks of the one card
+# ---------------------------------------------------------------------------
+
+#: phase 14c: rows of the element-granular Cannon leg (its plan keeps int64
+#: maps over every stored element: 24.6 M for A here, 246 M at 400,000)
+DIST_ELEMENT_ROWS = 40_000
+#: the dist kernels by store type, and the bound each leg is held to
+DIST_KERNEL = {"float32": "K1", "float64": "K6", "complex128": "KC2"}
+DIST_RTOL = {"float32": KERNEL_RTOL, "float64": F64_RTOL, "complex128": F64_RTOL}
+
+
+def dist_grid(shape, dev):
+    """A grid of ``shape`` whose ranks are all ``dev``."""
+    from dbcsr_tpu_torch.dist import ProcessGrid
+
+    return ProcessGrid.make(*shape, devices=[dev] * 8)
+
+
+def dist_breakdown(fn, a, b) -> dict:
+    """CUDA-event medians of a distributed executor's parts on the same
+    inputs: the packing of the ranks' pieces, the ticks (kernel launches,
+    the adds into the C panels, the ring hand-overs and the layer sums) and
+    the unpacking into C's store."""
+    from dbcsr_tpu_torch.mm.engine import _op_store
+
+    ex = fn.exec
+    a_st = _op_store(a.data, ex.a_perm)
+    b_st = _op_store(b.data, ex.b_perm)
+    pa, pb = ex.pack_a(a_st), ex.pack_b(b_st)
+    panels = ex.plan.run(pa, pb, a.dtype)
+    return {
+        "pack": cuda_median_ms(lambda: (ex.pack_a(a_st), ex.pack_b(b_st)), reps=5),
+        "ticks": cuda_median_ms(lambda: ex.plan.run(pa, pb, a.dtype), reps=5),
+        "unpack": cuda_median_ms(lambda: ex.unpack(panels), reps=5),
+    }
+
+
+def dist_leg(what: str, fn, a, b, ref, c_index, local_plan, tname: str,
+             local_ms: float, plan_s: float, rows: dict) -> None:
+    """One distributed executor against the local executor's product
+    ``ref``: its dtype's kernel must be the only launch, once per non-empty
+    (rank, tick) stack; two calls bitwise equal; the product against ``ref``
+    and a host float64 recomputation of 64 sampled tiles; CUDA-event
+    medians of the executor and its parts."""
+    import torch
+
+    kname = DIST_KERNEL[tname]
+    rtol = DIST_RTOL[tname]
+    before = read_launches()
+    out = fn(a.data, b.data)
+    sync(out.device)
+    launched = launch_delta(before)
+    if launched != {kname: fn.plan.launches} or fn.plan.launches < 1:
+        fail(f"14 {what}: launches {launched}, expected {kname} x {fn.plan.launches}")
+    same = bool(torch.equal(out, fn(a.data, b.data)))
+    err, rel = rel_err(out, ref)
+    serr, srel = sampled_f64_check(local_plan, out, c_index, a.data, b.data)
+    ms = cuda_median_ms(lambda: fn(a.data, b.data), reps=5)
+    parts = dist_breakdown(fn, a, b)
+    rp = fn.plan
+    log(f"  14 {what} {tname}: {rp.algo}, {rp.grid.size} ranks, n_a {rp.n_a} n_b {rp.n_b} "
+        f"n_c {rp.n_c} tiles per rank, S {rp.n_stack} over {rp.launches} {kname} launches; "
+        f"host plan {plan_s:.2f} s; two calls bitwise equal {same}; vs local executor "
+        f"rel={rel:.2e}, vs host float64 (64 tiles) rel={srel:.2e} (bound {rtol:.0e}); "
+        f"executor {ms:.3f} ms (pack {parts['pack']:.3f}, ticks {parts['ticks']:.3f}, "
+        f"unpack {parts['unpack']:.3f}) against the local executor {local_ms:.3f} ms "
+        f"({ms / local_ms:.2f}x)")
+    if not (same and rel <= rtol and srel <= rtol):
+        fail(f"14 {what} {tname}: the distributed product disagrees with its references")
+    rows[(what, tname)] = {"ms": ms, "launches": rp.launches, "max_abs_err": err, **parts}
+
+
+def phase_dist_cannon(dev, rows: dict) -> None:
+    """14a and 14b at the banded SCF shape (MAIN_ROWS rows, T = 128):
+    Cannon on a 2×2 grid in float32 (K1 ticks) and float64 (the float64
+    kernel's ticks), then, in float32, the 8-rank dryrun: 2.5D Cannon
+    2×2×2, SUMMA 2×4 and 2.5D SUMMA 2×2×2; every leg against the local
+    ``stack`` executor. The one-shot ``multiply(dist=...)`` prints the
+    message statistics (``record_comm``)."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.core.stats import get_stats, reset_stats
+    from dbcsr_tpu_torch.dist import tile_aligned_dist
+
+    legs = {torch.float32: [("14a 2x2", (2, 2, 1), "cannon"),
+                            ("14b 2x2x2", (2, 2, 2), "cannon"),
+                            ("14b 2x4", (2, 4, 1), "summa"),
+                            ("14b 2x2x2", (2, 2, 2), "summa")],
+            torch.float64: [("14a 2x2", (2, 2, 1), "cannon")]}
+    for dtype, cases in legs.items():
+        tname = str(dtype)[6:]
+        a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=dtype)
+        with dt.config_override(mm_driver="stack"):
+            lfn, c_index, _ = dt.build_multiply_executor("N", "N", a, b)
+        ref = lfn(a.data, b.data)
+        local_ms = cuda_median_ms(lambda: lfn(a.data, b.data), reps=5)
+        rbs = a.row_block_sizes
+        for what, shape, algo in cases:
+            dist = tile_aligned_dist(dist_grid(shape, dev), rbs, rbs, 128)
+            t0 = time.perf_counter()
+            fn, ci, _ = dt.build_distributed_executor("N", "N", a, b, dist, algo=algo)
+            plan_s = time.perf_counter() - t0
+            if not (np.array_equal(ci.row_ptr, c_index.row_ptr)
+                    and np.array_equal(ci.col_idx, c_index.col_idx)):
+                fail(f"14 {what}: the distributed C index differs from the local one")
+            dist_leg(what, fn, a, b, ref, c_index, lfn.plan, tname, local_ms, plan_s, rows)
+            del fn
+            torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            # the one-shot multiply(dist=...) (tiled plan) and its messages
+            dist = tile_aligned_dist(dist_grid((2, 2, 1), dev), rbs, rbs, 128)
+            reset_stats()
+            t0 = time.perf_counter()
+            before = read_launches()
+            c = dt.multiply("N", "N", 1.0, a, b, dist=dist)
+            sync(dev)
+            one_s = time.perf_counter() - t0
+            launched = launch_delta(before)
+            err, rel = rel_err(c.data, ref)
+            msgs = {k: (n, round(v)) for k, (n, v) in sorted(get_stats().comm_msgs.items())}
+            total = sum(v for _, v in msgs.values())
+            log(f"  14a one-shot multiply(dist=2x2) {tname}: {one_s:.2f} s cold, launches "
+                f"{launched}, vs local rel={rel:.2e}; record_comm {msgs} ({total / 1e9:.3f} GB "
+                f"between ranks, none of it moved: the ranks share the card)")
+            if launched.keys() != {"K1"} or not rel <= KERNEL_RTOL or c.dist is not dist:
+                fail("14a: the one-shot multiply(dist=...) disagrees or ran another kernel")
+            del c
+        del a, b, ref, lfn
+        torch.cuda.empty_cache()
+        log(f"    peak device memory so far {peak_memory(dev) / 1e9:.2f} GB")
+
+
+def phase_dist_oneshot(dev, rows: dict) -> None:
+    """14c: the one-shot ``multiply(dist=...)`` with a block-cyclic
+    distribution through the element-granular Cannon plan at
+    DIST_ELEMENT_ROWS rows (float32, ``filter_eps`` = 1e-9, as the dryrun
+    passes it) against the local one-shot multiply; then a complex128
+    Cannon executor on a 2×2 grid at MAIN_ROWS rows (KC2 ticks) against the
+    local complex128 executor."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.dist import block_cyclic_dist
+
+    a, b, _ = banded_scf_matrices(DIST_ELEMENT_ROWS, dev)
+    dist = block_cyclic_dist(dist_grid((2, 2, 1), dev), a.nblkrows, a.nblkcols)
+    ref = dt.multiply("N", "N", 1.0, a, b, filter_eps=1e-9)
+    first = None
+    for call in ("cold", "warm"):
+        t0 = time.perf_counter()
+        before = read_launches()
+        with dt.config_override(use_tiled_cannon=False):
+            c = dt.multiply("N", "N", 1.0, a, b, dist=dist, filter_eps=1e-9)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launched = launch_delta(before)
+        same_index = (np.array_equal(c.index.row_ptr, ref.index.row_ptr)
+                      and np.array_equal(c.index.col_idx, ref.index.col_idx))
+        err, rel = rel_err(c.data, ref.data) if same_index else (float("inf"),) * 2
+        log(f"  14c element-granular Cannon 2x2, block-cyclic, {DIST_ELEMENT_ROWS} rows, "
+            f"float32, filter_eps=1e-9 ({call}): {wall:.2f} s, launches {launched}, "
+            f"{c.nblks} blocks kept (local {ref.nblks}), vs local one-shot rel={rel:.2e}")
+        if not (same_index and rel <= KERNEL_RTOL and set(launched) == {"K1"}):
+            fail("14c: the element-granular Cannon product disagrees or ran another kernel")
+        if first is not None and not torch.equal(c.data, first):
+            fail("14c: the warm call differs from the cold one")
+        first = c.data
+    rows[("14c element 2x2", "float32")] = {"launches": launched.get("K1", 0), "max_abs_err": err}
+    del a, b, c, ref, first
+    torch.cuda.empty_cache()
+
+    from dbcsr_tpu_torch.dist import tile_aligned_dist
+
+    a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=torch.complex128)
+    lfn, c_index, _ = dt.build_multiply_executor("N", "N", a, b)
+    ref = lfn(a.data, b.data)
+    local_ms = cuda_median_ms(lambda: lfn(a.data, b.data), reps=5)
+    dist = tile_aligned_dist(dist_grid((2, 2, 1), dev), a.row_block_sizes,
+                             a.row_block_sizes, 128)
+    t0 = time.perf_counter()
+    fn, _, _ = dt.build_distributed_executor("N", "N", a, b, dist)
+    dist_leg("14c 2x2", fn, a, b, ref, c_index, lfn.plan, "complex128", local_ms,
+             time.perf_counter() - t0, rows)
+    del a, b, ref, lfn, fn
+    torch.cuda.empty_cache()
+
+
+def phase_dist_sharded(dev, rows: dict) -> None:
+    """14d: the sharded at-rest form in float64 at MAIN_ROWS rows (phase
+    7's decayed operands): ``shard_matrix``, ``build_sharded_multiply`` (the
+    float64 kernel's ticks, the only launches) against the local executor,
+    then ``sharded_filter`` / ``sharded_trace`` / ``sharded_frobenius``
+    against the local ops, and a ``sharded_checkpoint_write/read`` round
+    trip, bitwise."""
+    import tempfile
+
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.dist import (
+        build_sharded_multiply, shard_matrix, sharded_checkpoint_read,
+        sharded_checkpoint_write, sharded_filter, sharded_frobenius, sharded_trace,
+        tile_aligned_dist,
+    )
+    from dbcsr_tpu_torch.dist.sharded_ops import ShardedMatrix
+
+    a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=torch.float64, decay=DECAY)
+    lfn, c_index, _ = dt.build_multiply_executor("N", "N", a, b)
+    ref = lfn(a.data, b.data)
+    local_ms = cuda_median_ms(lambda: lfn(a.data, b.data), reps=5)
+    rbs = a.row_block_sizes
+    dist = tile_aligned_dist(dist_grid((2, 2, 1), dev), rbs, rbs, 128)
+    t0 = time.perf_counter()
+    sa, sb = shard_matrix(a, dist), shard_matrix(b, dist)
+    sync(dev)
+    t_shard = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ci, c_sl, fn = build_sharded_multiply("N", "N", sa, sb)
+    plan_s = time.perf_counter() - t0
+    before = read_launches()
+    out = fn(sa.data, sb.data)
+    sync(dev)
+    launched = launch_delta(before)
+    if launched != {"K6": fn.plan.launches}:
+        fail(f"14d: launches {launched}, expected K6 x {fn.plan.launches}")
+    same = all(torch.equal(x, y) for x, y in zip(out, fn(sa.data, sb.data)))
+    sc = ShardedMatrix(name="C", index=ci, tile=128, dist=dist, shard=c_sl, data=out)
+    err, rel = rel_err(sc.to_local().data, ref)
+    ms = cuda_median_ms(lambda: fn(sa.data, sb.data), reps=5)
+    log(f"  14d sharded float64 2x2: shard_matrix A, B {t_shard:.2f} s; plan {plan_s:.2f} s; "
+        f"{fn.plan.launches} K6 launches; two calls bitwise equal {same}; vs local executor "
+        f"rel={rel:.2e} (bound {F64_RTOL:.0e}); sharded multiply {ms:.3f} ms against the local "
+        f"executor {local_ms:.3f} ms")
+    if not (same and rel <= F64_RTOL):
+        fail("14d: the sharded product disagrees with the local one")
+    rows[("14d sharded 2x2", "float64")] = {"ms": ms, "launches": fn.plan.launches,
+                                            "max_abs_err": err}
+    c_loc = dt.BCSRMatrix(name="C", index=c_index, data=ref)
+    t0 = time.perf_counter()
+    fs = sharded_filter(sc, FILTER_EPS)
+    sync(dev)
+    t_f = time.perf_counter() - t0
+    fl = dt.filter_blocks(c_loc, FILTER_EPS)
+    f_err, f_rel = rel_err(fs.to_local().data, fl.data) if fs.nblks == fl.nblks else (
+        float("inf"),) * 2
+    tr, tr_ref = sharded_trace(sc), dt.trace(c_loc)
+    fr, fr_ref = sharded_frobenius(sc), dt.norm_frobenius(c_loc)
+    log(f"  14d sharded_filter(eps={FILTER_EPS:g}) {t_f:.2f} s: {fs.nblks} of {sc.nblks} "
+        f"blocks kept (local {fl.nblks}), rel={f_rel:.2e}; trace {tr:.12e} vs {tr_ref:.12e}; "
+        f"frobenius {fr:.12e} vs {fr_ref:.12e}")
+    if not (fs.nblks == fl.nblks and f_rel <= F64_RTOL
+            and abs(tr - tr_ref) <= F64_RTOL * max(abs(tr_ref), 1.0)
+            and abs(fr - fr_ref) <= F64_RTOL * fr_ref):
+        fail("14d: the sharded ops disagree with the local ones")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sharded_checkpoint_write(sa, d)
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = sharded_checkpoint_read(d, dist.grid)
+        sync(dev)
+        t_r = time.perf_counter() - t0
+    same_ck = all(torch.equal(x, y) for x, y in zip(back.data, sa.data))
+    gb = sum(x.numel() * x.element_size() for x in sa.data) / 1e9
+    log(f"  14d sharded checkpoint of A ({gb:.2f} GB in {len(sa.data)} shards): write "
+        f"{t_w:.2f} s, read {t_r:.2f} s, bitwise {same_ck}")
+    if not same_ck:
+        fail("14d: the sharded checkpoint did not read back bitwise")
+    del a, b, sa, sb, sc, out, ref, lfn, fs, fl, c_loc, back
+    torch.cuda.empty_cache()
+
+
+def phase_dist_tas(dev, rows: dict) -> None:
+    """14e: shape R through ``tas_multiply_parallel`` (``long_dim="auto"``,
+    ``nsplit=4`` over four cuda ranks) in float32 and float64 against
+    ``BatchedContract``'s product: one launch of the dtype's stack kernel a
+    group; then ``contract`` over the 2×2 grid of a ``TensorPGrid``
+    (Cannon, K1 ticks) in float32."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.tas import tas_multiply_parallel
+    from dbcsr_tpu_torch.tensors import BatchedContract, TensorPGrid, contract
+
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype)[6:]
+        kname = "K6" if dtype == torch.float64 else "K1"
+        rtol = DIST_RTOL[tname]
+        a, b = ri_tensors(TENSOR_ATOMS, dev, dtype)
+        ref = BatchedContract().contract(a, b, **R_KW).matrix
+        ranks = [dev] * 4
+        t0 = time.perf_counter()
+        before = read_launches()
+        c = tas_multiply_parallel(a.matrix, b.matrix, long_dim="auto", nsplit=4,
+                                  devices=ranks)
+        sync(dev)
+        first = time.perf_counter() - t0
+        launched = launch_delta(before)
+        same_index = (np.array_equal(c.index.row_ptr, ref.index.row_ptr)
+                      and np.array_equal(c.index.col_idx, ref.index.col_idx))
+        err, rel = rel_err(c.data, ref.data) if same_index else (float("inf"),) * 2
+        t0 = time.perf_counter()
+        again = tas_multiply_parallel(a.matrix, b.matrix, long_dim="auto", nsplit=4,
+                                      devices=ranks)
+        sync(dev)
+        warm = time.perf_counter() - t0
+        if not torch.equal(again.data, c.data):
+            fail(f"14e {tname}: two calls of tas_multiply_parallel differ")
+        del again
+        log(f"  14e shape R {tname}: tas_multiply_parallel(auto, nsplit=4, 4 ranks) "
+            f"{first:.2f} s first, {warm:.2f} s warm; launches {launched}; vs BatchedContract "
+            f"rel={rel:.2e} (bound {rtol:.0e})")
+        if not (same_index and rel <= rtol and set(launched) == {kname}
+                and launched[kname] == 4):
+            fail(f"14e {tname}: tas_multiply_parallel disagrees or its groups did not each "
+                 f"launch {kname} once")
+        rows[("14e tas 4 groups", tname)] = {"launches": launched.get(kname, 0),
+                                             "max_abs_err": err}
+        if dtype == torch.float32:
+            pgrid = TensorPGrid.make(3, dims=(2, 2, 1), devices=ranks)
+            dist = dt.dist.tile_aligned_dist(pgrid.grid, a.matrix.row_block_sizes,
+                                             b.block_sizes[1], 128)
+            before = read_launches()
+            t0 = time.perf_counter()
+            ct = contract(1.0, a, b, dist=dist, nsplit=1, **R_KW).matrix
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launched = launch_delta(before)
+            err, rel = rel_err(ct.data, ref.data) if ct.nblks == ref.nblks else (
+                float("inf"),) * 2
+            log(f"  14e contract over TensorPGrid dims (2, 2, 1) (grid 2x2, Cannon): "
+                f"{wall:.2f} s cold, launches {launched}, vs BatchedContract rel={rel:.2e}")
+            if not (rel <= rtol and set(launched) == {"K1"}):
+                fail("14e: contract over the TensorPGrid disagrees or ran another kernel")
+            del ct
+        del a, b, ref, c
+        torch.cuda.empty_cache()
+
+
+def phase_dist(dev) -> dict:
+    """Phase 14: every leg's launches are counted from 0, set just before
+    the phase and read after it."""
+    rows: dict = {}
+    reset_launches()
+    phase_dist_cannon(dev, rows)
+    phase_dist_oneshot(dev, rows)
+    phase_dist_sharded(dev, rows)
+    phase_dist_tas(dev, rows)
+    launched = {k: n for k, n in read_launches().items() if n}
+    log(f"  phase 14 launches: {launched}")
+    for k in ("K1", "K6", "KC2"):
+        if not launched.get(k):
+            fail(f"phase 14 launched no {k}")
+    rows["launches"] = launched
+    return rows
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -3427,6 +3805,16 @@ def main() -> int:
     complex_rows = phase_complex(dev)
     get_plan_cache().clear()
     log(f"[13] took {time.perf_counter() - t13:.1f} s; peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+
+    # 14. the distributed multiply on virtual ranks of this card
+    log(f"[14] the distributed multiply: Cannon, SUMMA and 2.5D over virtual ranks of "
+        f"one card, the sharded at-rest form and rank-parallel TAS, at the banded SCF "
+        f"shape ({MAIN_ROWS} rows) and shape R [{card}]")
+    t14 = time.perf_counter()
+    dist_rows = phase_dist(dev)
+    get_plan_cache().clear()
+    log(f"[14] took {time.perf_counter() - t14:.1f} s; peak device memory "
         f"{peak_memory(dev) / 1e9:.2f} GB")
 
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase

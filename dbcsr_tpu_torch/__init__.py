@@ -9,7 +9,8 @@ whose stack products run through hand-written CUDA kernels on an H100
 (``csrc/``, built with nvcc at first use; float32/bfloat16, float64,
 complex64 and complex128);
 over it, the tall-and-skinny layer (``tas/``) and block-sparse tensor
-contraction (``tensors/``) in one process.
+contraction (``tensors/``); the distributed multiply over a grid of
+virtual ranks (``dist/``: Cannon, SUMMA, 2.5D, the sharded at-rest form).
 Plain PyTorch versions of the kernels serve CPU tensors and are the
 cross-check. Around the multiply: sub-matrix windows (``limits``),
 binary checkpoints and CSR exchange (``ops/io.py``, ``ops/csr.py``),
@@ -46,7 +47,7 @@ from .core import (
     timed,
     timer_report,
 )
-from .mm.engine import build_multiply_executor, multiply
+from .mm.engine import build_distributed_executor, build_multiply_executor, multiply
 from .mm.filtered import FilteredExecutor, build_filtered_executor
 from .mm.reorder import locality_block_permutation, permute_blocks
 from .ops.arithmetic import (
@@ -87,18 +88,22 @@ from .ops.io import (
     print_matrix,
     verify_matrix,
 )
-from .ops.random import random_block_sizes, random_matrix
+from .ops.random import random_block_sizes, random_dist_vector, random_matrix
 from .ops.transform import (
     copy,
     desymmetrize,
+    distribute,
     fold_symmetric,
     make_dense,
     make_undense,
     may_be_dense,
+    redistribute,
+    replicate_all,
     retile,
+    sum_replicated,
     transpose,
 )
-from . import tas, tensors, testing
+from . import dist, tas, tensors, testing
 from .tas import TASMatrix, tas_multiply
 from .tensors import NDMapping, Tensor, TensorBuilder, contract
 

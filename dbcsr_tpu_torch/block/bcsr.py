@@ -82,6 +82,7 @@ class BCSRMatrix:
     index: BCSRIndex
     data: torch.Tensor  # tile store [n_tiles, T, T]; padding positions == 0
     sym: str = SYM_NONE
+    dist: Optional[object] = None  # dist.Distribution, None = local/replicated
 
     def __post_init__(self):
         dbcsr_assert(self.sym in _SYMS, f"bad symmetry {self.sym!r}")
@@ -244,6 +245,7 @@ class BCSRMatrix:
         keep_zero_blocks: bool = False,
         tol: float = 0.0,
         tile: Optional[int] = None,
+        dist=None,
     ) -> "BCSRMatrix":
         """Blocked sparsification of a dense matrix (host-side setup
         utility, analog of ``src/ops/dbcsr_test_methods.F``)."""
@@ -268,7 +270,7 @@ class BCSRMatrix:
                     blocks.append(blk)
         return BCSRMatrix.from_blocks(
             rows, cols, blocks, rbs, cbs, name=name, dtype=dense_np.dtype,
-            device=device, tile=tile,
+            device=device, tile=tile, dist=dist,
         )
 
     @staticmethod
@@ -281,6 +283,7 @@ class BCSRMatrix:
         sym: str = SYM_NONE,
         tile: Optional[int] = None,
         dtype=None,
+        dist=None,
     ) -> "BCSRMatrix":
         """Construct from a canonical index + host flat block data; the
         store is built on the host and moved to ``device`` once (and
@@ -292,7 +295,7 @@ class BCSRMatrix:
         store = torch.from_numpy(lay.store_from_flat(flat))
         return BCSRMatrix(
             name=name, index=index, data=store.to(device=device, dtype=tdt),
-            sym=sym,
+            sym=sym, dist=dist,
         )
 
     @staticmethod
@@ -308,6 +311,7 @@ class BCSRMatrix:
         sym: str = SYM_NONE,
         dtype=None,
         tile: Optional[int] = None,
+        dist=None,
     ) -> "BCSRMatrix":
         """Construct from COO block lists (fast path around the builder)."""
         rbs = np.asarray(row_block_sizes, dtype=np.int32)
@@ -329,6 +333,7 @@ class BCSRMatrix:
             flat = np.zeros((0,), dtype=hdt)
         return BCSRMatrix.from_flat(
             idx, flat, name=name, sym=sym, tile=tile, device=device, dtype=tdt,
+            dist=dist,
         )
 
     @staticmethod
@@ -341,10 +346,12 @@ class BCSRMatrix:
         dtype=torch.float32,
         sym: str = SYM_NONE,
         tile: Optional[int] = None,
+        dist=None,
     ) -> "BCSRMatrix":
         return BCSRMatrix.from_blocks(
             [], [], [], row_block_sizes, col_block_sizes,
             name=name, sym=sym, dtype=dtype, tile=tile, device=device,
+            dist=dist,
         )
 
 
@@ -368,6 +375,7 @@ class BCSRBuilder:
         dtype=np.float32,
         sym: str = SYM_NONE,
         tile: Optional[int] = None,
+        dist=None,
     ):
         self.row_block_sizes = np.asarray(row_block_sizes, dtype=np.int32)
         self.col_block_sizes = np.asarray(col_block_sizes, dtype=np.int32)
@@ -375,6 +383,7 @@ class BCSRBuilder:
         self.dtype = torch_dtype(dtype)
         self.sym = sym
         self.tile = tile
+        self.dist = dist
         self.device = device
         self._blocks: Dict[Tuple[int, int], np.ndarray] = {}
 
@@ -399,5 +408,5 @@ class BCSRBuilder:
             [self._blocks[k] for k in keys],
             self.row_block_sizes, self.col_block_sizes,
             name=self.name, sym=self.sym, dtype=self.dtype, tile=self.tile,
-            device=self.device,
+            device=self.device, dist=self.dist,
         )

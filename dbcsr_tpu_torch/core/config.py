@@ -86,6 +86,13 @@ class Config:
     f64_slices: int = 0
     #: build the host stack plan with the native C++ planner when it builds
     use_native_planner: bool = True
+    #: Cannon: partition work at tile granularity (block distributions
+    #: honored as their nearest tile-aligned form); off = the
+    #: element-granular plan (block-atomic placement)
+    use_tiled_cannon: bool = True
+    #: distributed algorithm: "auto" (Cannon on square grids, SUMMA
+    #: otherwise), "cannon", "summa"
+    mm_dist_algo: str = "auto"
 
     # provenance bookkeeping: name -> D/E/U
     _provenance: Dict[str, str] = dataclasses.field(

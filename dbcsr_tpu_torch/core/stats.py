@@ -1,15 +1,17 @@
 """Multiplication statistics counters.
 
-Port of ``dbcsr_tpu/core/stats.py`` for the local multiply: effective flops
+Port of ``dbcsr_tpu/core/stats.py``: effective flops
 are counted at user-block granularity (2·m·n·k per contributing block
 triple), hardware flops at tile granularity (2·T³ per stack entry, or the
-full dense grid); their ratio is the tile packing efficiency. Reference:
+full dense grid); their ratio is the tile packing efficiency. The
+distributed executors count their messages (``record_comm``). Reference:
 ``src/mm/dbcsr_mm_sched.F:392-663``, printed like
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
 
 __all__ = ["MMStats", "get_stats", "reset_stats", "print_statistics"]
 
@@ -20,6 +22,25 @@ class MMStats:
     total_flops: float = 0.0  # effective, 2*m*n*k per contributing triple
     hardware_flops: float = 0.0  # tile-granular flops actually issued
     max_memory_bytes: int = 0  # peak device memory seen after a multiply
+    #: (collective kind, size decade) -> (message count, total bytes): the
+    #: reference's MPI message statistics with size buckets
+    #: (``dbcsr_mpi_statistics_type``, ``dbcsr_types.F:578-589``)
+    comm_msgs: Dict[Tuple[str, int], Tuple[int, float]] = field(default_factory=dict)
+
+    def record_comm(self, kind: str, count: int, msg_bytes: float) -> None:
+        """Record ``count`` rank-to-rank messages of ``msg_bytes`` each
+        (computed statically from the panel shapes, as the JAX package
+        does; ranks that share a device hand tensors over without moving
+        them, but the schedule's messages are counted all the same)."""
+        if count <= 0 or msg_bytes <= 0:
+            return
+        bucket = 0
+        b = msg_bytes
+        while b >= 10:
+            b /= 10
+            bucket += 1
+        cnt, tot = self.comm_msgs.get((kind, bucket), (0, 0.0))
+        self.comm_msgs[(kind, bucket)] = (cnt + count, tot + count * msg_bytes)
 
 
 _stats = MMStats()
@@ -48,6 +69,13 @@ def print_statistics(out=None) -> str:
         lines.append(
             f" max device memory        {s.max_memory_bytes / 1e9:.3f} GB"
         )
+    if s.comm_msgs:
+        lines.append(" device communication (collective, message-size bucket)")
+        lines.append(f" {'kind':<14} {'size bucket':>14} {'messages':>10} {'bytes':>14}")
+        for (kind, bucket), (cnt, tot) in sorted(s.comm_msgs.items()):
+            lines.append(
+                f" {kind:<14} {'10^' + str(bucket) + ' B':>14} {cnt:>10} {tot:>14.4E}"
+            )
     text = "\n".join(lines)
     if out is not None:
         print(text, file=out)

@@ -115,7 +115,8 @@ from .plancache import array_fingerprint, get_plan_cache, index_fingerprint
 from .reorder import ReorderPlan, locality_reorder_plan
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
-__all__ = ["multiply", "build_multiply_executor", "LocalPlan"]
+__all__ = ["multiply", "build_multiply_executor", "build_distributed_executor",
+           "LocalPlan"]
 
 _PRECISIONS = ("default", "high", "highest")
 _F64_METHODS = ("auto", "native", "ozaki")
@@ -137,12 +138,18 @@ _UNPORTED_DRIVERS = {
 }
 
 
-def _reject_unported(*, dist=None, k_dist=None) -> None:
-    if dist is not None or k_dist is not None:
-        raise NotImplementedError(
-            "distributed multiplies (dist, k_dist) are not ported yet: "
-            "ROADMAP Queue 1 item 9"
+def _dist_algo(algo: str, grid) -> str:
+    """The distributed algorithm: "auto" takes Cannon on square grids and
+    SUMMA otherwise; Cannon on a non-square grid raises."""
+    dbcsr_assert(algo in ("auto", "cannon", "summa"), f"bad mm_dist_algo {algo!r}")
+    if algo == "auto":
+        algo = "cannon" if grid.nprow == grid.npcol else "summa"
+    if algo == "cannon":
+        dbcsr_assert(
+            grid.nprow == grid.npcol,
+            "Cannon requires a square grid; use mm_dist_algo='summa'",
         )
+    return algo
 
 
 def _promote_operands(a: BCSRMatrix, b: BCSRMatrix):
@@ -816,9 +823,17 @@ def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
     get_stats().hardware_flops += lp.hw_flops
     c_keys = store_layout(c_index, tile).tile_keys()
     prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
-    if mask_result and len(c_keys):
+    return _finish(prod, c, c_index, tile, alpha, beta, mask_result)
+
+
+def _finish(prod: torch.Tensor, c, c_index: BCSRIndex, tile: int, alpha, beta,
+            mask_result: bool) -> torch.Tensor:
+    """``alpha * prod + beta * C`` in C's new layout, the product first
+    masked to the stored blocks (filtered or retained patterns); shared by
+    the local and the distributed executions."""
+    if mask_result and len(prod):
         prod = prod * valid_mask(c_index, tile, prod.device).to(prod.dtype)
-    alpha, beta = _coefficient(alpha, a.dtype), _coefficient(beta, a.dtype)
+    alpha, beta = _coefficient(alpha, prod.dtype), _coefficient(beta, prod.dtype)
     old = _align_old_c(c, c_index, tile)
     if old is None:
         return alpha * prod
@@ -848,8 +863,14 @@ def multiply(
     with Frobenius norm below eps are dropped), retain-sparsity mode and
     symmetric operands, sub-matrix windows (``limits``), on the operands'
     device. Complex operands take complex ``alpha``/``beta``; a real and a
-    complex operand multiply in the promoted type. ``dist``/``k_dist``
-    raise NotImplementedError naming the ROADMAP item that ports them.
+    complex operand multiply in the promoted type.
+
+    With a ``dist`` (explicit, else carried by ``c``, else by ``a``) the
+    product runs over its process grid (``dist.grid``): Cannon
+    (``cannon.py``) on square grids, SUMMA (``summa.py``) otherwise, as
+    ``mm_dist_algo`` ("auto" | "cannon" | "summa") says; ``k_dist`` bins the
+    inner dimension (default: whole tile rows round-robin). Every rank's
+    product runs on the port's stack kernel for the dtype.
 
     Iterative filtered callers (SCF: same patterns, new data every step)
     should hold a ``build_filtered_executor`` instead: it plans once and
@@ -857,7 +878,6 @@ def multiply(
     norms on the host and replans the filtered pattern on every call."""
     from ..ops.transform import desymmetrize, fold_symmetric
 
-    _reject_unported(dist=dist, k_dist=k_dist)
     cfg = get_config()
     _check_config(cfg, cfg.mm_driver)
     ta, ca = _effective_trans(transa)
@@ -866,7 +886,7 @@ def multiply(
     if limits is not None:
         return _multiply_limited(
             transa, transb, alpha, a, b, beta, c, filter_eps=filter_eps,
-            return_flops=return_flops, limits=limits,
+            return_flops=return_flops, dist=dist, limits=limits,
         )
 
     if c is not None and c.sym != SYM_NONE:
@@ -875,7 +895,7 @@ def multiply(
         out = multiply(
             transa, transb, alpha, a, b, beta, desymmetrize(c),
             filter_eps=filter_eps, retain_sparsity=retain_sparsity,
-            return_flops=return_flops,
+            return_flops=return_flops, dist=dist, k_dist=k_dist,
         )
         if return_flops:
             return fold_symmetric(out[0], c.sym), out[1]
@@ -914,14 +934,33 @@ def multiply(
             else:
                 c_index = prod_index
 
-        with timed("multiply/exec"):
-            out_data = _execute_local(
-                a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg,
-                mask_result=filter_eps is not None or retain_sparsity,
-            )
+        eff_dist = dist
+        if eff_dist is None and c is not None:
+            eff_dist = c.dist
+        if eff_dist is None:
+            eff_dist = a.dist
+        mask_result = filter_eps is not None or retain_sparsity
+        if eff_dist is not None:
+            algo = _dist_algo(cfg.mm_dist_algo, eff_dist.grid)
+            with timed(f"multiply/{algo}"):
+                if algo == "summa":
+                    from .summa import execute_summa as exec_dist
+                else:
+                    from .cannon import execute_cannon as exec_dist
+                out_data = exec_dist(
+                    a, ta, ca, b, tb, cb, c, c_index, alpha, beta, eff_dist,
+                    k_dist, cfg, mask_result=mask_result,
+                )
+        else:
+            with timed("multiply/exec"):
+                out_data = _execute_local(
+                    a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg,
+                    mask_result=mask_result,
+                )
         result = BCSRMatrix(
             name=(c.name if c is not None else "product"),
             index=c_index, data=out_data, sym=SYM_NONE,
+            dist=(c.dist if c is not None else eff_dist),
         )
         # final norm filter (the reference's multrec_filtering)
         if filter_eps is not None and not retain_sparsity:
@@ -944,7 +983,7 @@ def multiply(
 
 def _multiply_limited(transa: str, transb: str, alpha, a: BCSRMatrix,
                       b: BCSRMatrix, beta, c: Optional[BCSRMatrix], *,
-                      filter_eps, return_flops: bool, limits: dict):
+                      filter_eps, return_flops: bool, dist, limits: dict):
     """Sub-matrix multiplication window (the reference's
     ``first_row/last_row/first_column/last_column/first_k/last_k``,
     ``src/mm/dbcsr_mm.F:630-709``): the product is computed only over the
@@ -984,7 +1023,7 @@ def _multiply_limited(transa: str, transb: str, alpha, a: BCSRMatrix,
              else extract_block_subset(b, row_blocks=k_sel, col_blocks=cols_sel))
     window, fl = multiply(
         transa, transb, alpha, a_sub, b_sub,
-        filter_eps=filter_eps, return_flops=True,
+        filter_eps=filter_eps, dist=dist, return_flops=True,
     )
     with timed("multiply/limits_expand"):
         w_idx = window.index
@@ -1007,12 +1046,12 @@ def _multiply_limited(transa: str, transb: str, alpha, a: BCSRMatrix,
         full_index, gather = hit
         expanded = BCSRMatrix(
             name="product", index=full_index, sym=SYM_NONE,
-            data=apply_prepared_gather(window.data, gather),
+            data=apply_prepared_gather(window.data, gather), dist=dist,
         )
     if c is not None:
         result = add(1.0, expanded, beta, c)
         result = BCSRMatrix(name=c.name, index=result.index, data=result.data,
-                            sym=result.sym)
+                            sym=result.sym, dist=result.dist)
     else:
         result = expanded
     if return_flops:
@@ -1103,4 +1142,128 @@ def build_multiply_executor(
         return apply_tile_gather(lp.run(a_data, b_data), gather)
 
     fn.plan = lp
+    return fn, c_index, symb.eff_flops
+
+
+def build_distributed_executor(
+    transa: str,
+    transb: str,
+    a: BCSRMatrix,
+    b: BCSRMatrix,
+    dist,
+    *,
+    k_dist: Optional[np.ndarray] = None,
+    algo: Optional[str] = None,
+    sharded: bool = False,
+):
+    """Plan-once distributed executor: ``(fn, c_index, eff_flops)`` with
+    ``fn(a_store, b_store) -> c_store`` running the tiled Cannon (square
+    grids) or SUMMA schedule over ``dist.grid``'s ranks, every host plan
+    and index upload done here (the JAX package's
+    ``build_distributed_executor``). Each rank's tick launches the port's
+    stack kernel for the dtype; ``fn.plan`` is the ``cannon.RankPlan``
+    (``launches`` per call) and ``fn.exec`` the packing around it.
+
+    With ``sharded=True`` the executor takes and gives the SHARDED at-rest
+    form (``dist/sharded.py``): A and B as lists of per-rank ``[n_max, T,
+    T]`` shards in the executor's shard layouts (``fn.shard_a``,
+    ``fn.shard_b``), C as the list of its rank shards (``fn.shard_c``: a
+    rank's C panel IS its shard). The ranks' pieces are gathered from
+    the shards they need (the reference's ``make_images`` alltoall)."""
+    from ..dist.distribution import dist_tile_bins, tile_dist_vector
+    from ..ops.transform import desymmetrize
+    from .cannon import RankPlan, ShardGather, _perm, dist_exec, plan_cannon_tiled
+    from .summa import plan_summa
+
+    cfg = get_config()
+    ta, ca = _effective_trans(transa)
+    tb, cb = _effective_trans(transb)
+    a, b = _promote_operands(a, b)
+    a = desymmetrize(a)
+    b = desymmetrize(b)
+    tile = a.tile
+    grid = dist.grid
+    algo = _dist_algo(algo or cfg.mm_dist_algo, grid)
+    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
+    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
+    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
+    symb = symbolic_product(a.index, ta, b.index, tb)
+    c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
+    p, q = grid.nprow, grid.npcol
+    if k_dist is None:
+        k_dist = tile_dist_vector(k_sizes, p if algo == "cannon" else max(p, q), tile)
+    a_op, b_op = _op_pattern(a, ta), _op_pattern(b, tb)
+    c_lay = store_layout(c_index, tile)
+    rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
+    colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
+    kb = dist_tile_bins(k_dist, k_sizes, tile, majority=True)
+    dev = a.device
+    with timed(f"{algo}/plan"):
+        if algo == "cannon":
+            plan = plan_cannon_tiled(a_op.coords, b_op.coords, c_lay, rowb, colb, kb,
+                                     p, grid.nlayer)
+        else:
+            plan = plan_summa(a_op.coords, b_op.coords, c_lay, rowb, colb,
+                              kb % q, kb % p, p, q, grid.nlayer)
+    dtype = a.dtype
+    conj = (ca and dtype.is_complex, cb and dtype.is_complex)
+
+    if sharded:
+        from ..dist.sharded import shard_layout_from_bins
+
+        # each operand shards along its OWN stored dims: the per-tile bin
+        # of a logical dim (m -> rowb, n -> colb, k -> kb) folded onto the grid
+        a_rbins = (kb % p) if ta else rowb
+        a_cbins = (rowb % q) if ta else (kb % q)
+        b_rbins = (colb % p) if tb else (kb % p)
+        b_cbins = (kb % q) if tb else (colb % q)
+        sl_a = shard_layout_from_bins(a.index, tile, a_rbins, a_cbins, p, q)
+        sl_b = shard_layout_from_bins(b.index, tile, b_rbins, b_cbins, p, q)
+        sl_c = shard_layout_from_bins(c_index, tile, rowb, colb, p, q)
+        dbcsr_assert(plan.n_c == sl_c.n_max, "C shard layout mismatch")
+
+        def remap(pack, sl, op):
+            # pack indexes the OP store: compose with the transpose order to
+            # reach the at-rest slots, then their shard positions
+            idx = pack.astype(np.int64)
+            if op.perm is not None:
+                idx = np.where(idx >= 0, op.perm[np.maximum(idx, 0)], -1)
+            return np.where(idx >= 0, sl.pos_of_slot[np.maximum(idx, 0)], -1)
+
+        rplan = RankPlan.build(
+            algo, grid, tile, plan.n_a, plan.n_b, plan.n_c,
+            plan.stacks.reshape(p, q, grid.nlayer, -1, plan.s_max, 3),
+        )
+        gather_a = ShardGather(remap(plan.a_pack, sl_a, a_op), plan.n_a, sl_a.n_max,
+                               grid)
+        gather_b = ShardGather(remap(plan.b_pack, sl_b, b_op), plan.n_b, sl_b.n_max,
+                               grid)
+
+        def op_tiles(pieces, trans, cj):
+            if not trans and not cj:
+                return pieces
+            out = []
+            for x in pieces:
+                x = x.transpose(1, 2).contiguous() if trans else x
+                out.append(torch.conj_physical(x) if cj else x)
+            return out
+
+        def fn(a_sh, b_sh):
+            panels = rplan.run(op_tiles(gather_a(a_sh), ta, conj[0]),
+                               op_tiles(gather_b(b_sh), tb, conj[1]), dtype)
+            return [x.to(dtype) for x in panels]
+
+        fn.shard_a, fn.shard_b, fn.shard_c = sl_a, sl_b, sl_c
+        fn.plan = rplan
+    else:
+        ex = dist_exec(algo, plan, grid, tile, _perm(a_op, dev), _perm(b_op, dev),
+                       a.data.shape[0], b.data.shape[0], dev)
+
+        def fn(a_data, b_data):
+            if a_data.dtype != dtype or b_data.dtype != dtype:
+                a_data, b_data = a_data.to(dtype), b_data.to(dtype)
+            return ex(a_data, b_data, conj).to(dtype)
+
+        fn.plan, fn.exec = ex.plan, ex
+    fn.algo, fn.host_plan = algo, plan
     return fn, c_index, symb.eff_flops

@@ -1,8 +1,9 @@
 """Plan cache for repeated one-shot multiplies.
 
-Copy of ``dbcsr_tpu/mm/plancache.py`` without the distribution key:
-iterative callers that do not use ``build_multiply_executor`` still repeat
-products over identical sparsity patterns (SCF steps), so a small
+Copy of ``dbcsr_tpu/mm/plancache.py`` (the distribution key names the
+grid's rank devices where the JAX one names its mesh devices): iterative
+callers that do not use ``build_multiply_executor`` still repeat products
+over identical sparsity patterns (SCF steps), so a small
 content-keyed LRU reuses the symbolic product, the C index and the local
 plan across calls. Keys are fingerprints of the index CONTENT (pattern +
 block sizes), so the cache is safe across object lifetimes and data
@@ -24,7 +25,8 @@ import numpy as np
 
 from ..block.index import BCSRIndex
 
-__all__ = ["index_fingerprint", "array_fingerprint", "PlanCache", "get_plan_cache"]
+__all__ = ["index_fingerprint", "array_fingerprint", "dist_fingerprint",
+           "PlanCache", "get_plan_cache"]
 
 _CAPACITY = 64
 _MAX_BYTES = 8 << 30  # 10% of an 80 GB card
@@ -52,6 +54,20 @@ def array_fingerprint(*arrays) -> bytes:
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
     return h.digest()
+
+
+def dist_fingerprint(dist) -> bytes:
+    """Content hash of a Distribution (grid shape, rank devices, row/col
+    maps), cached on the object: two grids of one shape over other devices
+    must not share a cached executor (it holds tensors on those devices)."""
+    if getattr(dist, "_fingerprint", None) is None:
+        g = dist.grid
+        h = hashlib.blake2b(digest_size=16)
+        h.update(bytes([g.nprow, g.npcol, g.nlayer]))
+        h.update(repr([str(d) for d in g.devices.flat]).encode())
+        h.update(array_fingerprint(dist.row_dist, dist.col_dist))
+        object.__setattr__(dist, "_fingerprint", h.digest())
+    return dist._fingerprint
 
 
 class PlanCache:

@@ -83,7 +83,8 @@ def add(alpha, a: BCSRMatrix, beta, b: BCSRMatrix) -> BCSRMatrix:
         dtype = torch.promote_types(a.dtype, b.dtype)
         out = (_scalar(alpha, dtype, a.device) * _align_to(keys, a).to(dtype)
                + _scalar(beta, dtype, a.device) * _align_to(keys, b).to(dtype))
-        return BCSRMatrix(name=a.name, index=merged, data=out, sym=a.sym)
+        return BCSRMatrix(name=a.name, index=merged, data=out, sym=a.sym,
+                          dist=a.dist)
 
 
 def scale(m: BCSRMatrix, alpha) -> BCSRMatrix:
@@ -181,7 +182,8 @@ def hadamard_product(a: BCSRMatrix, b: BCSRMatrix) -> BCSRMatrix:
     )
     keys = store_layout(new_index, a.tile).tile_keys()
     return BCSRMatrix(name=a.name, index=new_index,
-                      data=_align_to(keys, a) * _align_to(keys, b), sym=SYM_NONE)
+                      data=_align_to(keys, a) * _align_to(keys, b), sym=SYM_NONE,
+                      dist=a.dist)
 
 
 def filter_blocks(m: BCSRMatrix, eps: Optional[float]) -> BCSRMatrix:
@@ -212,7 +214,8 @@ def filter_blocks(m: BCSRMatrix, eps: Optional[float]) -> BCSRMatrix:
             pcache.put(fkey, (new_index,))
         keys = store_layout(new_index, m.tile).tile_keys()
         data = _align_to(keys, m) * valid_mask(new_index, m.tile, m.device).to(m.dtype)
-        return BCSRMatrix(name=m.name, index=new_index, data=data, sym=m.sym)
+        return BCSRMatrix(name=m.name, index=new_index, data=data, sym=m.sym,
+                          dist=m.dist)
 
 
 def _safe_inverse(x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +269,8 @@ def get_block_diag(m: BCSRMatrix) -> BCSRMatrix:
     new_index, _ = build_index(rows, rows, m.index.row_block_sizes, m.index.col_block_sizes)
     keys = store_layout(new_index, m.tile).tile_keys()
     data = _align_to(keys, m) * valid_mask(new_index, m.tile, m.device).to(m.dtype)
-    return BCSRMatrix(name=m.name + "_diag", index=new_index, data=data, sym=m.sym)
+    return BCSRMatrix(name=m.name + "_diag", index=new_index, data=data, sym=m.sym,
+                      dist=m.dist)
 
 
 def triu(m: BCSRMatrix) -> BCSRMatrix:

@@ -74,12 +74,7 @@ def from_csr(
     ``device``: any block containing at least one stored element (an
     explicit zero counts) becomes a stored (dense) block; with
     ``keep_zero_blocks`` every block is stored. Duplicate entries are
-    summed (on a copy). A target distribution waits for ROADMAP item 9."""
-    if dist is not None:
-        raise NotImplementedError(
-            "from_csr(dist=...): distributions are not ported yet: ROADMAP "
-            "Queue 1 item 9"
-        )
+    summed (on a copy); ``dist`` is attached to the result."""
     csr = sp.csr_matrix(csr)
     rbs = np.asarray(row_block_sizes, dtype=np.int32)
     cbs = np.asarray(col_block_sizes, dtype=np.int32)
@@ -110,7 +105,7 @@ def from_csr(
                + (coo.col - co[ec]))
         flat = np.zeros(index.nelems, dtype=csr.dtype)
         flat[pos] = coo.data
-    return BCSRMatrix.from_flat(index, flat, name=name, device=device)
+    return BCSRMatrix.from_flat(index, flat, name=name, device=device, dist=dist)
 
 
 def csr_write(csr, path_or_file, *, threshold: Optional[float] = None) -> None:

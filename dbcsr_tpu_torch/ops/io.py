@@ -23,8 +23,8 @@ Port of ``dbcsr_tpu/ops/io.py`` (reference ``src/ops/dbcsr_io.F``):
 
 Complex64 and complex128 matrices are written with the dtype strings
 ``'<c8'`` / ``'<c16'`` and their flat data as numpy writes it, the JAX
-package's bytes. A target distribution raises ``NotImplementedError``
-(ROADMAP item 9).
+package's bytes. ``binary_read(dist=...)`` attaches the target
+distribution to the matrix it reads.
 """
 from __future__ import annotations
 
@@ -141,14 +141,9 @@ def binary_write(m: BCSRMatrix, path: str) -> None:
 def binary_read(path: str, *, device, name: Optional[str] = None,
                 dist=None) -> BCSRMatrix:
     """Load a matrix snapshot (``dbcsr_binary_read`` analog,
-    ``src/ops/dbcsr_io.F:860``) with its tile store on ``device``. The
-    reference redistributes into a caller-supplied ``dist`` on read; that
-    waits for ROADMAP item 9."""
-    if dist is not None:
-        raise NotImplementedError(
-            "binary_read(dist=...): distributions are not ported yet: ROADMAP "
-            "Queue 1 item 9"
-        )
+    ``src/ops/dbcsr_io.F:860``) with its tile store on ``device``; attaches
+    ``dist`` if given (the reference redistributes into a caller-supplied
+    distribution on read)."""
     with timed("binary_read"), open(path, "rb") as f:
         magic = f.read(len(_MAGIC))
         if magic != _MAGIC:
@@ -185,12 +180,13 @@ def binary_read(path: str, *, device, name: Optional[str] = None,
     if not bf16:
         return BCSRMatrix.from_flat(
             idx, data.astype(np.dtype(header["dtype"])), name=name,
-            sym=header["sym"], device=device,
+            sym=header["sym"], device=device, dist=dist,
         )
     dbcsr_assert(data.dtype.itemsize == 2, "bfloat16 data must be 2-byte words")
     words = store_layout(idx, default_tile()).store_from_flat(data.view(np.int16))
     store = torch.from_numpy(words).view(torch.bfloat16).to(device)
-    return BCSRMatrix(name=name, index=idx, data=store, sym=header["sym"])
+    return BCSRMatrix(name=name, index=idx, data=store, sym=header["sym"],
+                      dist=dist)
 
 
 def print_matrix(
@@ -274,7 +270,7 @@ def verify_matrix(m: BCSRMatrix) -> bool:
 
 def get_info(m: BCSRMatrix) -> dict:
     """Matrix metadata snapshot (``dbcsr_get_info`` analog,
-    ``src/dbcsr_api.F``). The port's matrices carry no distribution."""
+    ``src/dbcsr_api.F``)."""
     return {
         "name": m.name,
         "nfullrows": m.index.nfullrows,
@@ -288,7 +284,7 @@ def get_info(m: BCSRMatrix) -> dict:
         "dtype": _dtype_name(m.dtype),
         "tile": m.tile,
         "n_tiles": m.layout.n_tiles,
-        "distributed": False,
+        "distributed": m.dist is not None,
         "row_block_sizes": m.index.row_block_sizes,
         "col_block_sizes": m.index.col_block_sizes,
     }
@@ -296,8 +292,13 @@ def get_info(m: BCSRMatrix) -> dict:
 
 def get_stored_coordinates(m: BCSRMatrix, row: int, col: int) -> Optional[int]:
     """Owning device id of block (row, col) under the matrix's distribution
-    (``dbcsr_get_stored_coordinates``): None, as for every local matrix."""
-    return None
+    (``dbcsr_get_stored_coordinates``): the rank ``i * npcol + j`` of the
+    grid's (row, col) plane; None for a local/replicated matrix."""
+    if m.dist is None:
+        return None
+    i = int(m.dist.row_dist[row])
+    j = int(m.dist.col_dist[col])
+    return i * m.dist.grid.npcol + j
 
 
 def checksum(m: BCSRMatrix, *, pos: bool = False) -> float:

@@ -7,13 +7,13 @@ order, so one seed gives both packages bit-identical matrices.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..block.bcsr import BCSRMatrix, SYM_NONE, _host_dtype, torch_dtype
 
-__all__ = ["random_block_sizes", "random_matrix"]
+__all__ = ["random_block_sizes", "random_matrix", "random_dist_vector"]
 
 
 def random_block_sizes(
@@ -43,6 +43,7 @@ def random_matrix(
     dtype=np.float32,
     sym: str = SYM_NONE,
     tile=None,
+    dist=None,
 ) -> BCSRMatrix:
     """Random block-sparse matrix with the given block occupancy
     (``dbcsr_make_random_matrix``), its tile store on ``device``. A
@@ -73,5 +74,13 @@ def random_matrix(
         blocks.append(blk.astype(hdt))
     return BCSRMatrix.from_blocks(
         rows.astype(np.int32), cols.astype(np.int32), blocks, rbs, cbs,
-        name=name, sym=sym, dtype=tdt, device=device, tile=tile,
+        name=name, sym=sym, dtype=tdt, device=device, tile=tile, dist=dist,
     )
+
+
+def random_dist_vector(
+    n: int, nbins: int, rng: Optional[np.random.Generator] = None
+) -> np.ndarray:
+    """Random row/col → bin map (``dbcsr_random_dist``)."""
+    rng = rng or np.random.default_rng(0)
+    return rng.integers(0, nbins, size=n).astype(np.int32)

@@ -1,7 +1,7 @@
 """Structural transformations: transpose, desymmetrize, fold, copy, dense
 conversion.
 
-Port of the single-device part of ``dbcsr_tpu/ops/transform.py``
+Port of ``dbcsr_tpu/ops/transform.py``
 (reference ``src/ops/dbcsr_transformations.F:101-150``). On the tile-store
 layout, transpose is a tile permutation plus a per-tile transpose (no
 element maps), and desymmetrize is the transposed store (negated for
@@ -10,7 +10,10 @@ strict-lower global triangle by a coordinate mask.
 ``make_dense``/``make_undense`` convert between block structures through
 the dense matrix (``dbcsr_make_dense``/``dbcsr_make_undense``); ``retile``
 re-lays a store at another tile edge with one device element gather. The
-distribution functions of the JAX module wait for ROADMAP item 9.
+distribution functions (``redistribute``, ``complete_redistribute``,
+``distribute``, ``replicate_all``) attach or drop a ``Distribution``: the
+store is layout-independent and the distributed executors pack each rank's
+panels from the distribution maps at multiply time, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from ..core.timing import timed
 
 __all__ = [
     "transpose", "desymmetrize", "fold_symmetric", "copy", "make_dense",
-    "make_undense", "may_be_dense", "retile",
+    "make_undense", "may_be_dense", "retile", "redistribute",
+    "complete_redistribute", "replicate_all", "distribute", "sum_replicated",
 ]
 
 
@@ -63,7 +67,8 @@ def fold_symmetric(m: BCSRMatrix, sym: str = SYM_SYMMETRIC) -> BCSRMatrix:
         data = take_tiles(
             m.data, tile_align_map(keys, m.layout.tile_keys()), m.tile
         ) * valid_mask(new_index, m.tile, m.device).to(m.dtype)
-        return BCSRMatrix(name=m.name, index=new_index, data=data, sym=sym)
+        return BCSRMatrix(name=m.name, index=new_index, data=data, sym=sym,
+                          dist=m.dist)
 
 
 def retile(m: BCSRMatrix, tile: int) -> BCSRMatrix:
@@ -79,7 +84,8 @@ def retile(m: BCSRMatrix, tile: int) -> BCSRMatrix:
         data = apply_flat_gather(
             m.index, tile, m, np.arange(m.index.nelems, dtype=np.int64)
         )
-        return BCSRMatrix(name=m.name, index=m.index, data=data, sym=m.sym)
+        return BCSRMatrix(name=m.name, index=m.index, data=data, sym=m.sym,
+                          dist=m.dist)
 
 
 def may_be_dense(m: BCSRMatrix, threshold: float = 0.5) -> bool:
@@ -102,7 +108,8 @@ def transpose(m: BCSRMatrix, *, conjugate: bool = False) -> BCSRMatrix:
             "transposed tile sets must agree",
         )
         return BCSRMatrix(name=m.name + "^T", index=new_index, data=data,
-                          sym=SYM_NONE)
+                          sym=SYM_NONE,
+                          dist=None if m.dist is None else m.dist.transposed())
 
 
 def desymmetrize(m: BCSRMatrix) -> BCSRMatrix:
@@ -135,12 +142,57 @@ def desymmetrize(m: BCSRMatrix) -> BCSRMatrix:
             refl = refl.conj_physical()
         lower = coord_mask(new_lay, lambda r, c: r > c, m.device)
         return BCSRMatrix(name=m.name, index=new_index,
-                          data=torch.where(lower, refl, up), sym=SYM_NONE)
+                          data=torch.where(lower, refl, up), sym=SYM_NONE,
+                          dist=m.dist)
 
 
 def copy(m: BCSRMatrix, *, name: Optional[str] = None) -> BCSRMatrix:
     """A new matrix sharing ``m``'s index and store (both are immutable)."""
     return replace(m, name=name or m.name)
+
+
+def redistribute(m: BCSRMatrix, dist) -> BCSRMatrix:
+    """Attach a new distribution (``dbcsr_redistribute``). The executors
+    pack each rank's panels from the distribution maps, so changing the
+    distribution moves no data here."""
+    dbcsr_assert(
+        dist is None or dist.compatible_with(m.index),
+        "distribution incompatible with block structure",
+    )
+    return replace(m, dist=dist)
+
+
+def complete_redistribute(m: BCSRMatrix, dist) -> BCSRMatrix:
+    """Arbitrary dist→dist move (``dbcsr_complete_redistribute``,
+    ``src/ops/dbcsr_transformations.F:101``): :func:`redistribute`, kept as
+    a name of its own as in the reference's API."""
+    return redistribute(m, dist)
+
+
+def replicate_all(m: BCSRMatrix) -> BCSRMatrix:
+    """Full replication (``dbcsr_replicate_all``): drop the distribution, so
+    the engine treats the store as replicated (local multiplies)."""
+    return replace(m, dist=None)
+
+
+def distribute(m: BCSRMatrix, dist) -> BCSRMatrix:
+    """Replicated → distributed (``dbcsr_distribute``), the inverse of
+    :func:`replicate_all`: multiplies then run over ``dist``'s grid."""
+    return redistribute(m, dist)
+
+
+def sum_replicated(copies) -> BCSRMatrix:
+    """Element-sum of independently updated replicas
+    (``dbcsr_sum_replicated``, ``src/ops/dbcsr_operations.F:118``), in the
+    order given; index patterns may differ (the result is the merged one)."""
+    from .arithmetic import add
+
+    copies = list(copies)
+    dbcsr_assert(len(copies) > 0, "sum_replicated needs at least one matrix")
+    out = copies[0]
+    for nxt in copies[1:]:
+        out = add(1.0, out, 1.0, nxt)
+    return out
 
 
 def make_dense(m: BCSRMatrix) -> BCSRMatrix:
@@ -170,5 +222,5 @@ def make_undense(
         return BCSRMatrix.from_dense(
             m.to_dense(), row_block_sizes, col_block_sizes,
             name=m.name, tol=tol, keep_zero_blocks=keep_zero_blocks,
-            device=m.device, tile=m.tile,
+            device=m.device, tile=m.tile, dist=m.dist,
         )

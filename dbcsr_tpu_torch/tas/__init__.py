@@ -1,4 +1,4 @@
-"""Tall-and-skinny (TAS) matrix layer, single process.
+"""Tall-and-skinny (TAS) matrix layer.
 
 Port of ``dbcsr_tpu/tas/`` (SURVEY.md §2.6): matrices where one dimension
 is much larger than the other (tensor unfoldings). The long dimension is
@@ -6,8 +6,8 @@ partitioned into ``nsplit`` groups; multiplication extracts each group's
 blocks, reuses the small operand, runs an ordinary multiply per group, and
 merges/sums the results (``dbcsr_tas_multiply``,
 ``src/tas/dbcsr_tas_mm.F:79-782``). ``tas_multiply_parallel`` and
-``tas_multiply_subgrid`` (``tas/parallel.py``) come with the distributed
-executors (ROADMAP item 9).
+``tas_multiply_subgrid`` (``tas/parallel.py``) run the groups on ranks of
+a process grid, one stack-kernel launch per group.
 """
 from .matrix import (
     TASMatrix,
@@ -22,6 +22,7 @@ from .mm import (
     split_factor_estimate,
     tas_multiply,
 )
+from .parallel import tas_multiply_parallel, tas_multiply_subgrid
 from .split import COLSPLIT, ROWSPLIT, TASSplit
 
 __all__ = [
@@ -37,4 +38,6 @@ __all__ = [
     "merge_row_groups",
     "merge_col_groups",
     "BatchedTAS",
+    "tas_multiply_parallel",
+    "tas_multiply_subgrid",
 ]

@@ -16,8 +16,9 @@ Port of ``dbcsr_tpu/tas/mm.py``'s single-process path (reference
    the partial products through ``beta`` = 1 (k split,
    ``redistribute_and_sum:783``), filtering once at the end.
 
-``dist=`` reaches the port's ``multiply``, which raises until ROADMAP item 9
-ports the distributed executors (``tas/parallel.py`` goes with it).
+``dist=`` reaches the port's ``multiply``: each group multiply then runs
+over the distribution's process grid. The mesh-parallel form, every group
+at once on ranks of its own, is ``tas/parallel.py``.
 """
 from __future__ import annotations
 

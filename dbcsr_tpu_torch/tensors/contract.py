@@ -9,7 +9,8 @@ TAS layer (``dbcsr_tas_multiply``) and fold the result into the output
 tensor's layout. Supports ``bounds`` (block-aligned index-range batching, the
 reference's ``bounds_1/2/3``), ``filter_eps`` and flop reporting. The
 folded product runs on the operands' device through the port's multiply;
-``dist=`` reaches it and raises until ROADMAP item 9.
+``dist=`` reaches it and runs it over the distribution's process grid
+(Cannon or SUMMA, ``mm/cannon.py``, ``mm/summa.py``).
 """
 from __future__ import annotations
 

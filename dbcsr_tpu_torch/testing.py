@@ -7,8 +7,12 @@ port's ``BCSRMatrix`` with the same index, symmetry and a bit-identical
 tile store — float64 stays float64 — so one numpy description reaches both
 packages; results are then compared as numpy arrays. A tensor crosses the
 same way, as its nd block sizes, its mapping and its folded matrix's block
-coordinates and flat data (``tensor_from_arrays``). This module does not
-import jax: the caller does the ``np.asarray``.
+coordinates and flat data (``tensor_from_arrays``). A distribution
+crosses as its ``row_dist``/``col_dist`` vectors and the grid's shape
+(``distribution_from_arrays``, over the caller's rank devices), a sharded
+matrix as its index arrays and per-rank numpy shards
+(``sharded_from_arrays``). This module does not import jax: the caller
+does the ``np.asarray``.
 
 Self-tests (port of ``dbcsr_tpu/testing.py``, the reference's
 ``dbcsr_run_tests`` / ``dbcsr_test_mm`` / ``dbcsr_test_binary_io``,
@@ -16,7 +20,9 @@ Self-tests (port of ``dbcsr_tpu/testing.py``, the reference's
 installed library on its own device without the pytest suite. The oracle
 is the reference's (``tests/dbcsr_test_multiply.F:523-700``): operands to
 dense on the host, ``multiply`` against a dense GEMM with norm-scaled
-residuals. ``validate_kernels`` holds every CUDA kernel family against its
+residuals; ``test_dist`` runs Cannon, SUMMA, 2.5D and the sharded
+executor over a grid of virtual ranks on the device against the same
+oracle. ``validate_kernels`` holds every CUDA kernel family against its
 plain PyTorch version on a CUDA device (on a CPU device the plain version
 is the route, so there is nothing to hold). The JAX package's TPU lowering
 and compile gates have no counterpart here: nvcc builds the kernels
@@ -38,6 +44,8 @@ from .core.errors import dbcsr_assert
 __all__ = [
     "matrix_from_arrays",
     "tensor_from_arrays",
+    "distribution_from_arrays",
+    "sharded_from_arrays",
     "to_numpy",
     "to_dense_local",
     "impose_sparsity",
@@ -46,6 +54,7 @@ __all__ = [
     "test_binary_io",
     "test_tas",
     "test_tensor",
+    "test_dist",
     "validate_kernels",
     "run_tests",
 ]
@@ -106,6 +115,43 @@ def tensor_from_arrays(
     )
     m = matrix_from_arrays(rbs, cbs, rows, cols, store, device=device, name=name)
     return Tensor(name=name, block_sizes=bs, mapping=mapping, matrix=m.astype(tdt))
+
+
+def distribution_from_arrays(row_dist, col_dist, grid_shape: Sequence[int], *,
+                             devices):
+    """The port's ``Distribution`` with the JAX one's ``row_dist`` /
+    ``col_dist`` vectors over a grid of ``grid_shape`` (``(nprow, npcol)``
+    or ``(nprow, npcol, nlayer)``, the JAX mesh's shape) whose ranks sit on
+    ``devices`` (e.g. ``[torch.device("cpu")] * 8``)."""
+    from .dist.distribution import Distribution
+    from .dist.grid import ProcessGrid
+
+    grid = ProcessGrid.make(*grid_shape, devices=devices)
+    return Distribution(grid=grid, row_dist=np.asarray(row_dist, dtype=np.int32),
+                        col_dist=np.asarray(col_dist, dtype=np.int32))
+
+
+def sharded_from_arrays(row_block_sizes, col_block_sizes, rows, cols, shards_np,
+                        dist, *, name: str = "matrix", sym: str = SYM_NONE):
+    """The port's ``ShardedMatrix`` with the block index of ``rows`` /
+    ``cols`` (canonical order) and per-rank numpy shards ``shards_np``
+    ([ndev, n_max, T, T], the JAX sharded array as numpy), over the port's
+    ``dist``; each shard lands on its rank's device. The shard layout must
+    match the shards' shape."""
+    from .dist.sharded import plane_devices, shard_layout
+    from .dist.sharded_ops import ShardedMatrix
+
+    shards_np = np.asarray(shards_np)
+    index, order = build_index(rows, cols, row_block_sizes, col_block_sizes)
+    dbcsr_assert(np.array_equal(order, np.arange(len(order))),
+                 "block coordinates must be in canonical (row, col) order")
+    tile = int(shards_np.shape[-1])
+    sl = shard_layout(index, tile, dist)
+    dbcsr_assert(shards_np.shape[:2] == (sl.ndev, sl.n_max), "shard layout mismatch")
+    data = [torch.tensor(shards_np[d], device=dev)
+            for d, dev in enumerate(plane_devices(dist.grid))]
+    return ShardedMatrix(name=name, index=index, tile=tile, dist=dist, shard=sl,
+                         data=data, sym=sym)
 
 
 def to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -444,6 +490,68 @@ def test_tensor(device, *, seed: int = 0, verbose: bool = False) -> bool:
     return good
 
 
+def test_dist(device, *, seed: int = 0, verbose: bool = False) -> bool:
+    """Distributed self-test: ``multiply(dist=...)`` over grids of virtual
+    ranks on ``device`` — Cannon 2×2 (tile-aligned and, through the
+    element-granular plan, block-cyclic), 2.5D Cannon 2×2×2, SUMMA 2×3 and
+    2.5D SUMMA 2×2×2 — in float64, ``beta·C`` included, and the sharded
+    executor on 2×2, each against the dense oracle."""
+    from .core.config import config_override
+    from .dist import (
+        ProcessGrid,
+        block_cyclic_dist,
+        shard_matrix,
+        sharded_multiply,
+        tile_aligned_dist,
+    )
+    from .mm.engine import multiply
+    from .ops.random import random_block_sizes, random_matrix
+
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    tile = 16
+    good = True
+    with config_override(tile_size=tile):
+        mbs = random_block_sizes(90, [3, 5], rng)
+        kbs = random_block_sizes(70, [4, 6], rng)
+        nbs = random_block_sizes(80, [2, 7], rng)
+
+        def mat(r, c, occ, name):
+            return random_matrix(r, c, occ, rng, dtype=np.float64, name=name,
+                                 device=device)
+
+        a, b, c = mat(mbs, kbs, 0.3, "A"), mat(kbs, nbs, 0.3, "B"), mat(mbs, nbs, 0.2, "C")
+        ref = 0.5 * to_dense_local(a) @ to_dense_local(b) - 2.0 * to_dense_local(c)
+        scale = max(np.abs(ref).max(), 1.0)
+        cases = [((2, 2, 1), "aligned", True), ((2, 2, 1), "cyclic", False),
+                 ((2, 2, 2), "aligned", True), ((2, 3, 1), "aligned", True),
+                 ((2, 2, 2), "summa", True)]
+        for shape, kind, tiled in cases:
+            grid = ProcessGrid.make(*shape, devices=[device] * 8)
+            dist = (block_cyclic_dist(grid, len(mbs), len(nbs)) if kind == "cyclic"
+                    else tile_aligned_dist(grid, mbs, nbs, tile))
+            algo = "summa" if kind == "summa" else "auto"
+            with config_override(use_tiled_cannon=tiled, mm_dist_algo=algo):
+                out = multiply("N", "N", 0.5, a, b, -2.0, c, dist=dist)
+            ok = bool(np.abs(to_dense_local(out) - ref).max() <= 1e-10 * scale)
+            good = good and ok
+            if verbose or not ok:
+                print(f"test_dist: {'x'.join(map(str, shape))} {kind}: "
+                      f"{'OK' if ok else 'FAILED'}")
+        # the sharded form: a square matrix squared, at rest on its owners
+        grid = ProcessGrid.make(2, 2, devices=[device] * 4)
+        s = mat(mbs, mbs, 0.3, "S")
+        ss = shard_matrix(s, tile_aligned_dist(grid, mbs, mbs, tile))
+        out = sharded_multiply("N", "N", 1.0, ss, ss).to_local()
+        ref = to_dense_local(s) @ to_dense_local(s)
+        ok = bool(np.abs(to_dense_local(out) - ref).max()
+                  <= 1e-10 * max(np.abs(ref).max(), 1.0))
+        good = good and ok
+        if verbose or not ok:
+            print(f"test_dist: sharded 2x2: {'OK' if ok else 'FAILED'}")
+    return good
+
+
 def run_tests(device, *, verbose: bool = False) -> bool:
     """Run every built-in self-test on ``device`` (``dbcsr_run_tests``).
     On a CUDA device the kernels are built first; a build failure raises."""
@@ -459,6 +567,7 @@ def run_tests(device, *, verbose: bool = False) -> bool:
     ok = validate_kernels(device, verbose=verbose) and ok
     ok = test_tas(device, verbose=verbose) and ok
     ok = test_tensor(device, verbose=verbose) and ok
+    ok = test_dist(device, verbose=verbose) and ok
     if verbose:
         print(f"run_tests: {'ALL OK' if ok else 'FAILURES'}")
     return ok

@@ -955,3 +955,72 @@ def test_complex_wrappers_refuse(dev):
         tile_stack_matmul_c128(good, good, ds)
     with pytest.raises(TypeError):
         tile_stack_matmul_c64(good.real.contiguous(), good.real.contiguous(), ds)
+
+
+# ---------------------------------------------------------------------------
+# the distributed multiply: every rank's tick on its kernel, cuda:0 ranks
+# ---------------------------------------------------------------------------
+
+def _dist_operands(dev, dtype, rng, tile=32):
+    from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
+
+    with config_override(tile_size=tile):
+        rbs = dtt.random_block_sizes(300, [5, 13, 23], rng)
+        a = dtt.random_matrix(rbs, rbs, 0.15, rng, dtype=dtype, device=dev)
+        b = dtt.random_matrix(rbs, rbs, 0.15, rng, dtype=dtype, device=dev)
+    return a, b, rbs, ProcessGrid, tile_aligned_dist
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (np.float32, "K1"), (np.float64, "f64"), (np.complex64, "KC1"),
+    (np.complex128, "KC2")])
+@pytest.mark.parametrize("shape,algo", [((2, 2, 1), "cannon"), ((2, 2, 2), "cannon"),
+                                        ((2, 4, 1), "summa")])
+def test_distributed_ticks_run_their_kernel(dev, shape, algo, dtype, kernel):
+    """Each non-empty (rank, tick) stack is one launch of the dtype's stack
+    kernel, on four or eight cuda:0 ranks, and the product agrees with the
+    same executor's ranks on the CPU (the plain versions), bitwise twice."""
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
+
+    wrapper = {"K1": tile_stack_matmul, "f64": tile_stack_matmul_f64,
+               "KC1": tile_stack_matmul_c64, "KC2": tile_stack_matmul_c128}[kernel]
+    rng = np.random.default_rng(4)
+    a, b, rbs, ProcessGrid, tile_aligned_dist = _dist_operands(dev, dtype, rng)
+    grid = ProcessGrid.make(*shape, devices=[dev] * 8)
+    fn, _, _ = dtt.build_distributed_executor(
+        "N", "N", a, b, tile_aligned_dist(grid, rbs, rbs, 32), algo=algo)
+    cpu = torch.device("cpu")
+    grid_c = ProcessGrid.make(*shape, devices=[cpu] * 8)
+    a_c, b_c = a.with_data(a.data.cpu()), b.with_data(b.data.cpu())
+    fn_c, _, _ = dtt.build_distributed_executor(
+        "N", "N", a_c, b_c, tile_aligned_dist(grid_c, rbs, rbs, 32), algo=algo)
+    before = wrapper.launches
+    out = fn(a.data, b.data)
+    assert wrapper.launches - before == fn.plan.launches > 0
+    assert torch.equal(fn(a.data, b.data), out)
+    ref = fn_c(a_c.data, b_c.data)
+    tol = RTOL_F64 if dtype in (np.float64, np.complex128) else RTOL
+    assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
+
+
+def test_distributed_grid_needs_a_device(dev, monkeypatch):
+    """With CUDA present the default grid cycles over the visible devices;
+    with CUDA absent (simulated) and no devices= it raises."""
+    from dbcsr_tpu_torch.core.errors import DbcsrError
+    from dbcsr_tpu_torch.dist import ProcessGrid
+
+    g = ProcessGrid.make(2, 2, 2)
+    assert all(d.type == "cuda" for d in g.devices.flat)
+    assert len(g.unique_devices()) == min(8, torch.cuda.device_count())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DbcsrError, match="no CUDA device"):
+        ProcessGrid.make(2, 2)
+
+
+def test_distributed_multiply_and_sharded_ops_on_the_card(dev):
+    """multiply(dist=...) through the element-granular plan (block-cyclic)
+    and the sharded at-rest form on cuda:0 ranks, against the local
+    multiply; the self-test's distributed legs."""
+    from dbcsr_tpu_torch.testing import test_dist
+
+    assert test_dist(dev)

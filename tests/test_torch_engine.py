@@ -489,7 +489,19 @@ def test_unported_options_raise(what):
     elif what == "f64_slices":
         cfg["f64_slices"] = 4
     elif what in ("dist", "k_dist"):
-        kw[what] = object()
+        # ported since: over a 2x2 grid of cpu ranks the product equals the
+        # local one (k_dist: an explicit binning of the inner dimension)
+        from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
+        grid = ProcessGrid.make(2, 2, devices=[torch.device("cpu")] * 4)
+        d = block_cyclic_dist(grid, at.nblkrows, at.nblkcols)
+        extra = {"k_dist": np.arange(at.nblkcols) % 2} if what == "k_dist" else {}
+        with torch_override(tile_size=8):
+            got = dtt.multiply("N", "N", 1.0, at, at, dist=d, **extra)
+            ref = dtt.multiply("N", "N", 1.0, at, at)
+        assert got.dist is d and np.array_equal(got.index.col_idx, ref.index.col_idx)
+        assert torch.allclose(got.data, ref.data, rtol=1e-12, atol=1e-12)
+        return
     elif what == "complex":
         # ported since: complex stores run through both entry points (the
         # complex stack kernels' route), and equal the real product there

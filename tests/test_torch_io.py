@@ -172,9 +172,15 @@ def test_checkpoint_refuses_complex_and_dist(tmp_path):
     with torch_override(tile_size=8):
         back = dtt.binary_read(str(tmp_path / "c"), device="cpu")
     assert back.dtype == torch.complex128 and torch.equal(back.data, mc.data)
+    # dist is ported since: the read attaches it
+    from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
     dtt.binary_write(mt, str(tmp_path / "m.bin"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dtt.binary_read(str(tmp_path / "m.bin"), device="cpu", dist=object())
+    d = block_cyclic_dist(ProcessGrid.make(2, 2, devices=["cpu"] * 4), mt.nblkrows,
+                          mt.nblkcols)
+    with torch_override(tile_size=8):
+        back = dtt.binary_read(str(tmp_path / "m.bin"), device="cpu", dist=d)
+    assert back.dist is d and torch.equal(back.data, mt.data)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +278,11 @@ def test_from_csr_refuses_bad_shape_and_dist():
     csr = random_csr(10)
     with pytest.raises(DbcsrError, match="shape"):
         dtt.from_csr(csr, [20, 19], [33], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dtt.from_csr(csr, [20, 20], [33], device="cpu", dist=object())
+    # dist is ported since: the result carries it
+    from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
+    d = block_cyclic_dist(ProcessGrid.make(2, 2, devices=["cpu"] * 4), 2, 1)
+    assert dtt.from_csr(csr, [20, 20], [33], device="cpu", dist=d).dist is d
 
 
 @pytest.mark.parametrize("threshold", [None, 0.5])

@@ -152,9 +152,20 @@ def test_limits_bad_range_asserts(bad):
 
 def test_limits_still_refuse_dist_and_complex():
     (_, at), (_, bt), _ = operands("N", "N", np.float64, 8, seed=41)
+    from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
+    d = block_cyclic_dist(ProcessGrid.make(2, 2, devices=["cpu"] * 4), at.nblkrows,
+                          bt.nblkcols)
     with torch_override(tile_size=8):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            dtt.multiply("N", "N", 1.0, at, bt, limits={"rows": (0, 2)}, dist=object())
+        # dist is ported since: a full window runs over the grid; a window
+        # that compacts the operands leaves the distribution's maps too long
+        # for them and still raises, in both packages (ROADMAP Queue 3)
+        full = {"rows": (0, at.nblkrows)}
+        got = dtt.multiply("N", "N", 1.0, at, bt, limits=full, dist=d)
+        ref = dtt.multiply("N", "N", 1.0, at, bt, limits=full)
+        assert torch.allclose(got.data, ref.data, rtol=1e-12, atol=1e-12)
+        with pytest.raises(ValueError):
+            dtt.multiply("N", "N", 1.0, at, bt, limits={"rows": (0, 2)}, dist=d)
         # complex is ported since: the window of a complex product is the
         # window of the real one (the data here is real)
         ac = at.with_data(at.data.to(torch.complex128))

@@ -342,8 +342,16 @@ def test_batched_tas_reuses_plan(dtype):
 def test_unported_options_raise():
     rng = np.random.default_rng(14)
     _, at = mat(bs(12, rng), bs(4, rng), 0.5, rng, np.float64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttas.tas_multiply("N", "T", 1.0, at, at, nsplit=1, dist=object())
+    # dist is ported since: the group multiply runs over the grid's ranks
+    from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
+    grid = ProcessGrid.make(2, 2, devices=[torch.device("cpu")] * 4)
+    d = block_cyclic_dist(grid, at.nblkrows, at.nblkrows)
+    with torch_override(tile_size=T):
+        got = ttas.tas_multiply("N", "T", 1.0, at, at, nsplit=1, dist=d).matrix
+        ref = ttas.tas_multiply("N", "T", 1.0, at, at, nsplit=1).matrix
+    assert np.array_equal(got.index.col_idx, ref.index.col_idx)
+    assert torch.allclose(got.data, ref.data, rtol=1e-12, atol=1e-12)
     from dataclasses import replace
 
     # complex is ported since: extraction and merges move complex stores

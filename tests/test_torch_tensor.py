@@ -477,8 +477,15 @@ def test_contract_rejects():
     with pytest.raises(dtt.DbcsrError):
         tten.contract(1.0, at, at, contract_1=(0,), notcontract_1=(1,),
                       contract_2=(1,), notcontract_2=(0,))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tten.contract(1.0, at, bt, nsplit=1, dist=object(), **kw)
+    # dist is ported since: the folded product runs over the grid's ranks
+    from dbcsr_tpu_torch.dist import ProcessGrid, block_cyclic_dist
+
+    grid = ProcessGrid.make(2, 2, devices=[torch.device("cpu")] * 4)
+    d = block_cyclic_dist(grid, 2, 1)
+    with torch_override(tile_size=T):
+        got = tten.contract(1.0, at, bt, nsplit=1, dist=d, **kw)
+        ref = tten.contract(1.0, at, bt, nsplit=1, **kw)
+    assert torch.allclose(got.to_dense(), ref.to_dense(), rtol=1e-12, atol=1e-12)
 
 
 # ---- random layouts (bounded hypothesis) ----------------------------------------
