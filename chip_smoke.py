@@ -170,6 +170,22 @@ Phases (any failure exits non-zero before the final line):
     equal, against the local product and (a-c) a host float64
     recomputation of 64 sampled tiles, CUDA-event medians of the executor
     and its parts (packing, ticks, unpacking) beside the local executor.
+15. the C API (``dbcsr_tpu_torch/capi/``, built with gcc), after phase 14
+    and before phase 10: (a) a C library loaded into this process with
+    ctypes builds phase 7's float64 operands (no decay) at 400,000 rows
+    from host blocks through ``c_dbcsr_create_new``,
+    ``c_dbcsr_reserve_blocks``, ``c_dbcsr_put_block2d_d`` and
+    ``c_dbcsr_finalize``, then runs ``c_dbcsr_multiply_d('N', 'N', 1, A, B,
+    0, C)`` once cold and ten times warm, each timed with CUDA events in
+    turns with the Python one-shot ``multiply`` (with the same C and with an
+    empty one): the float64 kernel the only launch, once a call; C read back
+    through ``c_dbcsr_get_data_d`` bitwise equal to the Python product;
+    ``c_dbcsr_checksum``, ``c_dbcsr_trace_d`` and 64 sampled blocks against
+    a host float64 recomputation; (b) ``examples/example_6_c_api.c``,
+    unchanged, as a program of its own with ``DBCSR_CAPI_DEVICE=cuda:0``;
+    (c) the typed sweep of ``tests/test_capi_v2.py`` (``MATRIX_PROGRAM``) in
+    this process under ``mm_driver="panel"``: its d, s, z and c products
+    launch the float64 kernel, K2, KC2 and KC1 once each.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (eight kernels: the six ports of the
@@ -3558,6 +3574,416 @@ def phase_dist(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the C API on the card
+# ---------------------------------------------------------------------------
+
+#: phase 15a: warm ``c_dbcsr_multiply_d`` calls timed, each beside a Python
+#: one-shot ``multiply`` on the same operands (the two in turns)
+CAPI_WARM_REPS = 10
+
+#: phase 15a: a C library over the port's shim, built into a shared object and
+#: loaded with ctypes (``CDLL``: the GIL is released around each call and the
+#: shim takes it back). ``scf_capi_build`` makes A and B from host blocks
+#: (block b of each at ``offsets[b]`` of its data) through
+#: ``c_dbcsr_create_new``, ``c_dbcsr_reserve_blocks``,
+#: ``c_dbcsr_put_block2d_d`` and ``c_dbcsr_finalize``, and C as an empty
+#: template of A, and reports the seconds of the puts and of finalize;
+#: ``scf_capi_multiply`` is one ``c_dbcsr_multiply_d('N', 'N', 1, A, B, 0, C)``.
+CAPI_SCF_C = r"""
+#include <stdint.h>
+#include <time.h>
+
+#include "dbcsr_tpu.h"
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return (double)t.tv_sec + 1e-9 * (double)t.tv_nsec;
+}
+
+static int build(const char *name, int nblk, const int *sizes, int n,
+                 const int *rows, const int *cols, const int64_t *offsets,
+                 const double *data, int64_t *out, double *seconds) {
+  int64_t m = 0;
+  if (c_dbcsr_create_new(&m, name, 0, 'N', sizes, nblk, sizes, nblk,
+                         dbcsr_type_real_8))
+    return 1;
+  double t0 = now();
+  if (c_dbcsr_reserve_blocks(m, rows, cols, n)) return 1;
+  for (int b = 0; b < n; ++b)
+    if (c_dbcsr_put_block2d_d(m, rows[b], cols[b], data + offsets[b],
+                              sizes[rows[b]], sizes[cols[b]], 0))
+      return 1;
+  double t1 = now();
+  if (c_dbcsr_finalize(m)) return 1;
+  seconds[0] += t1 - t0;
+  seconds[1] += now() - t1;
+  *out = m;
+  return 0;
+}
+
+int scf_capi_build(int nblk, const int *sizes, int n, const int *rows,
+                   const int *cols, const int64_t *offsets,
+                   const double *a_data, const double *b_data,
+                   int64_t *handles, double *seconds) {
+  seconds[0] = seconds[1] = 0.0;
+  if (build("A", nblk, sizes, n, rows, cols, offsets, a_data, &handles[0],
+            seconds) ||
+      build("B", nblk, sizes, n, rows, cols, offsets, b_data, &handles[1],
+            seconds))
+    return 1;
+  if (c_dbcsr_create_template(&handles[2], "C", handles[0], 0, 'N',
+                              dbcsr_type_real_8))
+    return 1;
+  return c_dbcsr_finalize(handles[2]);
+}
+
+int scf_capi_multiply(const int64_t *handles, double *flop) {
+  return c_dbcsr_multiply_d('N', 'N', 1.0, 0.0, handles[0], handles[1], 0.0,
+                            0.0, handles[2], 0, -1.0, flop);
+}
+"""
+
+
+def c_test_program(name: str) -> str:
+    """A C program of the C API tests (``tests/test_capi_v2.py``), read as a
+    string constant without running the file."""
+    import ast
+
+    with open(os.path.join(REPO, "tests", "test_capi_v2.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    fail(f"tests/test_capi_v2.py has no {name}")
+
+
+def build_c(text: str, out: str, shim: str, hdr: str, *flags: str) -> str:
+    """Compile ``text`` against the port's header and shim (gcc)."""
+    with open(out + ".c", "w") as f:
+        f.write(text)
+    res = subprocess.run(
+        ["gcc", "-O2", *flags, out + ".c", shim, f"-I{hdr}",
+         f"-Wl,-rpath,{os.path.dirname(shim)}", "-o", out],
+        capture_output=True, text=True, timeout=300,
+    )
+    if res.returncode != 0:
+        fail(f"gcc {os.path.basename(out)}.c: {res.stderr.strip()[-2000:]}")
+    return out
+
+
+def capi_env(device: str) -> dict:
+    """A C program's environment: this interpreter's module path for the
+    Python it embeds, and the shim's device."""
+    paths = [REPO] + [p for p in sys.path if p and os.path.isdir(p)]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(paths), DBCSR_CAPI_DEVICE=device)
+
+
+def capi_device(dev) -> str:
+    """``DBCSR_CAPI_DEVICE`` for ``dev``."""
+    return "cpu" if dev.type == "cpu" else f"cuda:{dev.index}"
+
+
+def event_ms(fn):
+    """(device ms between CUDA events around one call, its result)."""
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def c_stdout(fn):
+    """(fn(), what C code wrote to standard output meanwhile)."""
+    import ctypes
+    import tempfile
+
+    libc = ctypes.CDLL(None)
+    libc.fflush.argtypes = [ctypes.c_void_p]
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile(mode="w+") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            rc = fn()
+        finally:
+            libc.fflush(None)
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return rc, f.read()
+
+
+def host_trace_ab(idx, a_host, b_host) -> tuple:
+    """(trace(A·B), Σ|A_ik·B_ki|) on the host in float64 from the flat data
+    of A and B over one block index, block by block."""
+    n = idx.nblkrows
+    keys = idx.blk_rows.astype(np.int64) * n + idx.col_idx
+    order = np.argsort(keys)
+    skeys = keys[order]
+    tkeys = idx.col_idx.astype(np.int64) * n + idx.blk_rows
+    pos = np.minimum(np.searchsorted(skeys, tkeys), len(skeys) - 1)
+    hit = skeys[pos] == tkeys
+    bm, bn = idx.blk_shapes
+    off = idx.blk_offset
+    total = absum = 0.0
+    for ia, ib in zip(np.flatnonzero(hit), order[pos[hit]]):
+        pa = a_host[off[ia]:off[ia + 1]].reshape(bm[ia], bn[ia])
+        pb = b_host[off[ib]:off[ib + 1]].reshape(bm[ib], bn[ib])
+        p = pa * pb.T
+        total += float(p.sum())
+        absum += float(np.abs(p).sum())
+    return total, absum
+
+
+def host_sampled_blocks(c_idx, c_host, idx, a_host, b_host, n_samples=64, seed=1) -> tuple:
+    """Sampled blocks of C = A·B recomputed on the host in float64 from the
+    flat data of A and B (one block index): (max |err|, that over max |ref|)."""
+    bm, bn = idx.blk_shapes
+    off = idx.blk_offset
+    cbm, cbn = c_idx.blk_shapes
+    picks = np.random.default_rng(seed).choice(c_idx.nblks, size=min(n_samples, c_idx.nblks),
+                                               replace=False)
+    err = scale = 0.0
+    for p in picks:
+        i, j = int(c_idx.blk_rows[p]), int(c_idx.col_idx[p])
+        ref = np.zeros((cbm[p], cbn[p]))
+        for q in range(int(idx.row_ptr[i]), int(idx.row_ptr[i + 1])):
+            k = int(idx.col_idx[q])
+            r = idx.block_id(k, j)
+            if r >= 0:
+                ref += (a_host[off[q]:off[q + 1]].reshape(bm[q], bn[q])
+                        @ b_host[off[r]:off[r + 1]].reshape(bm[r], bn[r]))
+        got = c_host[c_idx.blk_offset[p]:c_idx.blk_offset[p + 1]].reshape(ref.shape)
+        err = max(err, float(np.abs(got - ref).max()))
+        scale = max(scale, float(np.abs(ref).max()))
+    return err, err / (scale or 1.0)
+
+
+def phase_capi_scf(dev, shim: str, hdr: str, work: str, card: str) -> dict:
+    """15a: the float64 SCF product at full width through the C API, in
+    this process, against the Python one-shot ``multiply`` on the same
+    operands: bitwise, the float64 kernel the only launch, once a call."""
+    import ctypes
+
+    import torch
+
+    import dbcsr_tpu_torch as dt
+
+    i64, i32, dbl, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+    os.environ["DBCSR_CAPI_DEVICE"] = capi_device(dev)
+    lib = ctypes.CDLL(shim)  # not PyDLL: the shim takes the GIL itself
+    lib.c_dbcsr_last_error.restype = ctypes.c_char_p
+    lib.c_dbcsr_last_error.argtypes = []
+    lib.c_dbcsr_init_lib.argtypes = []
+    lib.c_dbcsr_get_data_d.argtypes = [i64, vp, i32, ctypes.POINTER(i64)]
+    lib.c_dbcsr_get_num_blocks.argtypes = [i64, ctypes.POINTER(i32)]
+    lib.c_dbcsr_checksum.argtypes = [i64, i32, ctypes.POINTER(dbl)]
+    lib.c_dbcsr_trace_d.argtypes = [i64, ctypes.POINTER(dbl), ctypes.POINTER(dbl)]
+    lib.c_dbcsr_release.argtypes = [i64]
+    scf = ctypes.CDLL(build_c(CAPI_SCF_C, os.path.join(work, "scf_capi.so"), shim, hdr,
+                              "-shared", "-fPIC"))
+    scf.scf_capi_build.argtypes = [i32, vp, i32, vp, vp, vp, vp, vp,
+                                   ctypes.POINTER(i64), ctypes.POINTER(dbl)]
+    scf.scf_capi_multiply.argtypes = [ctypes.POINTER(i64), ctypes.POINTER(dbl)]
+
+    def check(rc, what):
+        if rc != 0:
+            fail(f"15a {what}: {lib.c_dbcsr_last_error().decode()}")
+
+    def ptr(arr):
+        return arr.ctypes.data_as(vp)
+
+    check(lib.c_dbcsr_init_lib(), "c_dbcsr_init_lib")
+    t0 = time.perf_counter()
+    a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=torch.float64)
+    idx = a.index
+    a_host, b_host = a.flat_host(), b.flat_host()  # float64, in index order
+    sizes = np.ascontiguousarray(idx.row_block_sizes, dtype=np.int32)
+    brow = np.ascontiguousarray(idx.blk_rows, dtype=np.int32)
+    bcol = np.ascontiguousarray(idx.col_idx, dtype=np.int32)
+    offs = np.ascontiguousarray(idx.blk_offset[:-1], dtype=np.int64)
+    log(f"  15a operands (phase 7's float64 call, no decay): {MAIN_ROWS} rows, {idx.nblks} "
+        f"blocks, {a.data.shape[0]} tiles ({a.data.numel() * 8 / 1e9:.2f} GB each), host "
+        f"copies {a_host.nbytes / 1e9:.2f} GB each; {time.perf_counter() - t0:.1f} s")
+
+    handles = (i64 * 3)()
+    secs = (dbl * 2)()
+    t0 = time.perf_counter()
+    check(scf.scf_capi_build(len(sizes), ptr(sizes), idx.nblks, ptr(brow), ptr(bcol),
+                             ptr(offs), ptr(a_host), ptr(b_host), handles, secs),
+          "scf_capi_build")
+    setup_s = time.perf_counter() - t0
+    log(f"  15a C-side set-up: puts {secs[0]:.3f} s, finalize {secs[1]:.3f} s (A and B, "
+        f"{2 * idx.nblks} blocks through c_dbcsr_put_block2d_d), build call {setup_s:.3f} s")
+
+    def c_data(h: int, n: int) -> np.ndarray:
+        out = np.empty(n, dtype=np.float64)
+        size = i64()
+        check(lib.c_dbcsr_get_data_d(h, ptr(out), n, ctypes.byref(size)), "c_dbcsr_get_data_d")
+        if size.value != n:
+            fail(f"15a c_dbcsr_get_data_d: {size.value} elements, expected {n}")
+        return out
+
+    if not np.array_equal(c_data(handles[0], a_host.size), a_host):
+        fail("15a A read back through c_dbcsr_get_data_d differs from the host blocks put")
+
+    c0 = dt.BCSRMatrix.empty(sizes, sizes, device=dev, dtype=torch.float64, tile=a.tile,
+                             name="C")
+    flop = dbl()
+
+    def c_multiply():
+        check(scf.scf_capi_multiply(handles, ctypes.byref(flop)), "c_dbcsr_multiply_d")
+
+    def py_fresh():
+        return dt.multiply("N", "N", 1.0, a, b, 0.0, c0, return_flops=True)
+
+    # the C handle holds the previous product, which the next call takes as
+    # its C (beta = 0): the Python twin of a warm call does the same
+    py_state = {}
+
+    def py_reused():
+        py_state["out"] = dt.multiply("N", "N", 1.0, a, b, 0.0, py_state["out"][0],
+                                      return_flops=True)
+        return py_state["out"]
+
+    def one(fn, what):
+        reset_launches()
+        ms, out = event_ms(fn)
+        launched = {k: n for k, n in read_launches().items() if n}
+        if launched != {"K6": 1}:
+            fail(f"15a {what} launched {launched}, expected the float64 kernel once")
+        return ms, out
+
+    cold_ms, _ = one(c_multiply, "the cold c_dbcsr_multiply_d")
+    first_py_ms, py_state["out"] = one(py_fresh, "the first Python multiply")
+    times = {c_multiply: [], py_reused: [], py_fresh: []}
+    order = list(times)
+    for r in range(CAPI_WARM_REPS):
+        for fn in order[r % 3:] + order[:r % 3]:  # each first in turn
+            ms, out = one(fn, "a warm call")
+            times[fn].append(ms)
+    c_ms, py_ms, fresh_ms = times[c_multiply], times[py_reused], times[py_fresh]
+    ref, ref_flops = py_state["out"]
+    nblks = i32()
+    check(lib.c_dbcsr_get_num_blocks(handles[2], ctypes.byref(nblks)), "c_dbcsr_get_num_blocks")
+    ref_host = ref.flat_host()
+    got = c_data(handles[2], ref_host.size)
+    fresh_host = py_fresh()[0].flat_host()
+    if nblks.value != ref.nblks or not (np.array_equal(got, ref_host)
+                                        and np.array_equal(got, fresh_host)):
+        fail(f"15a the C API's product ({nblks.value} blocks) is not bitwise the Python "
+             f"multiply's ({ref.nblks} blocks)")
+    if flop.value != float(ref_flops):
+        fail(f"15a flops {flop.value} from C, {ref_flops} from Python")
+    cks, tr_re, tr_im = dbl(), dbl(), dbl()
+    check(lib.c_dbcsr_checksum(handles[2], 0, ctypes.byref(cks)), "c_dbcsr_checksum")
+    check(lib.c_dbcsr_trace_d(handles[2], ctypes.byref(tr_re), ctypes.byref(tr_im)),
+          "c_dbcsr_trace_d")
+    t0 = time.perf_counter()
+    host_cks = float(np.dot(got, got))
+    host_tr, tr_scale = host_trace_ab(idx, a_host, b_host)
+    s_err, s_rel = host_sampled_blocks(ref.index, got, idx, a_host, b_host)
+    host_s = time.perf_counter() - t0
+    cks_rel = abs(cks.value - host_cks) / host_cks
+    tr_rel = abs(tr_re.value - host_tr) / tr_scale
+    log(f"  15a c_dbcsr_checksum {cks.value!r} (host {host_cks!r}, rel {cks_rel:.2e}); "
+        f"c_dbcsr_trace_d {tr_re.value!r} (host float64 {host_tr!r}, err over Σ|terms| "
+        f"{tr_rel:.2e}); 64 sampled blocks vs host float64: rel {s_rel:.2e} ({host_s:.1f} s)")
+    if not (cks_rel <= F64_RTOL and tr_rel <= F64_RTOL and s_rel <= F64_RTOL):
+        fail("15a the C API's product disagrees with the host float64 recomputation")
+    for h in handles:
+        check(lib.c_dbcsr_release(h), "c_dbcsr_release")
+    row = {"setup_put_s": secs[0], "setup_finalize_s": secs[1], "setup_s": setup_s,
+           "cold_ms": cold_ms, "first_py_ms": first_py_ms,
+           "warm_ms": float(np.median(c_ms)), "py_ms": float(np.median(py_ms)),
+           "fresh_ms": float(np.median(fresh_ms)), "c_ms_all": c_ms, "py_ms_all": py_ms,
+           "fresh_ms_all": fresh_ms, "nblks": ref.nblks,
+           "checksum": cks.value, "trace": tr_re.value, "sampled_rel": s_rel}
+    log(f"  15a c_dbcsr_multiply_d: cold {cold_ms:.3f} ms (empty C; plans the pattern), "
+        f"warm median {row['warm_ms']:.3f} ms over {CAPI_WARM_REPS} (C = the previous "
+        f"product, beta 0); Python one-shot multiply: first {first_py_ms:.3f} ms (empty C), "
+        f"warm median {row['py_ms']:.3f} ms with the previous product as C, "
+        f"{row['fresh_ms']:.3f} ms with an empty C; the shim's overhead "
+        f"{row['warm_ms'] - row['py_ms']:+.3f} ms a call; {ref.nblks} C blocks, bitwise "
+        f"equal; the float64 kernel once a call, nothing else [{card}]")
+    log(f"      warm C ms {[round(x, 3) for x in c_ms]}")
+    log(f"      warm Python ms (previous C) {[round(x, 3) for x in py_ms]}")
+    log(f"      warm Python ms (empty C) {[round(x, 3) for x in fresh_ms]}")
+    del a, b, ref, c0, py_state, out, fresh_host
+    return row
+
+
+def phase_capi(dev, card: str) -> dict:
+    """Phase 15: the C API on the card. (a) the float64 SCF product at the
+    phase-4 shape from C in this process; (b) ``examples/example_6_c_api.c``
+    as a program of its own on the card; (c) the typed sweep of
+    ``tests/test_capi_v2.py`` (``MATRIX_PROGRAM``) in this process under
+    ``mm_driver="panel"``, where its d, s, z and c products take the float64
+    kernel, K2, KC2 and KC1, each launched once."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dbcsr_tpu_torch.capi import build_capi, header_path
+    from dbcsr_tpu_torch.core.config import config_override
+
+    t_phase = time.perf_counter()
+    shim = build_capi()
+    if shim is None:
+        fail("the C API shim (dbcsr_tpu_torch/capi, gcc and a shared libpython) did not build")
+    hdr = os.path.dirname(header_path())
+    work = tempfile.mkdtemp(prefix="capi_")
+    try:
+        row = phase_capi_scf(dev, shim, hdr, work, card)
+        torch.cuda.empty_cache()
+
+        with open(os.path.join(REPO, "examples", "example_6_c_api.c")) as f:
+            exe = build_c(f.read(), os.path.join(work, "example_6"), shim, hdr)
+        t0 = time.perf_counter()
+        res = subprocess.run([exe], capture_output=True, text=True, timeout=600, cwd=work,
+                             env=capi_env(capi_device(dev)))
+        row["example_s"] = time.perf_counter() - t0
+        if res.returncode != 0 or not res.stdout.startswith("C = A*A^T: "):
+            fail(f"15b example_6_c_api.c on the card: rc {res.returncode}: "
+                 f"{res.stdout.strip()} {res.stderr.strip()[-2000:]}")
+        log(f"  15b example_6_c_api.c (DBCSR_CAPI_DEVICE={capi_device(dev)}), rc 0 in "
+            f"{row['example_s']:.1f} s: {res.stdout.strip()}")
+
+        prog = ctypes.CDLL(build_c(c_test_program("MATRIX_PROGRAM"),
+                                   os.path.join(work, "typed_sweep.so"), shim, hdr,
+                                   "-shared", "-fPIC", "-Dmain=typed_sweep_main"))
+        prog.typed_sweep_main.argtypes = []
+        prog.typed_sweep_main.restype = ctypes.c_int
+        reset_launches()
+        with config_override(mm_driver="panel"):
+            rc, out = c_stdout(prog.typed_sweep_main)
+        launched = {k: n for k, n in read_launches().items() if n}
+        lines = out.strip().splitlines()
+        if rc != 0 or not lines or lines[-1] != "OK" or [ln.split()[0] for ln in lines[:4]] != [
+                "d", "s", "z", "c"]:
+            fail(f"15c the typed sweep: rc {rc}: {out.strip()}")
+        if launched != {"K6": 1, "K2": 1, "KC2": 1, "KC1": 1}:
+            fail(f"15c the typed sweep launched {launched}: expected the float64 kernel, K2, "
+                 f"KC2 and KC1 once each")
+        log(f"  15c typed sweep (MATRIX_PROGRAM of tests/test_capi_v2.py, mm_driver=panel): rc "
+            f"0, launches {launched}")
+        for ln in lines[:4]:
+            log(f"      {ln}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    return row
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -3815,6 +4241,15 @@ def main() -> int:
     dist_rows = phase_dist(dev)
     get_plan_cache().clear()
     log(f"[14] took {time.perf_counter() - t14:.1f} s; peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+
+    # 15. the C API: the float64 SCF product from C, example 6, the typed sweep
+    log(f"[15] the C API on the card: c_dbcsr_multiply_d at the banded SCF shape "
+        f"({MAIN_ROWS} rows, float64) from C in this process, example_6_c_api.c, the "
+        f"typed sweep [{card}]")
+    capi_row = phase_capi(dev, card)
+    get_plan_cache().clear()
+    log(f"[15] took {capi_row['seconds']:.1f} s; peak device memory "
         f"{peak_memory(dev) / 1e9:.2f} GB")
 
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase

@@ -401,6 +401,38 @@ class BCSRBuilder:
         else:
             self._blocks[key] = blk
 
+    def reserve_block(self, row: int, col: int) -> None:
+        """Reserve a zero block (``dbcsr_reserve_block2d`` analog); a later
+        ``put_block`` overwrites it, and a staged block stays as it is."""
+        if (row, col) not in self._blocks:
+            self.put_block(
+                row,
+                col,
+                np.zeros(
+                    (self.row_block_sizes[row], self.col_block_sizes[col]),
+                    dtype=_host_dtype(self.dtype),
+                ),
+            )
+
+    def reserve_blocks(self, rows, cols) -> None:
+        """Reserve many zero blocks (``dbcsr_reserve_blocks``)."""
+        for r, c in zip(rows, cols):
+            self.reserve_block(int(r), int(c))
+
+    def reserve_all_blocks(self) -> None:
+        """Reserve the full block grid (``dbcsr_reserve_all_blocks``); its
+        upper triangle only under symmetry (``sym`` other than N)."""
+        for r in range(len(self.row_block_sizes)):
+            lo = r if self.sym != SYM_NONE else 0
+            for c in range(lo, len(self.col_block_sizes)):
+                self.reserve_block(r, c)
+
+    def reserve_diag_blocks(self) -> None:
+        """Reserve the diagonal blocks (``dbcsr_reserve_diag_blocks``)."""
+        n = min(len(self.row_block_sizes), len(self.col_block_sizes))
+        for r in range(n):
+            self.reserve_block(r, r)
+
     def finalize(self) -> BCSRMatrix:
         keys = list(self._blocks.keys())
         return BCSRMatrix.from_blocks(

@@ -23,6 +23,7 @@ __all__ = [
     "timed",
     "timer_report",
     "timer_stats",
+    "timings_report_callgraph",
     "set_tracing",
     "reset_timers",
     "RoutineStat",
@@ -49,6 +50,7 @@ class _TimerEnv(threading.local):
     def __init__(self) -> None:
         self.stack: List[_Frame] = []
         self.stats: Dict[str, RoutineStat] = {}
+        self.edges: Dict[tuple, List[float]] = {}  # (caller, callee) -> [calls, time]
 
 
 _env = _TimerEnv()
@@ -77,6 +79,9 @@ def timestop(name: Optional[str] = None) -> None:
     st.max_total = max(st.max_total, dt)
     if _env.stack:
         _env.stack[-1].child_time += dt
+        edge = _env.edges.setdefault((_env.stack[-1].name, frame.name), [0, 0.0])
+        edge[0] += 1
+        edge[1] += dt
 
 
 @contextmanager
@@ -97,6 +102,7 @@ def set_tracing(enabled: bool) -> None:
 def reset_timers() -> None:
     _env.stats.clear()
     _env.stack.clear()
+    _env.edges.clear()
 
 
 def timer_stats() -> Dict[str, RoutineStat]:
@@ -115,3 +121,23 @@ def timer_report(out=None, max_rows: int = 40) -> str:
     if out is not None:
         print(text, file=out)
     return text
+
+
+def timings_report_callgraph(path: str) -> None:
+    """Write the timer call graph in callgrind format for kcachegrind
+    (``timings_report_callgraph``, reference
+    ``src/core/dbcsr_timings_report.F:303``). Costs are microseconds of host
+    time; edges carry call counts and inclusive times."""
+    with open(path, "w") as f:
+        f.write("# callgrind format — dbcsr_tpu_torch timer callgraph\n")
+        f.write("events: Walltime_us\n\n")
+        for name, st in sorted(_env.stats.items()):
+            f.write(f"fn={name}\n")
+            f.write(f"1 {max(int(st.self_time * 1e6), 0)}\n")
+            for (caller, callee), (calls, t) in sorted(_env.edges.items()):
+                if caller != name:
+                    continue
+                f.write(f"cfn={callee}\n")
+                f.write(f"calls={int(calls)} 1\n")
+                f.write(f"1 {max(int(t * 1e6), 0)}\n")
+            f.write("\n")

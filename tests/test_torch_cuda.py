@@ -1024,3 +1024,97 @@ def test_distributed_multiply_and_sharded_ops_on_the_card(dev):
     from dbcsr_tpu_torch.testing import test_dist
 
     assert test_dist(dev)
+
+
+# ---------------------------------------------------------------------------
+# the C API shim on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def capi(dev, monkeypatch):
+    """The port's C API shim loaded into this process with ``ctypes.CDLL``
+    (the GIL is released around each call; the shim takes it back), its
+    device the card."""
+    import ctypes
+
+    from dbcsr_tpu_torch.capi import build_capi
+
+    so = build_capi()
+    if so is None:
+        pytest.skip("no C shim (gcc or a shared libpython missing)")
+    monkeypatch.setenv("DBCSR_CAPI_DEVICE", "cuda:0")
+    lib = ctypes.CDLL(so)
+    i64, i32, dbl, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+    lib.c_dbcsr_last_error.restype = ctypes.c_char_p
+    lib.c_dbcsr_create_new.argtypes = [ctypes.POINTER(i64), ctypes.c_char_p, i64,
+                                       ctypes.c_char, vp, i32, vp, i32, i32]
+    lib.c_dbcsr_create_template.argtypes = [ctypes.POINTER(i64), ctypes.c_char_p, i64, i64,
+                                            ctypes.c_char, i32]
+    for suf in ("d", "z"):
+        getattr(lib, f"c_dbcsr_put_block2d_{suf}").argtypes = [i64, i32, i32, vp, i32, i32, i32]
+        getattr(lib, f"c_dbcsr_multiply_{suf}").argtypes = [
+            ctypes.c_char, ctypes.c_char, dbl, dbl, i64, i64, dbl, dbl, i64, i32, dbl,
+            ctypes.POINTER(dbl)]
+        getattr(lib, f"c_dbcsr_get_data_{suf}").argtypes = [i64, vp, i32, ctypes.POINTER(i64)]
+    lib.c_dbcsr_finalize.argtypes = [i64]
+    lib.c_dbcsr_release.argtypes = [i64]
+    assert lib.c_dbcsr_init_lib() == 0, lib.c_dbcsr_last_error()
+    return lib
+
+
+@pytest.mark.parametrize("typ", ["d", "z"])
+def test_capi_typed_product_runs_its_kernel_on_the_card(capi, dev, typ):
+    """A banded product of 5/13/23-blocks through ``c_dbcsr_multiply_d`` /
+    ``_z`` under ``mm_driver="stack"``: the float64 kernel (d) or KC2 (z)
+    moves by one and nothing else launches; the result read back through
+    ``c_dbcsr_get_data`` is bitwise the Python ``multiply``'s."""
+    import ctypes
+
+    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
+
+    lib = capi
+    dtype, const = {"d": (np.float64, 3), "z": (np.complex128, 7)}[typ]
+    rbs = np.array([5, 13, 23, 13, 5, 23, 13, 5] * 4, dtype=np.int32)
+    n = len(rbs)
+    rng = np.random.default_rng(11)
+    h = ctypes.c_int64()
+    assert lib.c_dbcsr_create_new(ctypes.byref(h), b"A", 0, b"N", rbs.ctypes.data, n,
+                                  rbs.ctypes.data, n, const) == 0
+    a_handle = h.value
+    ref_b = dtt.BCSRBuilder(rbs, rbs, dtype=dtype, device=dev)
+    for i in range(n):
+        for j in range(max(0, i - 3), min(n, i + 4)):
+            blk = rng.standard_normal((rbs[i], rbs[j]))
+            if typ == "z":
+                blk = blk + 1j * rng.standard_normal((rbs[i], rbs[j]))
+            blk = np.ascontiguousarray(blk.astype(dtype))
+            put = getattr(lib, f"c_dbcsr_put_block2d_{typ}")
+            assert put(a_handle, i, j, blk.ctypes.data, int(rbs[i]), int(rbs[j]), 0) == 0
+            ref_b.put_block(i, j, blk)
+    assert lib.c_dbcsr_finalize(a_handle) == 0
+    assert lib.c_dbcsr_create_template(ctypes.byref(h), b"C", a_handle, 0, b"N", const) == 0
+    c_handle = h.value
+    assert lib.c_dbcsr_finalize(c_handle) == 0
+    a = ref_b.finalize()
+    c0 = dtt.BCSRMatrix.empty(rbs, rbs, device=dev, dtype=dtype, tile=a.tile)
+    counters = (tile_stack_matmul_f64, tile_stack_matmul, tile_stack_matmul_panel,
+                tile_stack_matmul_c64, tile_stack_matmul_c128)
+    want = tile_stack_matmul_f64 if typ == "d" else tile_stack_matmul_c128
+    flop = ctypes.c_double()
+    with config_override(mm_driver="stack"):
+        ref = dtt.multiply("N", "T", 1.0, a, a, 0.0, c0)
+        for k in counters:
+            k.launches = 0
+        mult = getattr(lib, f"c_dbcsr_multiply_{typ}")
+        assert mult(b"N", b"T", 1.0, 0.0, a_handle, a_handle, 0.0, 0.0, c_handle, 0, -1.0,
+                    ctypes.byref(flop)) == 0, lib.c_dbcsr_last_error()
+    assert [k.launches for k in counters] == [int(k is want) for k in counters]
+    host = ref.flat_host()
+    got = np.empty(host.size, dtype=dtype)
+    size = ctypes.c_int64()
+    get = getattr(lib, f"c_dbcsr_get_data_{typ}")
+    assert get(c_handle, got.ctypes.data, host.size, ctypes.byref(size)) == 0
+    assert size.value == host.size and flop.value > 0
+    np.testing.assert_array_equal(got, host)
+    for handle in (a_handle, c_handle):
+        assert lib.c_dbcsr_release(handle) == 0
