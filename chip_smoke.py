@@ -186,10 +186,25 @@ Phases (any failure exits non-zero before the final line):
     (c) the typed sweep of ``tests/test_capi_v2.py`` (``MATRIX_PROGRAM``) in
     this process under ``mm_driver="panel"``: its d, s, z and c products
     launch the float64 kernel, K2, KC2 and KC1 once each.
+16. the tuned ``auto``, after phase 15 and before phase 10 (phases 3-15 and
+    10 run with the card's parameter table held off, so they keep their
+    untuned routes): (a) the committed table for this card
+    (``dbcsr_tpu_torch/params/``) must load; (b) ``autotune.sweep`` at the
+    banded_fine class (12,000 rows), one row each of ``stack``, ``panel``
+    (``panel_runlen`` 0 and 3), ``grouped`` and ``band`` at default knobs,
+    GFLOP/s per row, every timed call launching its route's kernel (K1-K5)
+    once; then each kernel alone against its plain version, timed beside its
+    bound and ``torch.sparse.mm`` on the same operands; (c) at the phase-4
+    shape, ``auto`` at default provenance must take the table's driver for
+    the nearest class, its product bitwise the explicit driver's with the
+    same knobs and within 1e-4 of the plain version, its CUDA-event median
+    beside the untuned auto's (K2); (d) shape R's float32 fold at default
+    provenance: its route and nearest class, against the plain version.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (eight kernels: the six ports of the
-TPU's kernels and KC1, KC2; ``bound_ms`` is computed from this run's tile
+TPU's kernels and KC1, KC2; then K1-K5 once more at phase 16's sweep rows;
+``bound_ms`` is computed from this run's tile
 and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
 ``nvidia-smi`` line, then the final line ``{"ok": true, "device": {...}}``.
 """
@@ -3984,6 +3999,216 @@ def phase_capi(dev, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the tuned ``auto``
+# ---------------------------------------------------------------------------
+
+#: the panel knobs of a tuned row, which the engine applies with its driver
+#: (the row's precision and bf16 knobs are not applied)
+TUNED_PANEL_KNOBS = ("panel_c_win", "panel_cache", "panel_chunk", "panel_runlen")
+#: 16b: the sweep's rows at the banded_fine class, one for each kernel, every
+#: other knob at its default (two grids: the runlen axis only under panel)
+SWEEP_GRIDS = ({"mm_driver": ["stack", "grouped", "band"]},
+               {"mm_driver": ["panel"], "panel_runlen": [0, 3]})
+SWEEP_CLASS = "banded_fine"
+
+
+def tuned_knobs(best: dict) -> dict:
+    """The explicit config that reproduces what ``auto`` takes from a
+    tuned row: its driver and its panel knobs."""
+    return {"mm_driver": best["mm_driver"],
+            **{k: best[k] for k in TUNED_PANEL_KNOBS if k in best}}
+
+
+def phase_tuned_sweep(dev, card: str) -> dict:
+    """16b: ``autotune.sweep`` on the card at the banded_fine class, one row
+    each of K1-K5; every timed call of a row must launch its route's kernel
+    once and nothing else. Then each row's kernel alone against its plain
+    version, both timed, beside the bound and ``torch.sparse.mm`` on the
+    same operands. Returns {kernel: row of the kernels line}."""
+    import torch
+
+    from dbcsr_tpu_torch import autotune
+
+    orig = autotune.steady_state_time
+    swept = {}
+
+    def checked(fn, args, **kw):
+        calls = [0]
+
+        def counted(*xs):
+            calls[0] += 1
+            return fn(*xs)
+
+        before = read_launches()
+        t = orig(counted, args, **kw)
+        sync(dev)
+        want = ROUTE_KERNEL[fn.plan.route]
+        delta = launch_delta(before)
+        if delta != {want: calls[0]}:
+            fail(f"16b sweep row {fn.plan.route}: launches {delta}, expected {want} "
+                 f"once a call ({calls[0]} calls)")
+        swept[want] = (fn, args, delta.get(want, 0))
+        return t
+
+    autotune.steady_state_time = checked
+    try:
+        rows = []
+        for grid in SWEEP_GRIDS:
+            table = autotune.sweep(grid=grid, workloads=[SWEEP_CLASS], device=dev,
+                                   verbose=False)
+            rows += table["results"][SWEEP_CLASS]["all"]
+    finally:
+        autotune.steady_state_time = orig
+    if set(swept) != {"K1", "K2", "K3", "K4", "K5"} or len(rows) != 5:
+        fail(f"16b the sweep's rows ran {sorted(swept)} ({len(rows)} rows), expected K1-K5")
+    log(f"  16b sweep of {SWEEP_CLASS} on the card [{card}]:")
+    for r in sorted(rows, key=lambda r: -r["gflops"]):
+        knobs = {k: v for k, v in r.items() if k not in ("route", "gflops")}
+        log(f"      {r['route']:10s} {r['gflops']:9.1f} GFLOP/s  {knobs}")
+
+    a, b = autotune.WORKLOADS[SWEEP_CLASS](0, dev)
+    ac, bc = element_csr(a), element_csr(b)
+    lib = cuda_median_ms(lambda: torch.sparse.mm(ac, bc), reps=3, warmup=1)
+    del ac, bc
+    out = {}
+    for kname, (fn, args, launched) in sorted(swept.items()):
+        plan = fn.plan
+        a_in, b_in = (x.to(plan.in_dtype) for x in plan.op_stores(*args))
+        kern = kernel_of(plan)
+        err, rel = rel_err(kern(a_in, b_in), plain_of(plan, *args))
+        if not rel <= KERNEL_RTOL:
+            fail(f"16b {kname} disagrees with its plain version (rel {rel:.2e})")
+        ms = cuda_median_ms(lambda: kern(a_in, b_in), reps=10)
+        plain_ms = cuda_median_ms(lambda: plain_of(plan, *args), reps=3, warmup=1)
+        counts = plan_counts(a, b, plan)
+        bound_ms, bound_by = kernel_bound(*counts, 128, 4, 4, "float32")
+        log(f"      {kname} ({plan.route}) alone {ms:.4f} ms, plain {plain_ms:.4f}, vs plain "
+            f"max_abs_err={err:.3e} rel={rel:.2e}; " + rate_line("kernel", ms, counts, "float32"))
+        out[kname] = {"launches": launched, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": lib}
+    log(f"      torch.sparse.mm (CSR x CSR) on the same operands {lib:.4f} ms")
+    return out
+
+
+def untuned_executor(dev, table, a, b):
+    """The executor ``auto`` builds for A·B with the card's table held off
+    (and put back after)."""
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch import autotune
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
+
+    kind = autotune.device_kind(dev)
+    autotune._TABLE_CACHE[kind] = None
+    get_plan_cache().clear()
+    try:
+        fn, _, _ = dt.build_multiply_executor("N", "N", a, b)
+    finally:
+        autotune._TABLE_CACHE[kind] = table
+        get_plan_cache().clear()
+    return fn
+
+
+def tuned_vs_untuned(what: str, fn, fu, a, b, eff: float, card: str) -> None:
+    """CUDA-event medians of the tuned and the untuned executor, in turns
+    (untuned, tuned, tuned, untuned)."""
+    u1 = cuda_median_ms(lambda: fu(a.data, b.data), reps=10)
+    t1 = cuda_median_ms(lambda: fn(a.data, b.data), reps=10)
+    t2 = cuda_median_ms(lambda: fn(a.data, b.data), reps=10)
+    u2 = cuda_median_ms(lambda: fu(a.data, b.data), reps=10)
+    tm, um = float(np.median([t1, t2])), float(np.median([u1, u2]))
+    log(f"      {what} executor medians [{card}]: tuned auto ({fn.plan.route}) {tm:.4f} ms "
+        f"(runs {t1:.4f}/{t2:.4f}), {eff / tm / 1e6:.1f} GFLOP/s; untuned auto "
+        f"({fu.plan.route}) {um:.4f} ms (runs {u1:.4f}/{u2:.4f}), {eff / um / 1e6:.1f} GFLOP/s")
+
+
+def phase_tuned_auto(dev, card: str) -> dict:
+    """16c: ``auto`` at default provenance at the phase-4 shape takes the
+    table's driver for the nearest class; its product bitwise the explicit
+    driver's with the same knobs and against the plain version; its
+    CUDA-event median beside the untuned auto's (phase 4's K2 leg), in
+    turns. 16d: shape R's float32 fold at default provenance, its route and
+    nearest class, against the plain version, and its median beside the
+    untuned auto's. Returns the launches of the two products (the phase's
+    main path)."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch import autotune
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import take_tiles
+
+    table = autotune._cached_table(dev)
+    launches = {}
+    t0 = time.perf_counter()
+    a, b = autotune._mk_banded(MAIN_ROWS)(0, dev)
+    cls, dist = autotune.nearest_class(autotune.workload_features(a.index, b.index), table)
+    best = table["results"][cls]["best"]
+    fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b)
+    log(f"  16c {MAIN_ROWS} rows: nearest class {cls} at distance {dist:.4f}, its best row "
+        f"{best}; auto takes route {fn.plan.route} (set-up and plan "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if fn.plan.route.replace("panel_runs", "panel") != best["mm_driver"]:
+        fail(f"16c auto took {fn.plan.route}, the table's driver for {cls} is "
+             f"{best['mm_driver']}")
+    before = read_launches()
+    got = fn(a.data, b.data)
+    sync(dev)
+    launches.update(expect_launches("16c tuned auto", before, ROUTE_KERNEL[fn.plan.route], 1))
+    with dt.config_override(**tuned_knobs(best)):
+        fx, _, _ = dt.build_multiply_executor("N", "N", a, b)
+    same = fx.plan.route == fn.plan.route and bool(torch.equal(got, fx(a.data, b.data)))
+    ref = take_tiles(plain_of(fn.plan, a.data, b.data),
+                     fn.plan.align_map(store_layout(c_index, 128).tile_keys()), 128)
+    err, rel = rel_err(got, ref)
+    del ref, fx
+    log(f"      bitwise the explicit {tuned_knobs(best)}: {same}; vs plain max_abs_err="
+        f"{err:.3e} rel={rel:.2e} (bound {KERNEL_RTOL:.0e})")
+    if not same or not rel <= KERNEL_RTOL:
+        fail("16c the tuned auto's product disagrees with the explicit driver's or the plain "
+             "version")
+    fu = untuned_executor(dev, table, a, b)
+    if fu.plan.route != "panel":
+        fail(f"16c the untuned auto took {fu.plan.route}, not phase 4's panel route")
+    tuned_vs_untuned("16c", fn, fu, a, b, eff, card)
+    del a, b, fn, fu, got
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ta, tb = ri_tensors(TENSOR_ATOMS, dev, torch.float32)
+    ma, mb = ta.matrix, tb.matrix
+    cls, dist = autotune.nearest_class(autotune.workload_features(ma.index, mb.index), table)
+    fr, _, eff = dt.build_multiply_executor("N", "N", ma, mb)
+    log(f"  16d shape R float32 fold ({TENSOR_ATOMS} atoms): nearest class {cls} at distance "
+        f"{dist:.4f} (best {table['results'][cls]['best']['mm_driver']}); auto takes route "
+        f"{fr.plan.route} (set-up and plan {time.perf_counter() - t0:.1f} s)")
+    before = read_launches()
+    fr(ma.data, mb.data)
+    sync(dev)
+    delta = expect_launches("16d shape R", before, ROUTE_KERNEL[fr.plan.route], 1)
+    for k, n in delta.items():
+        launches[k] = launches.get(k, 0) + n
+    kernel_vs_plain("16d shape R's kernel", fr.plan, ma.data, mb.data, KERNEL_RTOL)
+    tuned_vs_untuned("16d", fr, untuned_executor(dev, table, ma, mb), ma, mb, eff, card)
+    return launches
+
+
+def phase_tuned(dev, card: str) -> tuple:
+    """Phase 16: load the committed table for this card (fail without one),
+    then 16b, 16c and 16d. Returns (the 16b rows by kernel, the launches of
+    16c and 16d)."""
+    from dbcsr_tpu_torch import autotune
+
+    table = autotune._cached_table(dev)
+    if table is None:
+        fail(f"16a no committed parameter table for {autotune.device_kind(dev)} "
+             f"(dbcsr_tpu_torch/params/)")
+    log(f"  16a table for {table['device_kind']}: classes "
+        + ", ".join(f"{c} -> {r['best']['mm_driver']}" for c, r in table["results"].items()))
+    return phase_tuned_sweep(dev, card), phase_tuned_auto(dev, card)
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -4100,6 +4325,11 @@ def main() -> int:
     log(f"[1] card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {name}")
     dev = torch.device("cuda", 0)
     dt.init_lib()
+    # phases 3-15 pin the untuned route decisions (and their readings stay
+    # comparable with earlier runs): the card's tuned table is held off
+    # until phase 16
+    from dbcsr_tpu_torch import autotune
+    autotune._TABLE_CACHE[name] = None
 
     # 2. build
     info = _build.build_kernels(verbose=True)
@@ -4252,6 +4482,21 @@ def main() -> int:
     log(f"[15] took {capi_row['seconds']:.1f} s; peak device memory "
         f"{peak_memory(dev) / 1e9:.2f} GB")
 
+    # 16. the tuned auto: the committed table, a sweep on the card, auto's choice
+    log(f"[16] the tuned auto: the committed parameter table, the sweep at {SWEEP_CLASS}, "
+        f"auto at the banded SCF shape ({MAIN_ROWS} rows) and shape R [{card}]")
+    t16 = time.perf_counter()
+    del autotune._TABLE_CACHE[name]
+    get_plan_cache().clear()
+    reset_launches()
+    tuned_rows, tuned_launches = phase_tuned(dev, card)
+    log(f"    phase-16 main-path launches: sweep rows "
+        f"{ {k: r['launches'] for k, r in tuned_rows.items()} }, 16c and 16d {tuned_launches}")
+    autotune._TABLE_CACHE[name] = None  # phase 10 runs untuned, as before
+    get_plan_cache().clear()
+    log(f"[16] took {time.perf_counter() - t16:.1f} s; peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")
     torch.cuda.empty_cache()
@@ -4289,6 +4534,14 @@ def main() -> int:
                 "bound_ms": round(r["bound_ms"], 4), "bound_by": r["bound_by"],
                 "library_ms": None if lib is None else round(lib, 4)}
 
+    def entry16(kname, source, replaces):
+        r = tuned_rows[kname]
+        return {"name": f"{kname} at {SWEEP_CLASS} (phase 16 sweep)", "route": "cuda",
+                "source": source, "replaces": replaces, "launches": r["launches"],
+                "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
+                "plain_ms": round(r["plain_ms"], 4), "bound_ms": round(r["bound_ms"], 4),
+                "bound_by": r["bound_by"], "library_ms": round(r["library_ms"], 4)}
+
     r64 = filtered[torch.float64]
     print(json.dumps({"kernels": [
         entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
@@ -4309,6 +4562,11 @@ def main() -> int:
                 "dbcsr_tpu/mm/kernels.py:76", "complex64"),
         entry13("stack_matmul_c128 (KC2)", "KC2", "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
                 "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"),
+        entry16("K1", "dbcsr_tpu_torch/csrc/stack_matmul.cu", "dbcsr_tpu/mm/kernels.py:76"),
+        entry16("K2", "dbcsr_tpu_torch/csrc/panel_matmul.cu", "dbcsr_tpu/mm/panel.py:297"),
+        entry16("K3", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu", "dbcsr_tpu/mm/panel.py:757"),
+        entry16("K4", "dbcsr_tpu_torch/csrc/grouped_matmul.cu", "dbcsr_tpu/mm/kernels.py:419"),
+        entry16("K5", "dbcsr_tpu_torch/csrc/band_matmul.cu", "dbcsr_tpu/mm/band.py:257"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

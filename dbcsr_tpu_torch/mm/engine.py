@@ -26,9 +26,11 @@ stores. Drivers:
 within ``band_flop_factor`` of the stack's (times 0.125 unless the precision
 is "default") or a tuned table prefers it; else the panel plan when the
 pattern is banded and the plan is admitted; else grouped when a tuned table
-prefers it; else the flat stack. No tuned table exists for this card
-(``autotune.py``), so under "auto" grouped is never chosen and band only by
-its flop rule.
+prefers it; else the flat stack. The tuned table is the one measured on the
+card the operands live on (``autotune.py``, ``params/<card name>.json``):
+the driver of the workload class nearest to the product, and that row's
+panel knobs, for the knobs the user left at their defaults. CPU operands
+have no table and keep the untuned choices.
 
 ``build_multiply_executor`` also tries the RCM tile reordering
 (``reorder.py``, config ``reorder``, default "auto") when the panel plan is
@@ -309,21 +311,30 @@ def _kernel_run(kernel, dev_plan, dtype: torch.dtype, in_dtype: torch.dtype):
 # panel admission (host)
 # ---------------------------------------------------------------------------
 
-def _tuned_driver(cfg, a_index, b_index) -> Optional[str]:
-    """Tuned per-class driver preference (only when the user left
-    mm_driver at its default)."""
+def _tuned_row(a_index, b_index, device) -> tuple:
+    """The tuned table's row for this product on ``device`` as a cache-key
+    part: two calls under one config can see different tables."""
+    from ..autotune import tuned_stack_params
+
+    best = tuned_stack_params(a_index, b_index, device)
+    return tuple(sorted(best.items())) if best else ()
+
+
+def _tuned_driver(cfg, a_index, b_index, device) -> Optional[str]:
+    """Tuned per-class driver preference on ``device`` (only when the user
+    left mm_driver at its default)."""
     if cfg.provenance("mm_driver") != "D":
         return None
     from ..autotune import tuned_stack_params
 
-    best = tuned_stack_params(a_index, b_index)
+    best = tuned_stack_params(a_index, b_index, device)
     return best.get("mm_driver") if best else None
 
 
-def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int, int]:
+def _panel_knobs(cfg, a_index, b_index, device) -> Tuple[int, int, int, int]:
     """Panel plan parameters (c_win, cache, chunk, runlen): user/env-set
-    config wins; defaults defer to the tuned per-class table (none exists
-    for this card yet)."""
+    config wins; defaults defer to the tuned row of the nearest workload
+    class in the table of ``device``."""
     c_win, cache, chunk = cfg.panel_c_win, cfg.panel_cache, cfg.panel_chunk
     runlen = cfg.panel_runlen
     provs = tuple(
@@ -333,7 +344,7 @@ def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int, int]:
     if "D" in provs:
         from ..autotune import tuned_stack_params
 
-        best = tuned_stack_params(a_index, b_index)
+        best = tuned_stack_params(a_index, b_index, device)
         if best:
             if provs[0] == "D":
                 c_win = int(best.get("panel_c_win", c_win))
@@ -348,6 +359,7 @@ def _panel_knobs(cfg, a_index, b_index) -> Tuple[int, int, int, int]:
 
 def _maybe_panel_plan(
     cfg, tplan: TileStackPlan, a_index, b_index, n_a, n_b, driver, tuned,
+    knobs: Tuple[int, int, int, int],
     banded_hint: Optional[float] = None,
     b_coords: Optional[np.ndarray] = None,
 ) -> Union[PanelPlan, PanelRunPlan, None]:
@@ -360,7 +372,8 @@ def _maybe_panel_plan(
     REORDERED tile coords, since the user's block numbering no longer
     reflects the pattern the kernel will see. With ``panel_runlen >= 2``
     and ``b_coords`` the run-fused plan is tried first, on the column-major
-    B numbering, and the per-entry plan is the fallback."""
+    B numbering, and the per-entry plan is the fallback. ``knobs`` are the
+    resolved (c_win, cache, chunk, runlen) of ``_panel_knobs``."""
     if driver == "panel" or (driver == "auto" and tuned == "panel"):
         admit = None
     elif driver == "auto" and tuned is None:
@@ -375,7 +388,7 @@ def _maybe_panel_plan(
         admit = cfg.panel_admit
     else:
         return None
-    c_win, cache, chunk, runlen = _panel_knobs(cfg, a_index, b_index)
+    c_win, cache, chunk, runlen = knobs
     if runlen >= 2 and b_coords is not None:
         kt_b = int(b_coords[:, 0].max()) + 1 if len(b_coords) else 1
         cm = np.argsort(
@@ -396,25 +409,26 @@ def _maybe_panel_plan(
 
 def _cached_panel_plan(
     cfg, tplan, a_index, b_index, ta, tb, tile, n_a, n_b, driver, tuned,
-    b_coords,
+    b_coords, device,
 ) -> Union[PanelPlan, PanelRunPlan, None]:
     """Panel planning is O(S log S) host work; iterative callers repeat it
     on identical patterns. Cache the outcome — including the None
     "inadmissible" verdict — keyed by operand content, orientation, tile,
-    store sizes, driver and the config WITH provenance (``panel_runlen``
-    is one of its fields; ``b_coords`` follows from B's index, ``tb`` and
-    the tile)."""
+    store sizes, driver, the config WITH provenance and the resolved panel
+    knobs, which a tuned table can change under one config (``b_coords``
+    follows from B's index, ``tb`` and the tile)."""
+    knobs = _panel_knobs(cfg, a_index, b_index, device)
     pcache = get_plan_cache()
     key = pcache.key(
         a_index, ta, b_index, tb,
-        extra=("panel_plan", tile, n_a, n_b, driver, tuned,
+        extra=("panel_plan", tile, n_a, n_b, driver, tuned, knobs,
                config_fingerprint(cfg)),
     )
     cached = pcache.get(key)
     if cached is not None:
         return cached[0]
     plan = _maybe_panel_plan(
-        cfg, tplan, a_index, b_index, n_a, n_b, driver, tuned,
+        cfg, tplan, a_index, b_index, n_a, n_b, driver, tuned, knobs,
         b_coords=b_coords,
     )
     pcache.put(key, (plan,))
@@ -565,7 +579,7 @@ def _band_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
     cfg = p.cfg
     tplan = p.tile_plan()
     prec = cfg.matmul_precision
-    force = explicit or _tuned_driver(cfg, p.a_index, p.b_index) == "band"
+    force = explicit or _tuned_driver(cfg, p.a_index, p.b_index, p.device) == "band"
     bplan = plan_band(
         p.a_op.coords, (p.mt, p.kt), p.b_op.coords, (p.kt, p.nt),
         tplan.c_tile_keys, tile=p.tile,
@@ -613,7 +627,8 @@ def _reordered_panel_plan(p: _Problem, driver: str, tuned):
     # scrambled by construction here, so its feature would always reject
     pplan_r = _maybe_panel_plan(
         p.cfg, tplan_r, p.a_index, p.b_index, len(p.a_op.coords),
-        len(p.b_op.coords), driver, tuned, banded_hint=banded_r,
+        len(p.b_op.coords), driver, tuned,
+        _panel_knobs(p.cfg, p.a_index, p.b_index, p.device), banded_hint=banded_r,
         b_coords=rp.b_coords,
     )
     if pplan_r is None:
@@ -625,12 +640,12 @@ def _reordered_panel_plan(p: _Problem, driver: str, tuned):
 def _panel_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
     cfg = p.cfg
     tplan = p.tile_plan()
-    tuned = None if explicit else _tuned_driver(cfg, p.a_index, p.b_index)
+    tuned = None if explicit else _tuned_driver(cfg, p.a_index, p.b_index, p.device)
     driver = "panel" if explicit else "auto"
     pplan = _cached_panel_plan(
         cfg, tplan, p.a_index, p.b_index, p.ta, p.tb, p.tile,
         len(p.a_op.coords), len(p.b_op.coords), driver, tuned,
-        p.b_op.coords,
+        p.b_op.coords, p.device,
     )
     rp = None
     if (pplan is None and p.may_reorder and cfg.reorder != "off"
@@ -667,7 +682,7 @@ def _grouped_route(p: _Problem, explicit: bool) -> Optional[LocalPlan]:
     """The grouped kernel K4: on explicit request, or under "auto" when a
     tuned table prefers it (after the panel route declined)."""
     cfg = p.cfg
-    if not explicit and _tuned_driver(cfg, p.a_index, p.b_index) != "grouped":
+    if not explicit and _tuned_driver(cfg, p.a_index, p.b_index, p.device) != "grouped":
         return None
     tplan = p.tile_plan()
     dplan = device_group_plan(
@@ -811,7 +826,7 @@ def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
     key = pcache.key(
         a.index, ta, b.index, tb,
         extra=("local_plan", tile, str(a.dtype), str(a.device), conj,
-               config_fingerprint(cfg)),
+               config_fingerprint(cfg), _tuned_row(a.index, b.index, a.device)),
     )
     cached = pcache.get(key)
     if cached is not None:

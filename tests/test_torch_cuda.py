@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import dbcsr_tpu_torch as dtt
+from dbcsr_tpu_torch import autotune
 from dbcsr_tpu_torch.core.config import config_override
 from dbcsr_tpu_torch.mm.f64_stack import (
     tile_stack_matmul_f64,
@@ -69,12 +70,15 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def dev():
+def dev(monkeypatch):
     # decided at run time, never at import (every xdist worker collects the
     # same tests)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     dtt.init_lib()
+    # the routes these tests pin are the untuned ones: the card's tuned
+    # table is held off here and tested with it by the -k autotune tests
+    monkeypatch.setitem(autotune._TABLE_CACHE, torch.cuda.get_device_name(0), None)
     return torch.device("cuda", 0)
 
 
@@ -1118,3 +1122,56 @@ def test_capi_typed_product_runs_its_kernel_on_the_card(capi, dev, typ):
     np.testing.assert_array_equal(got, host)
     for handle in (a_handle, c_handle):
         assert lib.c_dbcsr_release(handle) == 0
+
+
+# ---------------------------------------------------------------------------
+# the autotune sweep and the tuned table on the card
+# ---------------------------------------------------------------------------
+
+#: the kernel launch counter behind each route
+ROUTE_WRAPPER = {"stack": tile_stack_matmul, "band": band_matmul,
+                 "panel": tile_stack_matmul_panel}
+
+
+def test_autotune_two_row_sweep_on_the_card(dev):
+    """Two rows of the sweep at the banded_fine class, timed with CUDA
+    events: each takes its driver's route and launches its kernel once a
+    call (2 warm + 10 timed)."""
+    counts = {r: w.launches for r, w in ROUTE_WRAPPER.items()}
+    table = autotune.sweep(grid={"mm_driver": ["stack", "band"]},
+                           workloads=["banded_fine"], device=dev, verbose=False)
+    assert table["device_kind"] == torch.cuda.get_device_name(0)
+    rows = table["results"]["banded_fine"]["all"]
+    assert sorted(r["route"] for r in rows) == ["band", "stack"]
+    assert all(r["gflops"] > 0 for r in rows)
+    for route in ("stack", "band"):
+        assert ROUTE_WRAPPER[route].launches - counts[route] == 12, route
+
+
+#: the panel knobs a tuned row carries (the engine applies them with its
+#: driver; its precision and bf16 knobs are not applied)
+PANEL_KNOBS = ("panel_c_win", "panel_cache", "panel_chunk", "panel_runlen")
+
+
+def test_autotune_committed_table_takes_its_driver(dev, monkeypatch):
+    """Under the committed table, ``auto`` at default provenance takes the
+    nearest class's driver, and its product is bitwise the explicit
+    driver's with the same panel knobs."""
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
+
+    monkeypatch.delitem(autotune._TABLE_CACHE, torch.cuda.get_device_name(0))
+    get_plan_cache().clear()
+    table = autotune._cached_table(dev)
+    assert table is not None, "no committed table for this card"
+    a, b = autotune.WORKLOADS["banded_fine"](0, dev)
+    cls, _ = autotune.nearest_class(autotune.workload_features(a.index, b.index), table)
+    best = table["results"][cls]["best"]
+    fn, _, _ = dtt.build_multiply_executor("N", "N", a, b)
+    assert fn.plan.route.replace("panel_runs", "panel") == best["mm_driver"]
+    knobs = {k: best[k] for k in PANEL_KNOBS if k in best}
+    with config_override(mm_driver=best["mm_driver"], **knobs):
+        fx, _, _ = dtt.build_multiply_executor("N", "N", a, b)
+    assert fx.plan.route == fn.plan.route
+    assert torch.equal(fn(a.data, b.data), fx(a.data, b.data))
+    get_plan_cache().clear()
+
