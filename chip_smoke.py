@@ -200,6 +200,25 @@ Phases (any failure exits non-zero before the final line):
     same knobs and within 1e-4 of the plain version, its CUDA-event median
     beside the untuned auto's (K2); (d) shape R's float32 fold at default
     provenance: its route and nearest class, against the plain version.
+17. the multi-process form, after phase 16 and before phase 10: workers of
+    this file, spawned with ``torch.multiprocessing`` (the kernels built
+    above, one library for all), each brought up with
+    ``init_lib(distributed=True, backend="gloo", device="cuda:0",
+    coordinator_address="file://...")``: (a) two processes, Cannon 2×2 at
+    the phase-4 shape in float32 (K1) and float64 (the float64 kernel),
+    each process's C bitwise phase 14's single-process executor (digest,
+    64 sampled tiles, their host float64 recomputation), later calls bitwise,
+    one plan on both, each process's launches its ranks' ticks, CUDA-event
+    medians of the executor and its parts, the bytes moved a call; first
+    each asks for ``backend="nccl"``, which must refuse two processes on one
+    card; (b) four processes at 12,000 rows: 2.5D Cannon 2×2×2 and SUMMA 2×4
+    in float32, Cannon 2×2 in complex128 (KC2), the sharded float64 form
+    (multiply, filter, trace, Frobenius norm, a checkpoint each process
+    writes its shards of), ``tas_multiply_parallel`` (4 groups) and
+    ``contract`` over a ``TensorPGrid``, each bitwise the same code run on
+    this process's virtual ranks; (c) with two cards, (a) again over NCCL,
+    one process a card, else a line saying it was not run. A failed worker,
+    or one past its deadline, kills the others and fails the run.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (eight kernels: the six ports of the
@@ -213,6 +232,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1236,9 +1256,10 @@ def plain_of(plan, a_data, b_data):
     return tile_stack_matmul_plain(a_in, b_in, plan.stack, out_dtype=acc)
 
 
-def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
-    """float64 host recomputation of sampled C tiles from the kernel's own
-    inputs (so the bound is the kernel's accumulation only)."""
+def sampled_f64_tiles(plan, c_index, a_data, b_data, n_samples=64, seed=1):
+    """``n_samples`` C slots drawn from ``seed`` and a float64 host
+    recomputation of their tiles from the kernel's own inputs (so the bound
+    is the kernel's accumulation only)."""
     import torch
 
     from dbcsr_tpu_torch.block.store import store_layout
@@ -1251,7 +1272,13 @@ def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
         present, size=min(n_samples, len(present)), replace=False))
     a_st, b_st = plan.op_stores(a_data, b_data)  # as the plan's stack indexes them
     ref = host_f64_tiles(a_st, b_st, tp.stack, prod_of[picks], plan.in_dtype)
-    return rel_err(out[picks].cpu(), torch.as_tensor(ref))
+    return picks, torch.as_tensor(ref)
+
+
+def sampled_f64_check(plan, out, c_index, a_data, b_data, n_samples=64, seed=1):
+    """float64 host recomputation of sampled C tiles against ``out``'s."""
+    picks, ref = sampled_f64_tiles(plan, c_index, a_data, b_data, n_samples, seed)
+    return rel_err(out[picks].cpu(), ref)
 
 
 def phase_main_path(dev, nrows: int):
@@ -3269,12 +3296,15 @@ def dist_breakdown(fn, a, b) -> dict:
 
 
 def dist_leg(what: str, fn, a, b, ref, c_index, local_plan, tname: str,
-             local_ms: float, plan_s: float, rows: dict) -> None:
+             local_ms: float, plan_s: float, rows: dict, keep: bool = False) -> None:
     """One distributed executor against the local executor's product
     ``ref``: its dtype's kernel must be the only launch, once per non-empty
     (rank, tick) stack; two calls bitwise equal; the product against ``ref``
     and a host float64 recomputation of 64 sampled tiles; CUDA-event
-    medians of the executor and its parts."""
+    medians of the executor and its parts. With ``keep`` the product's
+    digest, sampled tiles and their host recomputation stay in
+    ``rows[(what, tname)]["c"]`` (phase 17 holds its processes against
+    them)."""
     import torch
 
     kname = DIST_KERNEL[tname]
@@ -3287,7 +3317,9 @@ def dist_leg(what: str, fn, a, b, ref, c_index, local_plan, tname: str,
         fail(f"14 {what}: launches {launched}, expected {kname} x {fn.plan.launches}")
     same = bool(torch.equal(out, fn(a.data, b.data)))
     err, rel = rel_err(out, ref)
-    serr, srel = sampled_f64_check(local_plan, out, c_index, a.data, b.data)
+    picks, host = sampled_f64_tiles(local_plan, c_index, a.data, b.data)
+    tiles = out[picks].cpu()
+    serr, srel = rel_err(tiles, host)
     ms = cuda_median_ms(lambda: fn(a.data, b.data), reps=5)
     parts = dist_breakdown(fn, a, b)
     rp = fn.plan
@@ -3301,6 +3333,9 @@ def dist_leg(what: str, fn, a, b, ref, c_index, local_plan, tname: str,
     if not (same and rel <= rtol and srel <= rtol):
         fail(f"14 {what} {tname}: the distributed product disagrees with its references")
     rows[(what, tname)] = {"ms": ms, "launches": rp.launches, "max_abs_err": err, **parts}
+    if keep:
+        rows[(what, tname)]["c"] = {"digest": store_digest(out), "picks": picks,
+                                    "tiles": tiles, "host": host}
 
 
 def phase_dist_cannon(dev, rows: dict) -> None:
@@ -3337,7 +3372,8 @@ def phase_dist_cannon(dev, rows: dict) -> None:
             if not (np.array_equal(ci.row_ptr, c_index.row_ptr)
                     and np.array_equal(ci.col_idx, c_index.col_idx)):
                 fail(f"14 {what}: the distributed C index differs from the local one")
-            dist_leg(what, fn, a, b, ref, c_index, lfn.plan, tname, local_ms, plan_s, rows)
+            dist_leg(what, fn, a, b, ref, c_index, lfn.plan, tname, local_ms, plan_s, rows,
+                     keep=what == "14a 2x2")
             del fn
             torch.cuda.empty_cache()
         if dtype == torch.float32:
@@ -4209,6 +4245,398 @@ def phase_tuned(dev, card: str) -> tuple:
     return phase_tuned_sweep(dev, card), phase_tuned_auto(dev, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the multi-process distributed multiply (torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: leg (b)'s shape: the banded SCF pattern at 12,000 rows (the autotune
+#: class banded_fine's size), cut from phase 14(c)'s 40,000 so that the
+#: phase keeps within its budget (at 40,000 rows it took 93 s, at 20,000
+#: 90 s), and shape R's chain for the contraction over a TensorPGrid cut to
+#: this many atoms
+MP_ROWS_B = 12_000
+MP_TENSOR_ATOMS = 120
+#: a leg's deadline (s): a hang or a lost peer fails the phase, never the run's limit
+MP_TIMEOUT = 300
+#: timed calls of leg (a)'s executors (the first call before them warms it up)
+MP_REPS = 3
+#: what the phase may cost (s); printed beside its time
+MP_BUDGET_S = 90
+
+
+def store_digest(x) -> str:
+    """blake2b digest of a tensor's bytes (on the host)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def plan_digest(hp) -> str:
+    """blake2b digest of a distributed executor's host plan."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for arr in (hp.stacks, hp.a_pack, hp.b_pack, hp.c_unpack):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def mp_spawn(fn, nprocs: int, args: tuple, what: str) -> None:
+    """``nprocs`` workers of ``fn(pid, *args)`` through torch.multiprocessing
+    (start method spawn), joined against one deadline; a failed worker, or
+    the deadline, kills the others and fails the run."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                              start_method="spawn")
+    deadline = time.perf_counter() + MP_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() > deadline:
+                fail(f"17 {what}: the workers did not finish within {MP_TIMEOUT} s")
+    except Exception as e:  # a worker raised or exited non-zero
+        fail(f"17 {what}: a worker failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+
+
+def mp_init(pid: int, nprocs: int, url: str, backend: str, device: str):
+    """A worker's start: the repository on the path, the world brought up,
+    the card's tuned table held off as in phases 3-15. Returns the
+    process's device and its start-up seconds."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch import autotune
+    from dbcsr_tpu_torch.dist import comm
+
+    t0 = time.perf_counter()
+    dt.init_lib(distributed=True, coordinator_address=url, num_processes=nprocs,
+                process_id=pid, backend=backend, device=device)
+    dev = comm.device()
+    autotune._TABLE_CACHE[torch.cuda.get_device_name(dev)] = None
+    return dev, time.perf_counter() - t0
+
+
+def mp_timed_calls(ex, a_data, b_data, reps: int, first) -> dict:
+    """CUDA-event medians over the same ``reps`` calls of a warm
+    distributed executor and of its parts: pack (this process's
+    ranks' pieces), ticks (launches, adds, ring shifts, layer sums) and
+    unpack (every process's C panels into the whole store); transfers =
+    the host seconds inside ``dist/comm.py`` a call (staging included),
+    which lie inside ticks and unpack. ``bitwise``: every call's C equals
+    ``first``, the store of the call before them."""
+    import torch
+
+    from dbcsr_tpu_torch.dist import comm
+    from dbcsr_tpu_torch.mm.engine import _op_store
+    from dbcsr_tpu_torch.mm.kernels import accumulator_dtype
+
+    acc = accumulator_dtype(a_data.dtype)
+    rows = {"ms": [], "pack": [], "ticks": [], "unpack": [], "transfers": []}
+    same = True
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        s0 = comm.transfer_counts().seconds
+        ev[0].record()
+        pa = ex.pack_a(_op_store(a_data, ex.a_perm))
+        pb = ex.pack_b(_op_store(b_data, ex.b_perm))
+        ev[1].record()
+        panels = ex.plan.run(pa, pb, a_data.dtype)
+        ev[2].record()
+        c = ex.unpack(panels, acc)
+        ev[3].record()
+        ev[3].synchronize()
+        same = same and bool(torch.equal(c, first))
+        rows["ms"].append(ev[0].elapsed_time(ev[3]))
+        rows["pack"].append(ev[0].elapsed_time(ev[1]))
+        rows["ticks"].append(ev[1].elapsed_time(ev[2]))
+        rows["unpack"].append(ev[2].elapsed_time(ev[3]))
+        rows["transfers"].append((comm.transfer_counts().seconds - s0) * 1e3)
+        del pa, pb, panels, c
+    return {"bitwise": same, **{k: float(np.median(v)) for k, v in rows.items()}}
+
+
+def mp_leg_a(pid: int, nprocs: int, url: str, work: str, refs: dict, backend: str,
+             devices: list) -> None:
+    """Leg (a)/(c) worker: phase 4's banded SCF operands at MAIN_ROWS rows,
+    Cannon 2×2 over the world (two ranks a process) in float32 (K1 ticks)
+    and float64 (the float64 kernel's), held against phase 14's
+    single-process executor (``refs``: digest, sampled tiles, their host
+    float64 recomputation). With gloo on one card it first asks for nccl,
+    which must refuse two processes on one card, naming gloo."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.core.errors import DbcsrError
+    from dbcsr_tpu_torch.dist import ProcessGrid, comm, tile_aligned_dist
+
+    res = {}
+    if backend == "gloo" and len(set(devices)) == 1:
+        try:
+            dt.init_lib(distributed=True, coordinator_address=url + "_nccl",
+                        num_processes=nprocs, process_id=pid, backend="nccl",
+                        device=devices[pid])
+            res["nccl_refusal"] = "none: nccl came up with two processes on one card"
+        except DbcsrError as e:
+            res["nccl_refusal"] = str(e)
+    dev, res["init_s"] = mp_init(pid, nprocs, url, backend, devices[pid])
+    for tname in ("float32", "float64"):
+        ref = refs[tname]
+        t0 = time.perf_counter()
+        a, b, _ = banded_scf_matrices(MAIN_ROWS, dev, dtype=getattr(torch, tname))
+        sync(dev)
+        r = {"operands_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        dist = tile_aligned_dist(ProcessGrid.make(2, 2), a.row_block_sizes,
+                                 a.row_block_sizes, 128)
+        fn, _, _ = dt.build_distributed_executor("N", "N", a, b, dist, algo="cannon")
+        r["plan_s"] = time.perf_counter() - t0
+        r["plan_digest"] = plan_digest(fn.host_plan)
+        r["ranks"] = [list(rk) for rk in dist.grid.local_ranks()]
+        r["planned_launches"] = fn.plan.launches
+        reset_launches()
+        comm.reset_transfer_counts()
+        out = fn(a.data, b.data)
+        sync(dev)
+        r["launches"] = {k: n for k, n in read_launches().items() if n}
+        moved = comm.transfer_counts()
+        r["moved"] = {"messages": moved.messages, "bytes_sent": moved.bytes_sent,
+                      "bytes_received": moved.bytes_received}
+        r["digest"] = store_digest(out)
+        tiles = out[ref["picks"]].cpu()
+        r["tiles_bitwise"] = bool(torch.equal(tiles, ref["tiles"]))
+        r["host_rel"] = rel_err(tiles, ref["host"])[1]
+        r.update(mp_timed_calls(fn.exec, a.data, b.data, MP_REPS, out))
+        del out
+        res[tname] = r
+        del a, b, fn
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    with open(os.path.join(work, f"a_{pid}.json"), "w") as f:
+        json.dump(res, f)
+    dt.finalize_lib()
+
+
+def mp_leg_b_run(dev, ckpt_dir: str) -> dict:
+    """Leg (b)'s products at MP_ROWS_B rows on grids that ``ProcessGrid.make``
+    deals: in the parent (no world) the single-process virtual ranks of
+    ``dev``, in a worker the ranks of the world. Returns, by leg, the
+    result's digest (scalars as they are) and this process's launches."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from dbcsr_tpu_torch.dist import (
+        ProcessGrid, build_sharded_multiply, shard_matrix, sharded_checkpoint_read,
+        sharded_checkpoint_write, sharded_filter, sharded_frobenius, sharded_trace,
+        tile_aligned_dist,
+    )
+    from dbcsr_tpu_torch.dist.sharded_ops import ShardedMatrix
+    from dbcsr_tpu_torch.tas import tas_multiply_parallel
+    from dbcsr_tpu_torch.tensors import TensorPGrid, contract
+
+    def grid(*shape):
+        return ProcessGrid.make(*shape, devices=[dev] * int(np.prod(shape)))
+
+    out = {}
+
+    def record(name, run):
+        before = read_launches()
+        val = run()
+        sync(dev)
+        out[name] = {"launches": launch_delta(before), **val}
+
+    a, b, _ = banded_scf_matrices(MP_ROWS_B, dev)
+    rbs = a.row_block_sizes
+    for name, shape, algo in (("2.5D Cannon 2x2x2", (2, 2, 2), "cannon"),
+                              ("SUMMA 2x4", (2, 4), "summa")):
+        dist = tile_aligned_dist(grid(*shape), rbs, rbs, 128)
+        fn, _, _ = dt.build_distributed_executor("N", "N", a, b, dist, algo=algo)
+        record(name, lambda: {"digest": store_digest(fn(a.data, b.data)),
+                              "plan_digest": plan_digest(fn.host_plan)})
+    record("TAS 4 groups", lambda: {"digest": store_digest(tas_multiply_parallel(
+        a, b, long_dim="auto", nsplit=4, devices=[dev] * 4).data)})
+    del a, b
+    a, b, _ = banded_scf_matrices(MP_ROWS_B, dev, dtype=torch.complex128)
+    dist = tile_aligned_dist(grid(2, 2), rbs, rbs, 128)
+    fn, _, _ = dt.build_distributed_executor("N", "N", a, b, dist, algo="cannon")
+    record("Cannon 2x2 complex128", lambda: {"digest": store_digest(fn(a.data, b.data))})
+    del a, b, fn
+    a, b, _ = banded_scf_matrices(MP_ROWS_B, dev, dtype=torch.float64, decay=DECAY)
+    sa, sb = shard_matrix(a, dist), shard_matrix(b, dist)
+    ci, c_sl, sfn = build_sharded_multiply("N", "N", sa, sb)
+
+    def sharded():
+        sc = ShardedMatrix(name="C", index=ci, tile=128, dist=dist, shard=c_sl,
+                           data=sfn(sa.data, sb.data), dtype=torch.float64)
+        fs = sharded_filter(sc, FILTER_EPS)
+        return {"digest": store_digest(sc.to_local().data),
+                "filtered": store_digest(fs.to_local().data), "kept": fs.nblks,
+                "trace": sharded_trace(sc), "frobenius": sharded_frobenius(sc)}
+
+    record("sharded float64 2x2", sharded)
+    sharded_checkpoint_write(sa, ckpt_dir)
+    back = sharded_checkpoint_read(ckpt_dir, dist.grid)
+    out["checkpoint"] = {
+        "launches": {}, "shards": sum(x is not None for x in sa.data),
+        "bitwise": all((x is None and y is None) or bool(torch.equal(x, y))
+                       for x, y in zip(back.data, sa.data))}
+    del a, b, sa, sb, back
+    ta, tb = ri_tensors(MP_TENSOR_ATOMS, dev, torch.float32)
+    pgrid = TensorPGrid.make(3, dims=(2, 2, 1), devices=[dev] * 4)
+    tdist = tile_aligned_dist(pgrid.grid, ta.matrix.row_block_sizes, tb.block_sizes[1],
+                              128)
+    record("contract over TensorPGrid 2x2", lambda: {"digest": store_digest(contract(
+        1.0, ta, tb, dist=tdist, nsplit=1, **R_KW).matrix.data)})
+    return out
+
+
+def mp_leg_b(pid: int, nprocs: int, url: str, work: str, backend: str,
+             devices: list) -> None:
+    """Leg (b) worker: ``mp_leg_b_run`` over the world."""
+    import torch
+
+    dev, init_s = mp_init(pid, nprocs, url, backend, devices[pid])
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mp_leg_b_run(dev, os.path.join(work, "ckpt_b"))
+    res["_"] = {"init_s": init_s, "run_s": time.perf_counter() - t0,
+                "launches": {k: n for k, n in read_launches().items() if n},
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    with open(os.path.join(work, f"b_{pid}.json"), "w") as f:
+        json.dump(res, f)
+    import dbcsr_tpu_torch as dt
+
+    dt.finalize_lib()
+
+
+def mp_check_a(what: str, work: str, nprocs: int, refs: dict, card: str) -> dict:
+    """Read and check leg (a)'s (or (c)'s) workers; print their readings."""
+    res = [json.load(open(os.path.join(work, f"a_{pid}.json"))) for pid in range(nprocs)]
+    for tname, kname, rtol in (("float32", "K1", KERNEL_RTOL), ("float64", "K6", F64_RTOL)):
+        rs = [r[tname] for r in res]
+        for pid, r in enumerate(rs):
+            moved = r["moved"]
+            log(f"  {what} {tname} process {pid} (ranks {r['ranks']}): operands "
+                f"{r['operands_s']:.2f} s, host plan {r['plan_s']:.2f} s; launches "
+                f"{r['launches']} (planned {r['planned_launches']}); {moved['messages']} "
+                f"messages a call, {moved['bytes_sent'] / 1e9:.4f} GB sent, "
+                f"{moved['bytes_received'] / 1e9:.4f} GB received; bitwise the "
+                f"single-process executor {r['digest'] == refs[tname]['digest']}, sampled "
+                f"tiles bitwise {r['tiles_bitwise']}, vs host float64 (64 tiles) rel="
+                f"{r['host_rel']:.2e} (bound {rtol:.0e}), the {MP_REPS} timed calls "
+                f"bitwise the first {r['bitwise']}; executor {r['ms']:.3f} ms (pack {r['pack']:.3f}, "
+                f"ticks {r['ticks']:.3f}, unpack {r['unpack']:.3f}; transfers "
+                f"{r['transfers']:.3f} of host time) [{card}]")
+            if not (r["digest"] == refs[tname]["digest"] and r["tiles_bitwise"]
+                    and r["host_rel"] <= rtol and r["bitwise"]):
+                fail(f"{what} {tname}: process {pid}'s product is not the single-process one")
+            if r["launches"] != {kname: r["planned_launches"]} or r["planned_launches"] < 1:
+                fail(f"{what} {tname}: process {pid} launched {r['launches']}, expected "
+                     f"{kname} x {r['planned_launches']}")
+        if len({r["plan_digest"] for r in rs}) != 1:
+            fail(f"{what} {tname}: the processes built different plans")
+    return {"launches": {k: [r[t]["launches"].get(k, 0) for r in res]
+                         for t, k in (("float32", "K1"), ("float64", "K6"))},
+            "ms": {t: max(r[t]["ms"] for r in res) for t in ("float32", "float64")},
+            "nccl_refusal": [r.get("nccl_refusal") for r in res],
+            "init_s": max(r["init_s"] for r in res),
+            "peak_gb": max(r["peak_gb"] for r in res)}
+
+
+def mp_check_b(what: str, work: str, nprocs: int, refs_b: dict) -> list:
+    """Read and check leg (b)'s workers against the single-process results
+    ``refs_b``; print their readings. Returns each process's launches."""
+    res_b = [json.load(open(os.path.join(work, f"b_{pid}.json"))) for pid in range(nprocs)]
+    for name, ref in refs_b.items():
+        for pid, r in enumerate(res_b):
+            got = r[name]
+            same = {k: got[k] == v for k, v in ref.items() if k not in ("launches", "shards")}
+            log(f"  {what} {name} process {pid}: launches {got['launches']}; equal to the "
+                f"single-process result: {same}")
+            if not all(same.values()):
+                fail(f"{what} {name}: process {pid} differs from the single-process result")
+    launched_b = [r["_"]["launches"] for r in res_b]
+    for pid, r in enumerate(res_b):
+        log(f"  {what} process {pid}: start-up {r['_']['init_s']:.2f} s, legs "
+            f"{r['_']['run_s']:.2f} s, launches {r['_']['launches']}, peak device memory "
+            f"{r['_']['peak_gb']:.2f} GB")
+        if not all(r["_"]["launches"].get(k) for k in ("K1", "K6", "KC2")):
+            fail(f"{what}: process {pid} launched {r['_']['launches']}: each of K1, K6, KC2 "
+                 f"must run")
+        if not r["checkpoint"]["shards"]:
+            fail(f"{what}: process {pid} held no shard of the 2x2 grid")
+    return launched_b
+
+
+def phase_mp(dev, card: str, refs_a: dict) -> dict:
+    """Phase 17: the multi-process form over torch.distributed, every
+    worker spawned from this file; (a) two processes on cuda:0 over gloo at
+    the phase-4 shape, (b) four at MP_ROWS_B rows, (c) NCCL one process a
+    card when there are two cards. Returns the launches by leg."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dbcsr_mp_")
+    one = [str(dev)] * 4
+    torch.cuda.empty_cache()
+    # (b)'s single-process references first: the same products on this
+    # process's virtual ranks (the workers' kernels are the build above)
+    t0 = time.perf_counter()
+    reset_launches()
+    refs_b = mp_leg_b_run(dev, os.path.join(work, "ckpt_single"))
+    torch.cuda.empty_cache()
+    log(f"  17b single-process references at {MP_ROWS_B} rows: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    mp_spawn(mp_leg_a, 2, (2, f"file://{work}/a_rdzv", work, refs_a, "gloo", one), "a")
+    log(f"  17a two processes on {one[0]} over gloo, Cannon 2x2 at {MAIN_ROWS} rows: "
+        f"{time.perf_counter() - t0:.2f} s")
+    row_a = mp_check_a("17a", work, 2, refs_a, card)
+    for pid, msg in enumerate(row_a["nccl_refusal"]):
+        log(f"  17a backend='nccl' with two processes on one card, process {pid}: {msg}")
+        if not (msg and 'backend="gloo"' in msg):
+            fail("17a: nccl with two processes on one card did not refuse, naming gloo")
+
+    t0 = time.perf_counter()
+    mp_spawn(mp_leg_b, 4, (4, f"file://{work}/b_rdzv", work, "gloo", one), "b")
+    b_s = time.perf_counter() - t0
+    launched_b = mp_check_b("17b", work, 4, refs_b)
+    log(f"  17b four processes on {one[0]} over gloo at {MP_ROWS_B} rows: {b_s:.2f} s")
+
+    row_c = None
+    if torch.cuda.device_count() >= 2:
+        cards = [f"cuda:{i}" for i in range(2)]
+        t0 = time.perf_counter()
+        mp_spawn(mp_leg_a, 2, (2, f"file://{work}/c_rdzv", work, refs_a, "nccl", cards),
+                 "c")
+        log(f"  17c two processes over nccl, one a card ({cards}): "
+            f"{time.perf_counter() - t0:.2f} s")
+        row_c = mp_check_a("17c", work, 2, refs_a, card)
+    else:
+        log(f"  17c the NCCL leg was not run: this machine has {torch.cuda.device_count()} "
+            f"card and NCCL runs one process a card (not counted as passed)")
+    shutil.rmtree(work, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    log(f"  phase 17 took {took:.1f} s (budget {MP_BUDGET_S} s"
+        f"{'' if took <= MP_BUDGET_S else ', OVER'}); the slowest process's executor "
+        f"{row_a['ms']['float32']:.3f} / {row_a['ms']['float64']:.3f} ms float32 / float64 "
+        f"against phase 14's single-process {refs_a['float32']['ms']:.3f} / "
+        f"{refs_a['float64']['ms']:.3f} ms [{card}]")
+    return {"a": row_a["launches"], "b": launched_b,
+            "c": None if row_c is None else row_c["launches"]}
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -4497,6 +4925,18 @@ def main() -> int:
     log(f"[16] took {time.perf_counter() - t16:.1f} s; peak device memory "
         f"{peak_memory(dev) / 1e9:.2f} GB")
 
+    # 17. the multi-process form: workers of this file over torch.distributed
+    log(f"[17] the multi-process distributed multiply: (a) 2 processes on one card over "
+        f"gloo, Cannon 2x2 at {MAIN_ROWS} rows, against phase 14's single-process "
+        f"executor; (b) 4 processes at {MP_ROWS_B} rows: 2.5D Cannon, SUMMA, complex128 "
+        f"Cannon, the sharded form, TAS, a contraction; (c) NCCL, one process a card "
+        f"[{card}]")
+    refs_a = {t: {**dist_rows[("14a 2x2", t)]["c"], "ms": dist_rows[("14a 2x2", t)]["ms"]}
+              for t in ("float32", "float64")}
+    del dist_rows
+    mp_launches = phase_mp(dev, card, refs_a)
+    get_plan_cache().clear()
+
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")
     torch.cuda.empty_cache()
@@ -4543,9 +4983,17 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": round(r["library_ms"], 4)}
 
     r64 = filtered[torch.float64]
+
+    def with17(e, kname):
+        # phase 17's launches on each process: (a) and (c) Cannon 2x2, (b) every leg
+        e["phase17_launches"] = {
+            "a": mp_launches["a"].get(kname), "b": [n.get(kname, 0) for n in mp_launches["b"]],
+            "c": None if mp_launches["c"] is None else mp_launches["c"].get(kname)}
+        return e
+
     print(json.dumps({"kernels": [
-        entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
-                "dbcsr_tpu/mm/kernels.py:76", "K1", "stack"),
+        with17(entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
+                       "dbcsr_tpu/mm/kernels.py:76", "K1", "stack"), "K1"),
         entry14("panel_matmul (K2)", "dbcsr_tpu_torch/csrc/panel_matmul.cu",
                 "dbcsr_tpu/mm/panel.py:297", "K2", "auto"),
         entry9("panel_runs_matmul (K3)", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu",
@@ -4554,14 +5002,15 @@ def main() -> int:
                "dbcsr_tpu/mm/kernels.py:419", "K4"),
         entry9("band_matmul (K5)", "dbcsr_tpu_torch/csrc/band_matmul.cu",
                "dbcsr_tpu/mm/band.py:257", "K5"),
-        entry("stack_matmul_f64 (K6)", "dbcsr_tpu_torch/csrc/stack_matmul_f64.cu",
-              "dbcsr_tpu/mm/ozaki_panel.py:222", r64["launches"],
-              max(f64_err, r64["max_abs_err"]), r64["kernel_ms"], r64["plain_ms"],
-              r64["counts"], "float64"),
+        with17(entry("stack_matmul_f64 (K6)", "dbcsr_tpu_torch/csrc/stack_matmul_f64.cu",
+                     "dbcsr_tpu/mm/ozaki_panel.py:222", r64["launches"],
+                     max(f64_err, r64["max_abs_err"]), r64["kernel_ms"], r64["plain_ms"],
+                     r64["counts"], "float64"), "K6"),
         entry13("stack_matmul_c64 (KC1)", "KC1", "dbcsr_tpu_torch/csrc/stack_matmul_c64.cu",
                 "dbcsr_tpu/mm/kernels.py:76", "complex64"),
-        entry13("stack_matmul_c128 (KC2)", "KC2", "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
-                "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"),
+        with17(entry13("stack_matmul_c128 (KC2)", "KC2",
+                       "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
+                       "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"), "KC2"),
         entry16("K1", "dbcsr_tpu_torch/csrc/stack_matmul.cu", "dbcsr_tpu/mm/kernels.py:76"),
         entry16("K2", "dbcsr_tpu_torch/csrc/panel_matmul.cu", "dbcsr_tpu/mm/panel.py:297"),
         entry16("K3", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu", "dbcsr_tpu/mm/panel.py:757"),

@@ -10,7 +10,9 @@ whose stack products run through hand-written CUDA kernels on an H100
 complex64 and complex128);
 over it, the tall-and-skinny layer (``tas/``) and block-sparse tensor
 contraction (``tensors/``); the distributed multiply over a grid of
-virtual ranks (``dist/``: Cannon, SUMMA, 2.5D, the sharded at-rest form).
+ranks (``dist/``: Cannon, SUMMA, 2.5D, the sharded at-rest form), driven
+by one process or, after ``init_lib(distributed=True)``, by the processes
+of a ``torch.distributed`` world.
 Plain PyTorch versions of the kernels serve CPU tensors and are the
 cross-check. Around the multiply: sub-matrix windows (``limits``),
 binary checkpoints and CSR exchange (``ops/io.py``, ``ops/csr.py``),

@@ -3,9 +3,9 @@
 Copy of ``dbcsr_tpu/core/logging.py`` (reference ``dbcsr_log_handling.F``):
 loggers carry an output unit (here a stream) and nest via a stack so
 library layers inherit the active logger. The JAX package prints only on
-its designated I/O process of a multi-host run; the port runs in one
-process, which is always the I/O process. The default prefix names the
-port's package.
+its designated I/O process of a multi-host run; so does the port in a
+run brought up by ``init_lib(distributed=True)`` (a single process is its
+own I/O process). The default prefix names the port's package.
 """
 from __future__ import annotations
 
@@ -37,14 +37,17 @@ class Logger:
     stream: object = None  # defaults to stdout at call time
     level: int = LOG_NOTE
     prefix: str = "dbcsr_tpu_torch"
-    #: the process that prints (the reference's io-unit-per-rank)
+    #: the process that prints (the reference's io-unit-per-rank): the
+    #: world rank of a distributed run
     io_process: int = 0
 
     def _unit(self):
         return self.stream or sys.stdout
 
     def _is_io_process(self) -> bool:
-        return True  # one process
+        from ..dist import comm
+
+        return comm.rank() == self.io_process
 
     def log(self, level: int, message: str) -> None:
         if level > self.level or not self._is_io_process():

@@ -4,8 +4,11 @@ and the sharded at-rest form.
 Port of ``dbcsr_tpu/dist/`` (the reference's ``src/dist/`` and the grid
 half of ``src/mpi/``, SURVEY.md §2.1) without the split-complex emulation
 of its sharded ops: the grid is an array of torch devices, one rank per
-cell (``grid.py``), and every distributed product runs the port's stack
-kernels rank by rank (``mm/cannon.py``, ``mm/summa.py``).
+cell, with the process that holds each (``grid.py``), and every distributed
+product runs the port's stack kernels rank by rank (``mm/cannon.py``,
+``mm/summa.py``). After ``init_lib(distributed=True)`` the ranks are dealt
+over the processes of a ``torch.distributed`` world and ``comm.py`` moves
+pieces between them.
 """
 from .distribution import (
     Distribution,

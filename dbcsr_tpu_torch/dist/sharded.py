@@ -7,8 +7,11 @@ reorders tiles by OWNER rank (the distribution's tile bins on the grid's
 JAX package keeps it as one ``[n_devices, n_max, T, T]`` array sharded
 over the mesh; here it is a list of ``n_devices`` tensors ``[n_max, T,
 T]``, rank ``i * npcol + j``'s on the device of rank (i, j, 0) (on a 2.5D
-grid the layers read the plane's shards). ``ShardLayout``'s maps are the
-JAX package's, computed by the same numpy code.
+grid the layers read the plane's shards). On a grid that spans processes
+each process materializes only its own ranks' shards (the JAX package's
+``put_global``): the others' entries are None, absent rather than zero.
+``ShardLayout``'s maps are the JAX package's, computed by the same numpy
+code.
 
 Per-rank tile lists are sorted by global (row-major) tile key, exactly the
 per-rank C ordering the distributed executors produce, so an executor's
@@ -18,7 +21,7 @@ index stays host metadata (small); only tile data shards.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ from ..block.index import BCSRIndex
 from ..block.store import store_layout
 from ..block.tileops import take_tiles
 from ..core.errors import dbcsr_assert
+from . import comm
 from .distribution import Distribution, dist_tile_bins
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "unshard_store",
     "unshard_store_with_layout",
     "plane_devices",
+    "plane_owners",
 ]
 
 
@@ -128,14 +133,21 @@ def plane_devices(grid) -> List[torch.device]:
     return [grid.device(i, j, 0) for i in range(grid.nprow) for j in range(grid.npcol)]
 
 
-def shard_store_with_layout(m, sl: ShardLayout, grid) -> List[torch.Tensor]:
+def plane_owners(grid) -> List[int]:
+    """The process of each shard: that of rank (i, j, 0)."""
+    return [grid.owner(i, j, 0) for i in range(grid.nprow) for j in range(grid.npcol)]
+
+
+def shard_store_with_layout(m, sl: ShardLayout, grid) -> List[Optional[torch.Tensor]]:
     """Local store -> the owner shards (one ``[n_max, T, T]`` tensor per
-    rank of ``grid``'s plane, zero padded), each on its rank's device."""
+    rank of ``grid``'s plane, zero padded), each on its rank's device; a
+    shard of another process is None."""
     t = m.tile
+    me = comm.rank()
     out = []
-    for d, dev in enumerate(plane_devices(grid)):
+    for d, (dev, o) in enumerate(zip(plane_devices(grid), plane_owners(grid))):
         take = sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max]
-        out.append(take_tiles(m.data, take, t).to(dev))
+        out.append(take_tiles(m.data, take, t).to(dev) if o == me else None)
     return out
 
 
@@ -143,27 +155,40 @@ def shard_store(m, dist: Distribution) -> List[torch.Tensor]:
     return shard_store_with_layout(m, shard_layout(m.index, m.tile, dist), dist.grid)
 
 
-def unshard_store_with_layout(shards: List[torch.Tensor], sl: ShardLayout,
-                              tile: int, device=None) -> torch.Tensor:
+def unshard_store_with_layout(shards: List[Optional[torch.Tensor]], sl: ShardLayout,
+                              tile: int, device=None, *, grid=None,
+                              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Owner shards -> the local store ``[n_tiles, T, T]`` on ``device``
-    (default: shard 0's), one copy per shard."""
+    (default: the first shard's), one copy per shard. With ``grid`` the
+    shards of other processes (None here) arrive as one message each of
+    the tiles the store takes, and every process gets the whole store; a
+    process that holds no shard names ``device`` and ``dtype``."""
+    held = [x for x in shards if x is not None]
     dbcsr_assert(
-        len(shards) == sl.ndev and all(x.shape[0] == sl.n_max for x in shards),
+        len(shards) == sl.ndev and all(x.shape[0] == sl.n_max for x in held),
         "shard layout mismatch",
     )
-    dev = shards[0].device if device is None else torch.device(device)
+    dbcsr_assert(grid is not None or len(held) == len(shards),
+                 "shards of other processes need the grid")
+    dev = held[0].device if device is None else torch.device(device)
+    dtype = dtype or held[0].dtype
     n = len(sl.owner_of_slot)
-    out = torch.empty((n, tile, tile), dtype=shards[0].dtype, device=dev)
-    for d, x in enumerate(shards):
-        slots = np.flatnonzero(sl.owner_of_slot == d)
-        if len(slots):
-            src = torch.as_tensor(sl.local_of_slot[slots], device=x.device)
-            out.index_copy_(0, torch.as_tensor(slots, device=dev),
-                            x.index_select(0, src).to(dev))
+    slots = [np.flatnonzero(sl.owner_of_slot == d) for d in range(sl.ndev)]
+    keep = [d for d in range(sl.ndev) if len(slots[d])]
+    pieces = [None if shards[d] is None else shards[d].index_select(
+        0, torch.as_tensor(sl.local_of_slot[slots[d]], device=shards[d].device))
+        for d in keep]
+    if grid is not None:
+        owners = plane_owners(grid)
+        pieces = comm.all_gather_panels([owners[d] for d in keep], pieces,
+                                        [(len(slots[d]), tile, tile) for d in keep], dtype)
+    out = torch.empty((n, tile, tile), dtype=dtype, device=dev)
+    for d, x in zip(keep, pieces):
+        out.index_copy_(0, torch.as_tensor(slots[d], device=dev), x.to(dev))
     return out
 
 
-def unshard_store(shards: List[torch.Tensor], index: BCSRIndex, tile: int,
+def unshard_store(shards: List[Optional[torch.Tensor]], index: BCSRIndex, tile: int,
                   dist: Distribution, device=None) -> torch.Tensor:
     return unshard_store_with_layout(shards, shard_layout(index, tile, dist), tile,
-                                     device)
+                                     device, grid=dist.grid)

@@ -6,7 +6,11 @@ on the owner shards of a ``ShardedMatrix`` (``sharded.py``: one ``[n_max,
 T, T]`` tensor per rank of the grid's (row, col) plane) rank by rank, and
 never gathers a matrix onto one device: where the JAX package runs one
 ``jax.shard_map`` with ``lax.psum``/``pmax``, a loop visits the ranks and
-the scalar partials are reduced on the host in rank order.
+the scalar partials are reduced on the host in rank order. On a grid that
+spans processes a process visits its own ranks (the others' shards are
+None) and the partials of all ranks reach every process
+(``comm.gather_scalars``) before the same rank-order reduction, so every
+process gets the single-process result, bit for bit.
 
 The structural fact the ops rest on: pattern-changing results (add's index
 union, hadamard's intersection, filter's survivors) keep the owner bins of
@@ -19,7 +23,8 @@ layouts onto the executor's k-binned layouts (a per-rank gather from the
 shards it needs) and runs the distributed executor of ``mm/engine.py``
 with ``sharded=True``: every rank's product on the port's stack kernel.
 ``sharded_checkpoint_write/read`` keep the JAX package's file format
-(``index.npz`` plus one ``shard_<d>.npy`` per rank).
+(``index.npz`` plus one ``shard_<d>.npy`` per rank); each process writes
+and reads its own shards.
 """
 from __future__ import annotations
 
@@ -46,12 +51,14 @@ from ..block.tileops import (
 )
 from ..core.errors import dbcsr_assert
 from ..core.timing import timed
+from . import comm
 from ..mm.engine import _coefficient
 from ..ops.arithmetic import _host_scalar as _host
 from .distribution import Distribution
 from .sharded import (
     ShardLayout,
     plane_devices,
+    plane_owners,
     shard_layout,
     shard_store_with_layout,
     unshard_store_with_layout,
@@ -89,34 +96,43 @@ class ShardedMatrix:
     ``data`` is the list of the plane's shards (``[n_max, T, T]`` each, zero
     padded, laid out by ``shard``); ``index`` stays host metadata, as the
     reference keeps the block index on every rank while its ``data_area``
-    is distributed."""
+    is distributed. On a grid that spans processes a shard of another
+    process is None; ``dtype`` is then the type of every shard (given, or
+    read from a shard of this process)."""
 
     name: str
     index: BCSRIndex
     tile: int
     dist: Distribution
     shard: ShardLayout
-    data: List[torch.Tensor]
+    data: List[Optional[torch.Tensor]]
     sym: str = SYM_NONE
+    dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        held = [x for x in self.data if x is not None]
+        if held:
+            object.__setattr__(self, "dtype", held[0].dtype)
+        dbcsr_assert(self.dtype is not None,
+                     "a ShardedMatrix that holds no shard here needs its dtype")
 
     @property
     def nblks(self) -> int:
         return self.index.nblks
 
     @property
-    def dtype(self) -> torch.dtype:
-        return self.data[0].dtype
-
-    @property
     def grid(self):
         return self.dist.grid
 
-    def with_data(self, data: List[torch.Tensor]) -> "ShardedMatrix":
+    def with_data(self, data: List[Optional[torch.Tensor]]) -> "ShardedMatrix":
         return replace(self, data=list(data))
 
     def to_local(self, device=None) -> BCSRMatrix:
-        """Gather back to one local store (on shard 0's device by default)."""
-        data = unshard_store_with_layout(self.data, self.shard, self.tile, device)
+        """Gather back to one local store (on the first shard's device by
+        default), on every process of a grid that spans several."""
+        dev = device if device is not None else plane_devices(self.grid)[0]
+        data = unshard_store_with_layout(self.data, self.shard, self.tile, dev,
+                                         grid=self.grid, dtype=self.dtype)
         return BCSRMatrix(name=self.name, index=self.index, data=data, sym=self.sym,
                           dist=self.dist)
 
@@ -129,7 +145,7 @@ def shard_matrix(m: BCSRMatrix, dist: Distribution) -> ShardedMatrix:
     sl = shard_layout(m.index, m.tile, dist)
     return ShardedMatrix(
         name=m.name, index=m.index, tile=m.tile, dist=dist, shard=sl,
-        data=shard_store_with_layout(m, sl, dist.grid), sym=m.sym,
+        data=shard_store_with_layout(m, sl, dist.grid), sym=m.sym, dtype=m.dtype,
     )
 
 
@@ -163,23 +179,32 @@ def _remap_table(dst_index: BCSRIndex, dst_sl: ShardLayout, src_index: BCSRIndex
     return tbl.reshape(dst_sl.ndev, dst_sl.n_max)
 
 
-def _local_gathers(tbl: np.ndarray, n_src: int, grid) -> List[TileGather]:
-    """One resolved tile gather per rank of a [ndev, n] table."""
-    return [tile_gather(tbl[d], n_src, dev) for d, dev in enumerate(plane_devices(grid))]
+def _held(grid) -> List[bool]:
+    """Whether this process holds each shard of ``grid``'s plane."""
+    me = comm.rank()
+    return [o == me for o in plane_owners(grid)]
 
 
-def _shard_constant(store: torch.Tensor, sl: ShardLayout, grid) -> List[torch.Tensor]:
+def _local_gathers(tbl: np.ndarray, n_src: int, grid) -> List[Optional[TileGather]]:
+    """One resolved tile gather per rank of a [ndev, n] table (None for a
+    shard of another process)."""
+    return [tile_gather(tbl[d], n_src, dev) if h else None
+            for d, (dev, h) in enumerate(zip(plane_devices(grid), _held(grid)))]
+
+
+def _shard_constant(store: torch.Tensor, sl: ShardLayout, grid
+                    ) -> List[Optional[torch.Tensor]]:
     """A store-ordered constant ([n_tiles, ...]) laid out as shards (zero
     padding); ``store`` may sit on any device."""
     return [take_tiles(store, sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max],
-                       store.shape[1]).to(dev)
-            for d, dev in enumerate(plane_devices(grid))]
+                       store.shape[1]).to(dev) if h else None
+            for d, (dev, h) in enumerate(zip(plane_devices(grid), _held(grid)))]
 
 
-def _sharded_valid_mask(sm: ShardedMatrix) -> List[torch.Tensor]:
+def _sharded_valid_mask(sm: ShardedMatrix) -> List[Optional[torch.Tensor]]:
     """Cached sharded validity mask (1 on stored-block positions)."""
     devs = plane_devices(sm.grid)
-    key = ("sharded_valid_mask", sm.tile, sm.shard.token, tuple(map(str, devs)))
+    key = ("sharded_valid_mask", sm.tile, sm.shard.token, sm.grid)
     return sm.index._cached(key, lambda: _shard_constant(
         valid_mask(sm.index, sm.tile, devs[0]), sm.shard, sm.grid))
 
@@ -199,7 +224,7 @@ def _check_compatible(a: ShardedMatrix, b: ShardedMatrix) -> None:
 # multiply on sharded matrices
 # ---------------------------------------------------------------------------
 
-def _reshard(src_sl: ShardLayout, dst_sl: ShardLayout, grid):
+def _reshard(src_sl: ShardLayout, dst_sl: ShardLayout, grid, tile: int):
     """A function moving sharded stores of ONE index between two layouts
     (the matrix's at-rest owners vs the executor's k-binned ones): a
     per-rank gather from the shards it needs; the identity when the layouts
@@ -208,13 +233,13 @@ def _reshard(src_sl: ShardLayout, dst_sl: ShardLayout, grid):
         src_sl.n_max == dst_sl.n_max
         and np.array_equal(src_sl.pos_of_slot, dst_sl.pos_of_slot)))
     if same:
-        return lambda shards: shards
+        return lambda shards, dtype: shards
     from ..mm.cannon import ShardGather
 
     pos = np.full(dst_sl.ndev * dst_sl.n_max, -1, dtype=np.int64)
     valid = dst_sl.slot_of_pos >= 0
     pos[valid] = src_sl.pos_of_slot[dst_sl.slot_of_pos[valid]]
-    return ShardGather(pos, dst_sl.n_max, src_sl.n_max, grid.plane())
+    return ShardGather(pos, dst_sl.n_max, src_sl.n_max, grid.plane(), tile)
 
 
 def build_sharded_multiply(transa: str, transb: str, a: ShardedMatrix,
@@ -234,7 +259,7 @@ def build_sharded_multiply(transa: str, transb: str, a: ShardedMatrix,
     dbcsr_assert(a.sym == SYM_NONE and b.sym == SYM_NONE,
                  "desymmetrize before sharded multiply")
     tile = a.tile
-    dev = a.data[0].device
+    dev = plane_devices(a.grid)[0]
     # metadata stand-ins: the executor reads only the index and the tile
     a_meta = BCSRMatrix(name=a.name, index=a.index,
                         data=torch.zeros((0, tile, tile), dtype=a.dtype, device=dev))
@@ -245,11 +270,11 @@ def build_sharded_multiply(transa: str, transb: str, a: ShardedMatrix,
         sharded=True,
     )
     grid = a.grid
-    move_a = _reshard(a.shard, exec_fn.shard_a, grid)
-    move_b = _reshard(b.shard, exec_fn.shard_b, grid)
+    move_a = _reshard(a.shard, exec_fn.shard_a, grid, tile)
+    move_b = _reshard(b.shard, exec_fn.shard_b, grid, tile)
 
     def fn(a_sh, b_sh):
-        return exec_fn(move_a(a_sh), move_b(b_sh))
+        return exec_fn(move_a(a_sh, a.dtype), move_b(b_sh, b.dtype))
 
     fn.eff_flops = eff
     fn.plan = exec_fn.plan
@@ -281,6 +306,7 @@ def sharded_multiply(transa: str, transb: str, alpha, a: ShardedMatrix,
     out = ShardedMatrix(
         name=f"{a.name}*{b.name}", index=c_index, tile=a.tile, dist=a.dist,
         shard=c_sl, data=fn(a.data, b.data), sym=SYM_NONE,
+        dtype=torch.promote_types(a.dtype, b.dtype),
     )
     if alpha != 1.0:
         out = sharded_scale(out, alpha)
@@ -312,7 +338,8 @@ def build_sharded_add(a: ShardedMatrix, b: ShardedMatrix
 
     def fn(x_sh, y_sh, alpha=1.0, beta=1.0):
         al, be = _coefficient(alpha, dtype), _coefficient(beta, dtype)
-        return [al * apply_tile_gather(x, g1).to(dtype) + be * apply_tile_gather(y, g2).to(dtype)
+        return [None if g1 is None else
+                al * apply_tile_gather(x, g1).to(dtype) + be * apply_tile_gather(y, g2).to(dtype)
                 for x, y, g1, g2 in zip(x_sh, y_sh, ga, gb)]
 
     return c_index, c_sl, fn
@@ -323,6 +350,7 @@ def sharded_add(alpha, a: ShardedMatrix, beta, b: ShardedMatrix) -> ShardedMatri
     return ShardedMatrix(
         name=a.name, index=c_index, tile=a.tile, dist=a.dist, shard=c_sl,
         data=fn(a.data, b.data, alpha, beta), sym=a.sym,
+        dtype=torch.promote_types(a.dtype, b.dtype),
     )
 
 
@@ -347,7 +375,7 @@ def build_sharded_hadamard(a: ShardedMatrix, b: ShardedMatrix
                             b.shard.n_max, a.grid)
 
     def fn(x_sh, y_sh):
-        return [apply_tile_gather(x, g1) * apply_tile_gather(y, g2)
+        return [None if g1 is None else apply_tile_gather(x, g1) * apply_tile_gather(y, g2)
                 for x, y, g1, g2 in zip(x_sh, y_sh, ga, gb)]
 
     return c_index, c_sl, fn
@@ -357,7 +385,7 @@ def sharded_hadamard(a: ShardedMatrix, b: ShardedMatrix) -> ShardedMatrix:
     c_index, c_sl, fn = build_sharded_hadamard(a, b)
     return ShardedMatrix(
         name=a.name, index=c_index, tile=a.tile, dist=a.dist, shard=c_sl,
-        data=fn(a.data, b.data), sym=a.sym,
+        data=fn(a.data, b.data), sym=a.sym, dtype=torch.promote_types(a.dtype, b.dtype),
     )
 
 
@@ -368,7 +396,7 @@ def sharded_hadamard(a: ShardedMatrix, b: ShardedMatrix) -> ShardedMatrix:
 def sharded_scale(sm: ShardedMatrix, alpha) -> ShardedMatrix:
     """alpha·A (``dbcsr_scale``): local arithmetic on every shard."""
     al = _coefficient(alpha, sm.dtype)
-    return sm.with_data([x * al for x in sm.data])
+    return sm.with_data([None if x is None else x * al for x in sm.data])
 
 
 def build_sharded_scale_by_vector(sm: ShardedMatrix, side: str = "right") -> Callable:
@@ -384,12 +412,15 @@ def build_sharded_scale_by_vector(sm: ShardedMatrix, side: str = "right") -> Cal
     coords = np.full(sl.ndev * sl.n_max, ntiles_dim, dtype=np.int64)  # pad row
     pos_valid = sl.slot_of_pos >= 0
     coords[pos_valid] = lay.tile_coords[sl.slot_of_pos[pos_valid], axis]
-    ct = [torch.as_tensor(coords[d * sl.n_max:(d + 1) * sl.n_max], device=dev)
-          for d, dev in enumerate(plane_devices(sm.grid))]
+    ct = [torch.as_tensor(coords[d * sl.n_max:(d + 1) * sl.n_max], device=dev) if h else None
+          for d, (dev, h) in enumerate(zip(plane_devices(sm.grid), _held(sm.grid)))]
 
     def fn(x_sh, vec):
         out = []
         for x, c in zip(x_sh, ct):
+            if c is None:
+                out.append(None)
+                continue
             v = torch.as_tensor(np.asarray(vec) if not torch.is_tensor(vec) else vec)
             vt = torch.zeros(((ntiles_dim + 1) * t,), dtype=x.dtype, device=x.device)
             vt[:n_full] = v.to(device=x.device).reshape(n_full).to(x.dtype)
@@ -415,6 +446,9 @@ def sharded_function_of_elements(sm: ShardedMatrix, fn) -> ShardedMatrix:
         fn = ELEMENT_FUNCTIONS[fn]
     out = []
     for x, vm in zip(sm.data, _sharded_valid_mask(sm)):
+        if x is None:
+            out.append(None)
+            continue
         y = fn(x)
         out.append(torch.where(vm > 0.5, y, torch.zeros_like(y)))
     return sm.with_data(out)
@@ -423,6 +457,12 @@ def sharded_function_of_elements(sm: ShardedMatrix, fn) -> ShardedMatrix:
 # ---------------------------------------------------------------------------
 # scalar reductions: per-rank partials summed on the host in rank order
 # ---------------------------------------------------------------------------
+
+def _all_ranks(sm: ShardedMatrix, parts: list, is_complex: bool) -> list:
+    """Every rank's partial in rank order, on every process (``parts``
+    holds this process's, None for the others')."""
+    return comm.gather_scalars(parts, plane_owners(sm.grid), is_complex)
+
 
 def _assert_nonsym(sm: ShardedMatrix, what: str) -> None:
     dbcsr_assert(
@@ -442,15 +482,16 @@ def sharded_trace(sm: ShardedMatrix):
         lay = store_layout(sm.index, t)
         diag = np.flatnonzero(lay.tile_coords[:, 0] == lay.tile_coords[:, 1])
         out = []
-        for d, dev in enumerate(devs):
+        for d, (dev, h) in enumerate(zip(devs, _held(sm.grid))):
             sel = diag[sl.owner_of_slot[diag] == d]
-            out.append(torch.as_tensor(sl.local_of_slot[sel], device=dev))
+            out.append(torch.as_tensor(sl.local_of_slot[sel], device=dev) if h else None)
         return out
 
-    tbl = sm.index._cached(("sharded_trace_tbl", t, sl.token, tuple(map(str, devs))), mk)
-    parts = [_host(torch.diagonal(x.index_select(0, c), dim1=1, dim2=2).sum())
+    tbl = sm.index._cached(("sharded_trace_tbl", t, sl.token, sm.grid), mk)
+    parts = [None if c is None else
+             _host(torch.diagonal(x.index_select(0, c), dim1=1, dim2=2).sum())
              for x, c in zip(sm.data, tbl)]
-    return sum(parts)
+    return sum(_all_ranks(sm, parts, sm.dtype.is_complex))
 
 
 def sharded_dot(a: ShardedMatrix, b: ShardedMatrix):
@@ -460,9 +501,9 @@ def sharded_dot(a: ShardedMatrix, b: ShardedMatrix):
     _assert_nonsym(a, "dot")
     gb = _local_gathers(_remap_table(a.index, a.shard, b.index, b.shard, a.tile),
                         b.shard.n_max, a.grid)
-    parts = [_host((x.conj() * apply_tile_gather(y, g)).sum())
+    parts = [None if g is None else _host((x.conj() * apply_tile_gather(y, g)).sum())
              for x, y, g in zip(a.data, b.data, gb)]
-    return sum(parts)
+    return sum(_all_ranks(a, parts, torch.promote_types(a.dtype, b.dtype).is_complex))
 
 
 def sharded_frobenius(sm: ShardedMatrix) -> float:
@@ -470,13 +511,16 @@ def sharded_frobenius(sm: ShardedMatrix) -> float:
     _assert_nonsym(sm, "frobenius norm")
     from ..block.tileops import squares
 
-    return float(np.sqrt(sum([_host(squares(x).sum()) for x in sm.data])))
+    parts = [None if x is None else _host(squares(x).sum()) for x in sm.data]
+    return float(np.sqrt(sum(_all_ranks(sm, parts, False))))
 
 
 def sharded_maxabs(sm: ShardedMatrix) -> float:
     """max |a_ij| (``dbcsr_maxabs``): per-rank maxima, then their maximum."""
     _assert_nonsym(sm, "maxabs norm")
-    return float(max((_host(x.abs().max()) if x.numel() else 0.0) for x in sm.data))
+    parts = [None if x is None else (_host(x.abs().max()) if x.numel() else 0.0)
+             for x in sm.data]
+    return float(max(_all_ranks(sm, parts, False)))
 
 
 # ---------------------------------------------------------------------------
@@ -499,33 +543,40 @@ def sharded_checkpoint_write(sm: ShardedMatrix, directory: str) -> None:
     """Checkpoint a sharded matrix WITHOUT gathering it: the index metadata
     to ``index.npz``, every rank's shard to its own ``shard_<d>.npy`` (the
     JAX package's files; the reference's MPI-IO checkpoint,
-    ``dbcsr_binary_write``, ``src/ops/dbcsr_io.F:576``)."""
+    ``dbcsr_binary_write``, ``src/ops/dbcsr_io.F:576``). Each process
+    writes its own shards, the holder of shard 0 the metadata, then every
+    process waits for the others: on return the checkpoint is whole."""
     os.makedirs(directory, exist_ok=True)
     idx = sm.index
-    np.savez(
+    held = _held(sm.grid)
+    if held[0]:
+        np.savez(
         os.path.join(directory, "index.npz"),
-        name=sm.name,
-        sym=sm.sym,
-        tile=np.int64(sm.tile),
-        ndev=np.int64(sm.shard.ndev),
-        n_max=np.int64(sm.shard.n_max),
-        dtype=_np_dtype_str(sm.dtype),
-        emulated=np.int64(0),
-        row_block_sizes=idx.row_block_sizes,
-        col_block_sizes=idx.col_block_sizes,
-        blk_rows=idx.blk_rows,
-        col_idx=idx.col_idx,
-        row_dist=sm.dist.row_dist,
-        col_dist=sm.dist.col_dist,
-    )
+            name=sm.name,
+            sym=sm.sym,
+            tile=np.int64(sm.tile),
+            ndev=np.int64(sm.shard.ndev),
+            n_max=np.int64(sm.shard.n_max),
+            dtype=_np_dtype_str(sm.dtype),
+            emulated=np.int64(0),
+            row_block_sizes=idx.row_block_sizes,
+            col_block_sizes=idx.col_block_sizes,
+            blk_rows=idx.blk_rows,
+            col_idx=idx.col_idx,
+            row_dist=sm.dist.row_dist,
+            col_dist=sm.dist.col_dist,
+        )
     for d, x in enumerate(sm.data):
-        np.save(os.path.join(directory, f"shard_{d}.npy"), _shard_host(x))
+        if held[d]:
+            np.save(os.path.join(directory, f"shard_{d}.npy"), _shard_host(x))
+    comm.barrier()
 
 
 def sharded_checkpoint_read(directory: str, grid) -> ShardedMatrix:
     """Restore a sharded matrix written by :func:`sharded_checkpoint_write`
     (by either package) onto ``grid``'s ranks (same plane shape), each
-    shard loaded straight to its rank's device."""
+    shard loaded straight to its rank's device by the process that holds
+    it."""
     z = np.load(os.path.join(directory, "index.npz"))
     tile = int(z["tile"])
     dbcsr_assert(not int(z["emulated"]) if "emulated" in z else True,
@@ -539,7 +590,10 @@ def sharded_checkpoint_read(directory: str, grid) -> ShardedMatrix:
                  "checkpoint grid shape does not match the target grid")
     dstr = str(z["dtype"])
     data = []
-    for d, dev in enumerate(plane_devices(grid)):
+    for d, (dev, h) in enumerate(zip(plane_devices(grid), _held(grid))):
+        if not h:
+            data.append(None)
+            continue
         arr = np.load(os.path.join(directory, f"shard_{d}.npy"))
         if dstr == _BF16_STR or arr.dtype.itemsize == 2 and arr.dtype.kind == "V":
             x = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
@@ -547,8 +601,9 @@ def sharded_checkpoint_read(directory: str, grid) -> ShardedMatrix:
         else:
             x = torch.from_numpy(np.ascontiguousarray(arr.astype(np.dtype(dstr))))
         data.append(x.to(dev))
+    dtype = torch.bfloat16 if dstr == _BF16_STR else getattr(torch, np.dtype(dstr).name)
     return ShardedMatrix(name=str(z["name"]), index=index, tile=tile, dist=dist,
-                         shard=sl, data=data, sym=str(z["sym"]))
+                         shard=sl, data=data, sym=str(z["sym"]), dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -560,7 +615,8 @@ def sharded_block_norms(sm: ShardedMatrix) -> np.ndarray:
     rank's per-tile (segment-row, segment-col) partials by the indicator
     matmuls of ``block/tileops.py`` on its own shard, the combine of
     blocks spanning tiles on the host in rank order (``block_sums_sq``'s
-    sharded twin)."""
+    sharded twin); on a grid that spans processes every rank's partials
+    reach every process first."""
     if sm.index.nblks == 0:
         return np.zeros(0, dtype=np.float32)
     sl, t = sm.shard, sm.tile
@@ -570,25 +626,31 @@ def sharded_block_norms(sm: ShardedMatrix) -> np.ndarray:
     def mk():
         lay = store_layout(sm.index, t)
         out = []
-        for d, dev in enumerate(devs):
+        for d, (dev, h) in enumerate(zip(devs, _held(sm.grid))):
             pos = sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max]
             slot = np.maximum(pos, 0)
-            dinfo = device_block_info(sm.index, t, dev)
-            dinfo = replace(
-                dinfo,
-                rows=torch.as_tensor(lay.tile_coords[slot, 0].astype(np.int64), device=dev),
-                cols=torch.as_tensor(lay.tile_coords[slot, 1].astype(np.int64), device=dev),
-            )
+            dinfo = None
+            if h:
+                dinfo = device_block_info(sm.index, t, dev)
+                dinfo = replace(
+                    dinfo,
+                    rows=torch.as_tensor(lay.tile_coords[slot, 0].astype(np.int64),
+                                         device=dev),
+                    cols=torch.as_tensor(lay.tile_coords[slot, 1].astype(np.int64),
+                                         device=dev),
+                )
             bid = np.where(pos[:, None, None] >= 0, info.bid[slot], -1)
             out.append((dinfo, bid))
         return out
 
-    tables = sm.index._cached(("sharded_block_norm_tables", t, sl.token,
-                               tuple(map(str, devs))), mk)
+    tables = sm.index._cached(("sharded_block_norm_tables", t, sl.token, sm.grid), mk)
+    parts = [None if x is None else per_tile_block_sums(x, dinfo)
+             for x, (dinfo, _) in zip(sm.data, tables)]
+    parts = comm.all_gather_panels(plane_owners(sm.grid), parts,
+                                   [bid.shape for _, bid in tables], torch.float32)
     out = np.zeros(sm.index.nblks + 1, dtype=np.float64)
-    for x, (dinfo, bid) in zip(sm.data, tables):
-        z = per_tile_block_sums(x, dinfo).cpu().numpy()
-        np.add.at(out, bid.reshape(-1) + 1, z.reshape(-1))
+    for z, (_, bid) in zip(parts, tables):
+        np.add.at(out, bid.reshape(-1) + 1, z.cpu().numpy().reshape(-1))
     return out[1:].astype(np.float32)
 
 
@@ -611,7 +673,7 @@ def sharded_filter(sm: ShardedMatrix, eps: Optional[float]) -> ShardedMatrix:
         g = _local_gathers(_remap_table(new_index, new_sl, sm.index, sm.shard, sm.tile),
                            sm.shard.n_max, sm.grid)
         out = ShardedMatrix(name=sm.name, index=new_index, tile=sm.tile, dist=sm.dist,
-                            shard=new_sl, data=sm.data, sym=sm.sym)
+                            shard=new_sl, data=sm.data, sym=sm.sym, dtype=sm.dtype)
         vm = _sharded_valid_mask(out)
-        return out.with_data([apply_tile_gather(x, gi) * m.to(x.dtype)
+        return out.with_data([None if gi is None else apply_tile_gather(x, gi) * m.to(x.dtype)
                               for x, gi, m in zip(sm.data, g, vm)])

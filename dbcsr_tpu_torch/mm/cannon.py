@@ -29,9 +29,17 @@ a Python loop over P ticks:
   slots it touches and adds on those only (gather, add, scatter);
 - after each tick A shifts left along 'pc' and B up along 'pr': between
   ranks on one device the tensor is handed over, between devices it is a
-  peer copy; panels are read-only inside the loop, C is per rank;
+  peer copy, between processes one message (``dist/comm.py``); panels are
+  read-only inside the loop, C is per rank;
 - with ``nlayer > 1`` the layer partials are summed in layer order
   (the 2.5D C-reduction, ``src/mm/dbcsr_mm_3d.F``).
+
+On a grid that spans processes (``init_lib(distributed=True)``) every
+process holds the whole operands (as every process of the JAX battery
+builds the same ones), builds the same plan, packs and runs its own ranks
+only, and takes part in every transfer in one order; the unpack gathers
+every process's C panels, so each process gets the whole C store, bitwise
+the single-process result: a transfer moves bytes and adds nothing.
 
 Panels are pre-shifted at pack time (the reference's ``make_images``,
 ``dbcsr_mm_cannon.F:146-751``) and padded to the largest panel's tile
@@ -54,6 +62,8 @@ from ..block.store import store_layout
 from ..block.tileops import apply_tile_gather, tile_gather
 from ..core.stats import get_stats
 from ..core.timing import timed
+from ..dist import comm
+from ..dist.comm import move
 from ..dist.distribution import Distribution, LocalMap, local_map
 from ..dist.grid import ProcessGrid
 from .c_stack import tile_stack_matmul_c
@@ -583,12 +593,6 @@ def accumulate(c: Optional[torch.Tensor], part: torch.Tensor, ts: TickStack,
     return c.index_copy_(0, ts.touched, c.index_select(0, ts.touched).add_(part))
 
 
-def move(x: torch.Tensor, device) -> torch.Tensor:
-    """Hand ``x`` to a rank on ``device``: the tensor itself on the same
-    device, a peer copy otherwise."""
-    return x if x.device == device else x.to(device)
-
-
 class RankGather:
     """Per-rank gathers out of one source store, resolved once: rank
     ``r``'s piece is ``src[slot_map[r*n:(r+1)*n]]``, handed to the rank's
@@ -596,30 +600,37 @@ class RankGather:
     which no stack entry names: it takes tile 0 (one ``index_select``, no
     zero fill). With ``elements`` the map addresses the flattened source's
     elements, -1 is a position no stored element reaches and must be zero
-    (the padding-zero invariant), and each piece is reshaped to tiles."""
+    (the padding-zero invariant), and each piece is reshaped to tiles. Only
+    the ranks of this process (``local``) are gathered: every process holds
+    the whole source, as every process of the JAX battery builds the same
+    operands; the others' pieces are None."""
 
     def __init__(self, slot_map: np.ndarray, n: int, n_src: int, src_device,
-                 devices: List[torch.device], tile: int, elements: bool = False):
+                 devices: List[torch.device], tile: int, elements: bool = False,
+                 local: Optional[List[bool]] = None):
         self.devices = devices
         self.tile = tile
         self.elements = elements
         self.n = n
+        local = local if local is not None else [True] * len(devices)
         if elements:
             self.gathers = [tile_gather(slot_map[r * n:(r + 1) * n], n_src, src_device)
-                            for r in range(len(devices))]
+                            if local[r] else None for r in range(len(devices))]
         else:
             self.gathers = [torch.as_tensor(np.maximum(slot_map[r * n:(r + 1) * n], 0),
                                             dtype=torch.int64, device=src_device)
-                            for r in range(len(devices))]
+                            if local[r] else None for r in range(len(devices))]
 
-    def __call__(self, src: torch.Tensor) -> List[torch.Tensor]:
+    def __call__(self, src: torch.Tensor) -> List[Optional[torch.Tensor]]:
         if self.elements:
-            return [move(apply_tile_gather(src.reshape(-1), g).reshape(
+            return [None if g is None else move(apply_tile_gather(src.reshape(-1), g).reshape(
                 -1, self.tile, self.tile), dev) for g, dev in zip(self.gathers, self.devices)]
         if src.shape[0] == 0:
-            return [src.new_zeros((self.n,) + tuple(src.shape[1:]), device=dev)
-                    for dev in self.devices]
-        return [move(src.index_select(0, g), dev) for g, dev in zip(self.gathers, self.devices)]
+            return [None if g is None else
+                    src.new_zeros((self.n,) + tuple(src.shape[1:]), device=dev)
+                    for g, dev in zip(self.gathers, self.devices)]
+        return [None if g is None else move(src.index_select(0, g), dev)
+                for g, dev in zip(self.gathers, self.devices)]
 
 
 class ShardGather:
@@ -628,34 +639,54 @@ class ShardGather:
     ``pos_map[r*n + t]`` is the sharded position ``s * n_max + local`` of
     rank ``r``'s piece tile ``t`` (-1: zero). Each rank copies what it needs
     from each shard, ``index_select`` on the shard's device, one transfer,
-    ``index_copy_`` on its own (the reference's ``make_images`` alltoall).
+    ``index_copy_`` on its own (the reference's ``make_images`` alltoall);
+    a shard on another process sends the selected tiles as one message.
     Padding slots (-1) are left unwritten: no stack entry names them."""
 
-    def __init__(self, pos_map: np.ndarray, n: int, n_max: int, grid: ProcessGrid):
-        plane = [grid.device(i, j, 0) for i in range(grid.nprow)
-                 for j in range(grid.npcol)]
-        self.n = n
-        self.ranks = []
-        for r, rk in enumerate(grid.ranks()):
-            dev = grid.device(*rk)
+    def __init__(self, pos_map: np.ndarray, n: int, n_max: int, grid: ProcessGrid,
+                 tile: int):
+        plane = [(i, j, 0) for i in range(grid.nprow) for j in range(grid.npcol)]
+        self.n, self.tile = n, tile
+        self.devices = [grid.device(*rk) for rk in grid.ranks()]
+        own = self.owners = grid.owner_list()
+        self.shard_own = [grid.owner(*rk) for rk in plane]
+        me = comm.rank()
+        # (rank, shard, dst slots on the rank's device, src slots on the shard's)
+        self.parts = []
+        for r in range(len(self.devices)):
             blk = pos_map[r * n:(r + 1) * n]
-            parts = []
-            for sh, sdev in enumerate(plane):
+            for sh, rk in enumerate(plane):
                 sel = np.flatnonzero((blk >= sh * n_max) & (blk < (sh + 1) * n_max))
-                if len(sel):
-                    parts.append((sh, torch.as_tensor(sel, device=dev),
-                                  torch.as_tensor(blk[sel] - sh * n_max, device=sdev)))
-            self.ranks.append((dev, parts))
+                if not len(sel):
+                    continue
+                dst = (torch.as_tensor(sel, device=self.devices[r]) if own[r] == me
+                       else len(sel))
+                src = (torch.as_tensor(blk[sel] - sh * n_max, device=grid.device(*rk))
+                       if self.shard_own[sh] == me else None)
+                self.parts.append((r, sh, own[r], dst, src))
 
-    def __call__(self, shards: List[torch.Tensor]) -> List[torch.Tensor]:
-        ref = shards[0]
-        out = []
-        for dev, parts in self.ranks:
-            # a -1 is a padding slot no stack entry names: left as it is
-            x = torch.empty((self.n,) + tuple(ref.shape[1:]), dtype=ref.dtype, device=dev)
-            for sh, dst, src in parts:
-                x.index_copy_(0, dst, move(shards[sh].index_select(0, src), dev))
-            out.append(x)
+    def __call__(self, shards: List[Optional[torch.Tensor]], dtype: torch.dtype
+                 ) -> List[Optional[torch.Tensor]]:
+        me = comm.rank()
+        t = self.tile
+        msgs, keys = [], []
+        for k, (r, sh, o, dst, _) in enumerate(self.parts):
+            if o != self.shard_own[sh]:
+                n = dst if isinstance(dst, int) else len(dst)
+                msgs.append((self.shard_own[sh], o, (n, t, t), dtype))
+                keys.append(k)
+        got = comm.exchange(msgs, lambda i: shards[self.parts[keys[i]][1]].index_select(
+            0, self.parts[keys[i]][4]))
+        remote = {keys[i]: x for i, x in got.items()}
+        # a -1 is a padding slot no stack entry names: left as it is
+        out = [torch.empty((self.n, t, t), dtype=dtype, device=dev) if o == me else None
+               for o, dev in zip(self.owners, self.devices)]
+        for k, (r, sh, o, dst, src) in enumerate(self.parts):
+            if o != me:
+                continue
+            x = (shards[sh].index_select(0, src) if self.shard_own[sh] == me
+                 else remote[k])
+            out[r].index_copy_(0, dst, move(x, self.devices[r]))
         return out
 
 
@@ -664,16 +695,22 @@ class RankUnpack:
     ``c_src[s]`` is the position of store slot (or element) ``s`` in the
     concatenation of the (i, j) panels (each ``n_c`` tiles) or -1 (zero).
     Each panel's slots are copied in one ``index_copy_`` (destinations
-    unique), from a slice of the panel where it is read in order."""
+    unique), from a slice of the panel where it is read in order. Every
+    process assembles the whole store, as the JAX result is one global
+    array: a panel of another process (``owners``) arrives as one message
+    of the slots the store reads."""
 
     def __init__(self, c_src: np.ndarray, n_c: int, tile: int, n_ranks: int,
-                 devices: List[torch.device], out_device, elements: bool = False):
+                 devices: List[torch.device], out_device, *, owners: List[int],
+                 elements: bool = False):
         per = n_c * (tile * tile if elements else 1)
         self.n_out = len(c_src)
         self.complete = bool((c_src >= 0).all())
         self.tile = tile
         self.elements = elements
         self.out_device = out_device
+        self.owners = owners
+        me = comm.rank()
         self.parts = []
         for d in range(n_ranks):
             sel = np.flatnonzero((c_src >= d * per) & (c_src < (d + 1) * per))
@@ -684,18 +721,32 @@ class RankUnpack:
                 self.parts.append((
                     d,
                     torch.as_tensor(sel.astype(np.int64), device=out_device),
-                    len(src) if ordered else torch.as_tensor(src, device=devices[d]),
+                    len(src) if ordered or self.owners[d] != me
+                    else torch.as_tensor(src, device=devices[d]),
                 ))
 
-    def __call__(self, panels: List[torch.Tensor]) -> torch.Tensor:
+    def __call__(self, panels: List[Optional[torch.Tensor]],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``dtype``: the panels' type (default: that of the first panel of
+        this process; a process that holds none must say)."""
         t = self.tile
-        ref = panels[0]
+        if dtype is None:
+            dtype = next(x.dtype for x in panels if x is not None)
+        pieces = []
+        for d, dst, src in self.parts:
+            x = panels[d]
+            if x is not None:
+                x = x.reshape(-1) if self.elements else x
+                x = x[:src] if isinstance(src, int) else x.index_select(0, src)
+            pieces.append(x)
+        shapes = [(len(dst),) if self.elements else (len(dst), t, t)
+                  for _, dst, _ in self.parts]
+        pieces = comm.all_gather_panels([self.owners[d] for d, _, _ in self.parts],
+                                        pieces, shapes, dtype)
         shape = (self.n_out,) if self.elements else (self.n_out, t, t)
         make = torch.empty if self.complete else torch.zeros
-        out = make(shape, dtype=ref.dtype, device=self.out_device)
-        for d, dst, src in self.parts:
-            x = panels[d].reshape(-1) if self.elements else panels[d]
-            x = x[:src] if isinstance(src, int) else x.index_select(0, src)
+        out = make(shape, dtype=dtype, device=self.out_device)
+        for (_, dst, _), x in zip(self.parts, pieces):
             out.index_copy_(0, dst, move(x, self.out_device))
         return out.reshape(-1, t, t) if self.elements else out
 
@@ -703,9 +754,11 @@ class RankUnpack:
 @dataclass
 class RankPlan:
     """A Cannon or SUMMA schedule made resident on the grid's ranks:
-    per-rank, per-tick ``TickStack``s (SUMMA: one tick). ``run`` takes the
-    ranks' A and B pieces (lists in row-major (i, j, l) rank order) and
-    returns the (i, j) C panels, layers summed, in the accumulator type."""
+    per-rank, per-tick ``TickStack``s (SUMMA: one tick), for the ranks of
+    this process (the others' ticks are None). ``run`` takes the ranks'
+    A and B pieces (lists in row-major (i, j, l) rank order, None off this
+    process) and returns the (i, j) C panels, layers summed, in the
+    accumulator type (None where rank (i, j, 0) is off this process)."""
 
     algo: str  # "cannon" | "summa"
     grid: ProcessGrid
@@ -715,10 +768,14 @@ class RankPlan:
     n_c: int
     ticks: List[List[Optional[TickStack]]]
     n_stack: int  # stack entries over all ranks and ticks
+    #: whether each rank (of any process) computes a partial: known from the
+    #: plan everywhere, so a layer sum knows which partials to expect
+    has_part: List[bool]
 
     @property
     def launches(self) -> int:
-        """Kernel launches of one ``run``: the non-empty (rank, tick) stacks."""
+        """Kernel launches of one ``run`` on this process: its ranks'
+        non-empty (rank, tick) stacks."""
         return sum(ts is not None for per in self.ticks for ts in per)
 
     @staticmethod
@@ -732,84 +789,72 @@ class RankPlan:
         for r, rk in enumerate(ranks):
             per, first = [], True
             for t in range(st.shape[1]):
-                ts = tick_stack(st[r, t], n_c, grid.device(*rk), whole=first)
+                ts = (tick_stack(st[r, t], n_c, grid.device(*rk), whole=first)
+                      if grid.is_local(*rk) else None)
                 first = first and ts is None
                 per.append(ts)
             ticks.append(per)
         n_stack = int((stacks[..., 0] < n_c).sum())
-        return RankPlan(algo, grid, tile, n_a, n_b, n_c, ticks, n_stack)
+        has_part = [bool((st[r, :, :, 0] < n_c).any()) for r in range(len(ranks))]
+        return RankPlan(algo, grid, tile, n_a, n_b, n_c, ticks, n_stack, has_part)
 
-    def run(self, a_pieces: List[torch.Tensor], b_pieces: List[torch.Tensor],
-            dtype: torch.dtype) -> List[torch.Tensor]:
+    def run(self, a_pieces: List[Optional[torch.Tensor]],
+            b_pieces: List[Optional[torch.Tensor]], dtype: torch.dtype
+            ) -> List[Optional[torch.Tensor]]:
         kernel = rank_kernel(dtype)
         loop = self._cannon if self.algo == "cannon" else self._summa
-        parts = loop(a_pieces, b_pieces, kernel)
+        parts = loop(a_pieces, b_pieces, kernel, dtype)
         return self._sum_layers(parts, accumulator_dtype(dtype))
 
     def _rank(self, i: int, j: int, l: int) -> int:
         g = self.grid
         return (i * g.npcol + j) * g.nlayer + l
 
-    def _cannon(self, a, b, kernel):
+    def _cannon(self, a, b, kernel, dtype):
         g = self.grid
-        p = g.nprow
+        p, t = g.nprow, self.tile
         ranks = g.ranks()
         c: List[Optional[torch.Tensor]] = [None] * len(ranks)
-        a, b = list(a), list(b)
-        for t in range(p):
+        # ring shifts: A left along 'pc', B up along 'pr'
+        src_a = [self._rank(i, (j + 1) % p, l) for (i, j, l) in ranks]
+        src_b = [self._rank((i + 1) % p, j, l) for (i, j, l) in ranks]
+        for tick in range(p):
             for r in range(len(ranks)):
-                ts = self.ticks[r][t]
+                ts = self.ticks[r][tick]
                 if ts is not None:
                     c[r] = accumulate(c[r], kernel(a[r], b[r], ts.stack), ts, self.n_c)
-            if t == p - 1:
+            if tick == p - 1:
                 break
-            # ring shifts: A left along 'pc', B up along 'pr'
-            a = [move(a[self._rank(i, (j + 1) % p, l)], g.device(i, j, l))
-                 for (i, j, l) in ranks]
-            b = [move(b[self._rank((i + 1) % p, j, l)], g.device(i, j, l))
-                 for (i, j, l) in ranks]
+            a, b = comm.shift(g, [(a, src_a, (self.n_a, t, t), dtype),
+                                  (b, src_b, (self.n_b, t, t), dtype)])
         return c
 
-    def _summa(self, a, b, kernel):
+    def _summa(self, a, b, kernel, dtype):
         """Each rank gathers A's row panel along 'pc' and B's column panel
         along 'pr' (one concatenation per panel and device, shared by the
         ranks on that device), then launches once."""
         g = self.grid
-        p, q = g.nprow, g.npcol
-        rows, cols = {}, {}
+        p, q, t = g.nprow, g.npcol, self.tile
+        ranks = g.ranks()
+        rows = comm.gather_along(g, a, [[self._rank(i, k, l) for k in range(q)]
+                                        for (i, j, l) in ranks], (self.n_a, t, t), dtype)
+        cols = comm.gather_along(g, b, [[self._rank(k, j, l) for k in range(p)]
+                                        for (i, j, l) in ranks], (self.n_b, t, t), dtype)
         c: List[Optional[torch.Tensor]] = []
-        for (i, j, l) in g.ranks():
-            dev = g.device(i, j, l)
-            if (i, l, dev) not in rows:
-                rows[(i, l, dev)] = torch.cat(
-                    [move(a[self._rank(i, k, l)], dev) for k in range(q)])
-            if (j, l, dev) not in cols:
-                cols[(j, l, dev)] = torch.cat(
-                    [move(b[self._rank(k, j, l)], dev) for k in range(p)])
-            ts = self.ticks[self._rank(i, j, l)][0]
+        for r in range(len(ranks)):
+            ts = self.ticks[r][0]
             c.append(None if ts is None else accumulate(
-                None, kernel(rows[(i, l, dev)], cols[(j, l, dev)], ts.stack),
-                ts, self.n_c))
+                None, kernel(rows[r], cols[r], ts.stack), ts, self.n_c))
         return c
 
-    def _sum_layers(self, parts, acc: torch.dtype) -> List[torch.Tensor]:
+    def _sum_layers(self, parts, acc: torch.dtype) -> List[Optional[torch.Tensor]]:
         """The (i, j) C panels: layer partials summed in layer order on the
-        device of rank (i, j, 0)."""
+        device of rank (i, j, 0), in place into the first."""
         g = self.grid
         t = self.tile
-        out = []
-        for i in range(g.nprow):
-            for j in range(g.npcol):
-                dev = g.device(i, j, 0)
-                s = None
-                for l in range(g.nlayer):
-                    x = parts[self._rank(i, j, l)]
-                    if x is not None:  # the panels are the ranks' own: add in place
-                        s = move(x, dev) if s is None else s.add_(move(x, dev))
-                if s is None:
-                    s = torch.zeros((self.n_c, t, t), dtype=acc, device=dev)
-                out.append(s)
-        return out
+        sums = [(self._rank(i, j, 0), [self._rank(i, j, l) for l in range(g.nlayer)])
+                for i in range(g.nprow) for j in range(g.npcol)]
+        return comm.ordered_sum(g, parts, self.has_part, sums, (self.n_c, t, t), acc)
 
 
 def record_comm(kind_a: str, kind_b: str, grid: ProcessGrid, shifts_a: int,
@@ -846,7 +891,8 @@ class DistExec:
         n = 0
         for pk in (self.pack_a, self.pack_b):
             for g in pk.gathers:
-                n += (g.dst.numel() + g.src.numel() if pk.elements else g.numel()) * 8
+                if g is not None:
+                    n += (g.dst.numel() + g.src.numel() if pk.elements else g.numel()) * 8
         for _, dst, src in self.unpack.parts:
             n += (dst.numel() + (0 if isinstance(src, int) else src.numel())) * 8
         return n
@@ -858,7 +904,7 @@ class DistExec:
         a_st = _op_store(a_data, self.a_perm, conj[0])
         b_st = _op_store(b_data, self.b_perm, conj[1])
         panels = self.plan.run(self.pack_a(a_st), self.pack_b(b_st), a_data.dtype)
-        return self.unpack(panels)
+        return self.unpack(panels, accumulator_dtype(a_data.dtype))
 
 
 def dist_exec(algo: str, plan, grid: ProcessGrid, tile: int, a_perm, b_perm,
@@ -869,22 +915,36 @@ def dist_exec(algo: str, plan, grid: ProcessGrid, tile: int, a_perm, b_perm,
     stacks = plan.stacks
     if algo == "summa":
         stacks = stacks.reshape(plan.p, plan.q, plan.layers, 1, plan.s_max, 3)
-    ranks = [grid.device(*r) for r in grid.ranks()]
-    plane = [grid.device(i, j, 0) for i in range(grid.nprow) for j in range(grid.npcol)]
+    ranks, local = _rank_devices(grid)
+    plane, owners = _plane(grid)
     return DistExec(
         RankPlan.build(algo, grid, tile, plan.n_a, plan.n_b, plan.n_c, stacks),
-        RankGather(plan.a_pack, plan.n_a, n_a_store, device, ranks, tile),
-        RankGather(plan.b_pack, plan.n_b, n_b_store, device, ranks, tile),
-        RankUnpack(plan.c_unpack, plan.n_c, tile, len(plane), plane, device),
+        RankGather(plan.a_pack, plan.n_a, n_a_store, device, ranks, tile, local=local),
+        RankGather(plan.b_pack, plan.n_b, n_b_store, device, ranks, tile, local=local),
+        RankUnpack(plan.c_unpack, plan.n_c, tile, len(plane), plane, device,
+                   owners=owners),
         a_perm, b_perm,
     )
+
+
+def _rank_devices(grid: ProcessGrid):
+    """Every rank's device, and whether this process holds it."""
+    ranks = grid.ranks()
+    return [grid.device(*r) for r in ranks], [grid.is_local(*r) for r in ranks]
+
+
+def _plane(grid: ProcessGrid):
+    """The (i, j, 0) ranks' devices and processes: where C's panels lie."""
+    cells = [(i, j, 0) for i in range(grid.nprow) for j in range(grid.npcol)]
+    return [grid.device(*c) for c in cells], [grid.owner(*c) for c in cells]
 
 
 def _element_exec(plan: CannonPlan, a, b, c_lay, grid, tile, device) -> DistExec:
     """The element-granular plan made resident: panel element → at-rest
     store element maps (the at-rest store, not the op store: the plan's
     element maps are in op space already)."""
-    ranks = [grid.device(*r) for r in grid.ranks()]
+    ranks, local = _rank_devices(grid)
+    plane, owners = _plane(grid)
     p, layers, tt = plan.p, plan.layers, tile * tile
     bad = np.iinfo(np.int32).max
     a_inv = _inverse_map_values(plan.a_dest, a.layout.elem_dest,
@@ -897,12 +957,11 @@ def _element_exec(plan: CannonPlan, a, b, c_lay, grid, tile, device) -> DistExec
     return DistExec(
         rp,
         RankGather(np.where(a_inv == bad, -1, a_inv), plan.n_a * tt,
-                   a.data.numel(), device, ranks, tile, elements=True),
+                   a.data.numel(), device, ranks, tile, elements=True, local=local),
         RankGather(np.where(b_inv == bad, -1, b_inv), plan.n_b * tt,
-                   b.data.numel(), device, ranks, tile, elements=True),
-        RankUnpack(np.where(c_src == bad, -1, c_src), plan.n_c, tile, p * p,
-                   [grid.device(i, j, 0) for i in range(p) for j in range(p)],
-                   device, elements=True),
+                   b.data.numel(), device, ranks, tile, elements=True, local=local),
+        RankUnpack(np.where(c_src == bad, -1, c_src), plan.n_c, tile, p * p, plane,
+                   device, elements=True, owners=owners),
     )
 
 

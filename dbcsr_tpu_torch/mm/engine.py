@@ -1184,7 +1184,12 @@ def build_distributed_executor(
     T]`` shards in the executor's shard layouts (``fn.shard_a``,
     ``fn.shard_b``), C as the list of its rank shards (``fn.shard_c``: a
     rank's C panel IS its shard). The ranks' pieces are gathered from
-    the shards they need (the reference's ``make_images`` alltoall)."""
+    the shards they need (the reference's ``make_images`` alltoall).
+
+    On a grid that spans processes (``init_lib(distributed=True)``) every
+    process builds the same plan and runs its own ranks: ``fn`` returns the
+    whole C store on every process, or the shards of this process's ranks
+    (None for the others')."""
     from ..dist.distribution import dist_tile_bins, tile_dist_vector
     from ..ops.transform import desymmetrize
     from .cannon import RankPlan, ShardGather, _perm, dist_exec, plan_cannon_tiled
@@ -1250,23 +1255,25 @@ def build_distributed_executor(
             plan.stacks.reshape(p, q, grid.nlayer, -1, plan.s_max, 3),
         )
         gather_a = ShardGather(remap(plan.a_pack, sl_a, a_op), plan.n_a, sl_a.n_max,
-                               grid)
+                               grid, tile)
         gather_b = ShardGather(remap(plan.b_pack, sl_b, b_op), plan.n_b, sl_b.n_max,
-                               grid)
+                               grid, tile)
 
         def op_tiles(pieces, trans, cj):
             if not trans and not cj:
                 return pieces
             out = []
             for x in pieces:
-                x = x.transpose(1, 2).contiguous() if trans else x
-                out.append(torch.conj_physical(x) if cj else x)
+                if x is not None:
+                    x = x.transpose(1, 2).contiguous() if trans else x
+                    x = torch.conj_physical(x) if cj else x
+                out.append(x)
             return out
 
         def fn(a_sh, b_sh):
-            panels = rplan.run(op_tiles(gather_a(a_sh), ta, conj[0]),
-                               op_tiles(gather_b(b_sh), tb, conj[1]), dtype)
-            return [x.to(dtype) for x in panels]
+            panels = rplan.run(op_tiles(gather_a(a_sh, dtype), ta, conj[0]),
+                               op_tiles(gather_b(b_sh, dtype), tb, conj[1]), dtype)
+            return [None if x is None else x.to(dtype) for x in panels]
 
         fn.shard_a, fn.shard_b, fn.shard_c = sl_a, sl_b, sl_c
         fn.plan = rplan

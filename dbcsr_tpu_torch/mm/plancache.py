@@ -57,14 +57,16 @@ def array_fingerprint(*arrays) -> bytes:
 
 
 def dist_fingerprint(dist) -> bytes:
-    """Content hash of a Distribution (grid shape, rank devices, row/col
-    maps), cached on the object: two grids of one shape over other devices
-    must not share a cached executor (it holds tensors on those devices)."""
+    """Content hash of a Distribution (grid shape, rank devices and owner
+    processes, row/col maps), cached on the object: two grids of one shape
+    over other devices or processes must not share a cached executor (it
+    holds tensors on those devices, for those ranks)."""
     if getattr(dist, "_fingerprint", None) is None:
         g = dist.grid
         h = hashlib.blake2b(digest_size=16)
         h.update(bytes([g.nprow, g.npcol, g.nlayer]))
         h.update(repr([str(d) for d in g.devices.flat]).encode())
+        h.update(np.ascontiguousarray(g.owners, dtype=np.int64).tobytes())
         h.update(array_fingerprint(dist.row_dist, dist.col_dist))
         object.__setattr__(dist, "_fingerprint", h.digest())
     return dist._fingerprint

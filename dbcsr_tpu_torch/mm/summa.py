@@ -10,7 +10,8 @@ unchanged (numpy, tile-granular).
 Execution (``cannon.RankPlan``, algorithm "summa"). The JAX package's
 ``lax.all_gather`` of A along 'pc' and of B along 'pr' is a concatenation
 of the owners' pieces on the receiving rank's device (one per panel and
-device: ranks that share a device share it), and the local product is ONE
+device: ranks that share a device share it; a piece of another process
+arrives as one message, ``dist/comm.py``), and the local product is ONE
 launch of the port's stack kernel for the dtype per rank, over the rank's
 stack with the trash rows dropped. With ``nlayer > 1`` the k range is
 pre-split over the layers and the layer partials are summed in layer order

@@ -24,6 +24,12 @@ mesh axis, because one ``shard_map`` program needs static shapes; the
 groups here launch one by one at their own sizes and need no padding.
 ``tas_multiply_subgrid`` gives each group a 2-D sub-grid of ranks and runs
 it as SUMMA (``mm/summa.py``), one launch per rank.
+
+In a distributed run (``init_lib(distributed=True)``) the groups (and the
+sub-grids' ranks) are dealt round-robin over the world's processes: every
+process plans every group, launches its own, and gathers the others'
+results (``dist/comm.py``) before the merge, which runs in group order on
+every process, as one process does.
 """
 from __future__ import annotations
 
@@ -38,9 +44,10 @@ from ..block.store import store_layout
 from ..block.tileops import apply_tile_gather, tile_align_map, tile_gather
 from ..core.errors import dbcsr_assert
 from ..core.timing import timed
+from ..dist import comm
 from ..dist.grid import ProcessGrid, rank_devices
 from ..mm.cannon import TickStack, accumulate, move, rank_kernel
-from ..mm.kernels import device_stack
+from ..mm.kernels import accumulator_dtype, device_stack
 from ..mm.plan import symbolic_product
 from ..mm.tileplan import plan_tile_stacks_stores
 from ..ops.transform import desymmetrize
@@ -52,11 +59,13 @@ __all__ = ["tas_multiply_parallel", "tas_multiply_subgrid"]
 
 def _group_devices(nsplit: Optional[int], devices) -> List[torch.device]:
     """The groups' devices: ``devices``, else ``nsplit`` ranks over the
-    visible CUDA devices (one per device when ``nsplit`` is None)."""
+    visible CUDA devices (one per device when ``nsplit`` is None; one per
+    process in a distributed run)."""
     if devices is not None:
         return rank_devices(len(devices), devices)
-    n = nsplit if nsplit is not None else max(torch.cuda.device_count(), 1)
-    return rank_devices(n)
+    if nsplit is None:
+        nsplit = comm.world_size() if comm.is_up() else max(torch.cuda.device_count(), 1)
+    return rank_devices(nsplit)
 
 
 def _group_product(a_st: torch.Tensor, b_st: torch.Tensor, plan, dev) -> torch.Tensor:
@@ -103,9 +112,11 @@ def tas_multiply_parallel(
     out_dev = a.device
     rbs, cbs = a.index.row_block_sizes, b.index.col_block_sizes
 
+    me, world = comm.rank(), comm.world_size()
+    owners = [g % world for g in range(nsplit)]  # the groups dealt over the processes
     if long_dim in ("m", "n"):
         rows = long_dim == "m"
-        parts, eff = [], 0.0
+        groups, eff = [], 0.0
         for g in range(nsplit):
             blocks = split.blocks_of_group(g)
             with timed("tas_parallel/plan"):
@@ -127,11 +138,19 @@ def tas_multiply_parallel(
                 align = tile_gather(
                     tile_align_map(store_layout(c_g_index, tile).tile_keys(),
                                    plan.c_tile_keys), plan.n_c_tiles, out_dev)
-            with timed("tas_parallel/exec"):
-                c_g = _group_product(a_g.data, b_g.data, plan, devs[g])
-                c_g = apply_tile_gather(move(c_g, out_dev), align).to(a.dtype)
-            parts.append((BCSRMatrix(name=f"g{g}", index=c_g_index, data=c_g), blocks))
+            c_g = None
+            if owners[g] == me:
+                with timed("tas_parallel/exec"):
+                    c_g = _group_product(a_g.data, b_g.data, plan, devs[g])
+                    c_g = apply_tile_gather(move(c_g, out_dev), align).to(a.dtype)
+            groups.append((c_g, c_g_index, blocks))
         with timed("tas_parallel/merge"):
+            stores = comm.all_gather_panels(
+                owners, [c_g for c_g, _, _ in groups],
+                [(store_layout(ci, tile).n_tiles, tile, tile) for _, ci, _ in groups],
+                a.dtype)
+            parts = [(BCSRMatrix(name=f"g{g}", index=ci, data=move(x, out_dev)), blocks)
+                     for g, (x, (_, ci, blocks)) in enumerate(zip(stores, groups))]
             merge = merge_row_groups if rows else merge_col_groups
             out = merge(parts, rbs, cbs, name="tas_parallel", dtype=a.dtype,
                         device=out_dev)
@@ -159,20 +178,28 @@ def tas_multiply_parallel(
             c_keys = c_lay.tile_keys()
         c_store = None
         with timed("tas_parallel/exec"):
+            touched, parts = [], []
             for g, ((a_g, b_g, _), plan) in enumerate(zip(subs, plans)):
-                if not len(plan.stack):
-                    continue
                 # the union C slots this group's product tiles land on (a
                 # product tile no block pair reaches is in no C block: dropped)
                 prod_of = tile_align_map(c_keys, plan.c_tile_keys)
-                touched = np.flatnonzero(prod_of >= 0)
-                part = move(_group_product(a_g.data, b_g.data, plan, devs[g]), out_dev)
-                part = apply_tile_gather(part, tile_gather(prod_of[touched],
-                                                           plan.n_c_tiles, out_dev))
-                full = len(touched) == c_lay.n_tiles
-                ts = TickStack(None, None if full else torch.as_tensor(touched,
+                touched.append(np.flatnonzero(prod_of >= 0))
+                part = None
+                if owners[g] == me and len(plan.stack):
+                    part = move(_group_product(a_g.data, b_g.data, plan, devs[g]), out_dev)
+                    part = apply_tile_gather(part, tile_gather(prod_of[touched[g]],
+                                                               plan.n_c_tiles, out_dev))
+                parts.append(part)
+            # partials summed in group order on every process
+            live = [g for g in range(nsplit) if len(plans[g].stack)]
+            got = comm.all_gather_panels([owners[g] for g in live], [parts[g] for g in live],
+                                         [(len(touched[g]), tile, tile) for g in live],
+                                         accumulator_dtype(a.dtype))
+            for g, part in zip(live, got):
+                full = len(touched[g]) == c_lay.n_tiles
+                ts = TickStack(None, None if full else torch.as_tensor(touched[g],
                                                                        device=out_dev))
-                c_store = accumulate(c_store, part, ts, c_lay.n_tiles)
+                c_store = accumulate(c_store, move(part, out_dev), ts, c_lay.n_tiles)
         if c_store is None:
             c_store = torch.zeros((c_lay.n_tiles, tile, tile), dtype=a.dtype,
                                   device=out_dev)
@@ -213,6 +240,7 @@ def tas_multiply_subgrid(
     tile = a.tile
     need = nsplit * p * q
     devs = rank_devices(need, devices)
+    world = comm.world_size()
     mk = TASSplit.contiguous if split_kind == "contiguous" else TASSplit.cyclic
     split_rows = long_dim == "m"
     nblk_long = a.nblkrows if split_rows else b.index.nblkcols
@@ -249,7 +277,9 @@ def tas_multiply_subgrid(
 
     parts = []
     for g, ((blocks, a_g, b_g, c_g_index), plan) in enumerate(zip(subs, plans)):
-        grid = ProcessGrid.make(p, q, devices=devs[g * p * q:(g + 1) * p * q])
+        # the group's ranks continue the deal over the processes
+        grid = ProcessGrid.make(p, q, devices=devs[g * p * q:(g + 1) * p * q],
+                                owners=(g * p * q + np.arange(p * q)) % world)
         with timed("tas_subgrid/exec"):
             ex = dist_exec("summa", plan, grid, tile, None, None, a_g.data.shape[0],
                            b_g.data.shape[0], a.device)

@@ -7,7 +7,8 @@ of the device mesh, with tensor dims assigned to grid dims. The folded 2-D
 representation contracts over a 2-D sub-mesh, so an nd pgrid here is a
 (map1, map2)-consistent factorization of a :class:`~dbcsr_tpu_torch.dist.grid.ProcessGrid`:
 the row group's dims multiply to nprow and the col group's to
-npcol.
+npcol. In a distributed run the grid's ranks are dealt over the processes
+(``ProcessGrid.make``), and a contraction over it spans them.
 """
 from __future__ import annotations
 
@@ -74,11 +75,14 @@ class TensorPGrid:
         devices=None,
     ) -> "TensorPGrid":
         """Create an nd pgrid over ``devices`` (default: the visible CUDA
-        devices; raises without one) (``dbcsr_t_pgrid_create`` analog)."""
+        devices, raising without one; in a distributed run one rank a
+        process) (``dbcsr_t_pgrid_create`` analog)."""
+        from ..dist import comm
         from ..dist.grid import rank_devices
 
         devs = (list(devices) if devices is not None
-                else rank_devices(max(torch.cuda.device_count(), 1)))
+                else rank_devices(comm.world_size() if comm.is_up()
+                                  else max(torch.cuda.device_count(), 1)))
         if dims is None:
             dims = default_pgrid_dims(len(devs), ndim)
         dims = tuple(int(d) for d in dims)

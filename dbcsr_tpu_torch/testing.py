@@ -495,7 +495,9 @@ def test_dist(device, *, seed: int = 0, verbose: bool = False) -> bool:
     ranks on ``device`` — Cannon 2×2 (tile-aligned and, through the
     element-granular plan, block-cyclic), 2.5D Cannon 2×2×2, SUMMA 2×3 and
     2.5D SUMMA 2×2×2 — in float64, ``beta·C`` included, and the sharded
-    executor on 2×2, each against the dense oracle."""
+    executor on 2×2, each against the dense oracle. After
+    ``init_lib(distributed=True)`` the grids span the world's processes:
+    every process takes part and every process checks."""
     from .core.config import config_override
     from .dist import (
         ProcessGrid,

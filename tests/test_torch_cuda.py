@@ -1175,3 +1175,80 @@ def test_autotune_committed_table_takes_its_driver(dev, monkeypatch):
     assert torch.equal(fn(a.data, b.data), fx(a.data, b.data))
     get_plan_cache().clear()
 
+
+
+def _mp_operands(dev, dtype):
+    """Small banded-ish operands, the same on every process (one seed)."""
+    rng = np.random.default_rng(11)
+    rbs = dtt.random_block_sizes(1500, [5, 13, 23], rng)
+    a = dtt.random_matrix(rbs, rbs, 0.3, rng, dtype=dtype, name="A", device=dev)
+    b = dtt.random_matrix(rbs, rbs, 0.3, rng, dtype=dtype, name="B", device=dev)
+    return a, b
+
+
+def _mp_cannon(a, b, dev=None):
+    """Cannon 2×2 over ``ProcessGrid.make``: the single-process virtual
+    ranks of ``dev``, or, in a distributed run, the ranks of the world."""
+    from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
+
+    grid = ProcessGrid.make(2, 2, devices=None if dev is None else [dev] * 4)
+    dist = tile_aligned_dist(grid, a.row_block_sizes, a.row_block_sizes, a.tile)
+    fn, _, _ = dtt.build_distributed_executor("N", "N", a, b, dist, algo="cannon")
+    return fn
+
+
+def _mp_worker(pid, url, out, refs):
+    """One of two processes on cuda:0 over gloo (spawned by the test below)."""
+    import json
+
+    dtt.init_lib(distributed=True, coordinator_address=url, num_processes=2,
+                 process_id=pid, backend="gloo", device="cuda:0")
+    dev = torch.device("cuda", 0)
+    res = {}
+    for name, dtype, kern in (("float32", np.float32, tile_stack_matmul),
+                              ("float64", np.float64, tile_stack_matmul_f64)):
+        a, b = _mp_operands(dev, dtype)
+        fn = _mp_cannon(a, b)
+        before = kern.launches
+        c = fn(a.data, b.data)
+        torch.cuda.synchronize()
+        res[name] = {"bitwise": bool(torch.equal(c.cpu(), refs[name])),
+                     "launches": kern.launches - before, "planned": fn.plan.launches}
+    with open(f"{out}/mp_{pid}.json", "w") as f:
+        json.dump(res, f)
+    dtt.finalize_lib()
+
+
+def test_mp_two_processes_on_one_card_over_gloo(dev, tmp_path):
+    """Two processes on cuda:0 over gloo (the CUDA pieces staged through
+    pinned host memory), Cannon 2×2 in float32 (K1) and float64 (the
+    float64 kernel): each process's C is bitwise the single-process
+    executor's, and its launches are its own ranks' ticks."""
+    import json
+    import time
+
+    import torch.multiprocessing as tmp
+
+    from dbcsr_tpu_torch import _build
+
+    _build.build_kernels()  # the workers load this build
+    refs = {}
+    for name, dtype in (("float32", np.float32), ("float64", np.float64)):
+        a, b = _mp_operands(dev, dtype)
+        refs[name] = _mp_cannon(a, b, dev)(a.data, b.data).cpu()
+    ctx = tmp.start_processes(_mp_worker, args=(f"file://{tmp_path}/rdzv", str(tmp_path),
+                                                refs),
+                              nprocs=2, join=False, start_method="spawn")
+    deadline = time.time() + 120
+    try:
+        while not ctx.join(timeout=5):
+            assert time.time() < deadline, "the workers did not finish within 120 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    for pid in range(2):
+        res = json.loads((tmp_path / f"mp_{pid}.json").read_text())
+        for name, r in res.items():
+            assert r["bitwise"], (pid, name)
+            assert r["launches"] == r["planned"] > 0, (pid, name, r)
