@@ -219,10 +219,30 @@ Phases (any failure exits non-zero before the final line):
     this process's virtual ranks; (c) with two cards, (a) again over NCCL,
     one process a card, else a line saying it was not run. A failed worker,
     or one past its deadline, kills the others and fails the run.
+18. the examples and the planner-scale tools, after phase 17 and before
+    phase 10, with the card's tuned table loaded: (a) ``examples/torch/``
+    1, 2, 3, 5, 8, 9 and 10, each through its ``main(["--device",
+    "cuda"])`` in this process (each passes its own assertions), with its
+    wall seconds, routes and launches; example 3's executor timed by CUDA
+    events; example 9 once more with ``--nprocs 2`` over gloo, its C
+    bitwise the single-process one; (b) ``tools/torch/large_scale_check.py``
+    at 1,000,000 rows (band ±8 blocks, float32, T = 128) under the tuned
+    ``auto`` and under ``mm_driver="stack"``: set-up, layout, first call,
+    build and executor median beside phase 4's 400,000-row executors, host
+    peak RSS and peak device memory; each leg's C store against its kernel's
+    plain version and 64 sampled tiles against a host float64
+    recomputation, the two legs against each other, each leg launching a
+    hand-written kernel; then the tool as a program in a process of its own
+    (its host peak RSS and peak device memory, its counts and route equal to
+    the in-process auto leg's); (c) ``tools/torch/weak_scaling.py``: over every
+    card, and over as many processes with nccl, where there are two cards
+    or more; else four virtual ranks on the one card (``shared_device``:
+    orchestration only) and a line saying the multi-card leg was not run.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
 The kernel summary is one JSON line (eight kernels: the six ports of the
-TPU's kernels and KC1, KC2; then K1-K5 once more at phase 16's sweep rows;
+TPU's kernels and KC1, KC2, each with its launches in phases 17 and 18; then
+K1-K5 once more at phase 16's sweep rows;
 ``bound_ms`` is computed from this run's tile
 and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
 ``nvidia-smi`` line, then the final line ``{"ok": true, "device": {...}}``.
@@ -230,6 +250,7 @@ and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import shutil
@@ -1289,10 +1310,12 @@ def phase_main_path(dev, nrows: int):
     from dbcsr_tpu_torch.block.tileops import take_tiles
     from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul
     from dbcsr_tpu_torch.mm.panel import tile_stack_matmul_panel
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
 
     t0 = time.perf_counter()
     a, b, _ = banded_scf_matrices(nrows, dev)
     sync(dev)
+    PHASE4["setup_s"] = time.perf_counter() - t0
     log(f"  banded SCF shape: {nrows} rows, {a.nblkrows} block rows, "
         f"{a.nblks} blocks, A/B {a.data.shape[0]} tiles of 128² "
         f"({a.data.numel() * 4 / 1e9:.2f} GB f32 each); set-up {time.perf_counter() - t0:.1f} s")
@@ -1300,10 +1323,12 @@ def phase_main_path(dev, nrows: int):
     execs = {}
     for prec in ("highest", "default"):
         for driver in ("auto", "stack"):
+            get_plan_cache().clear()  # a cold build, as phase 18b's
             t0 = time.perf_counter()
             with dt.config_override(matmul_precision=prec, mm_driver=driver):
                 fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b)
             tp = fn.plan.tile_plan
+            PHASE4[(prec, driver)] = time.perf_counter() - t0
             log(f"  executor {driver:5s} @ {prec:7s}: route={fn.plan.route} "
                 f"kernel inputs {str(fn.plan.in_dtype)[6:]}, S={len(tp.stack)}, "
                 f"planned C tiles {tp.n_c_tiles} (C index "
@@ -1516,29 +1541,18 @@ def phase_steady_state(dev) -> None:
 # phase 7: the filtered SCF path (float64, then float32)
 # ---------------------------------------------------------------------------
 
-def kernel_wrappers() -> dict:
-    """Every kernel's wrapper (each counts its launches), by kernel."""
-    from dbcsr_tpu_torch.mm.band import band_matmul
-    from dbcsr_tpu_torch.mm.c_stack import tile_stack_matmul_c64, tile_stack_matmul_c128
-    from dbcsr_tpu_torch.mm.f64_stack import tile_stack_matmul_f64
-    from dbcsr_tpu_torch.mm.kernels import tile_stack_matmul, tile_stack_matmul_grouped
-    from dbcsr_tpu_torch.mm.panel import (
-        tile_stack_matmul_panel, tile_stack_matmul_panel_runs,
-    )
-
-    return {"K1": tile_stack_matmul, "K2": tile_stack_matmul_panel,
-            "K3": tile_stack_matmul_panel_runs, "K4": tile_stack_matmul_grouped,
-            "K5": band_matmul, "K6": tile_stack_matmul_f64,
-            "KC1": tile_stack_matmul_c64, "KC2": tile_stack_matmul_c128}
-
-
 def reset_launches() -> None:
-    for k in kernel_wrappers().values():
-        k.launches = 0
+    from dbcsr_tpu_torch.mm import reset_kernel_launches
+
+    reset_kernel_launches()
 
 
 def read_launches() -> dict:
-    return {name: k.launches for name, k in kernel_wrappers().items()}
+    """Every kernel's launches since the last reset, by kernel (K1-K5, K6 =
+    the float64 stack kernel, KC1, KC2)."""
+    from dbcsr_tpu_torch.mm import kernel_launches
+
+    return kernel_launches()
 
 
 def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dict:
@@ -2311,8 +2325,9 @@ K_KW = dict(contract_1=(0, 1), notcontract_1=(2,), contract_2=(0, 1), notcontrac
 
 def launch_delta(before: dict) -> dict:
     """The kernels launched since ``before`` (a ``read_launches()``)."""
-    now = read_launches()
-    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    from dbcsr_tpu_torch.mm import launches_since
+
+    return launches_since(before)
 
 
 def kernel_vs_plain(what: str, plan, a_data, b_data, rtol: float) -> tuple:
@@ -4146,9 +4161,9 @@ def untuned_executor(dev, table, a, b):
     return fn
 
 
-def tuned_vs_untuned(what: str, fn, fu, a, b, eff: float, card: str) -> None:
+def tuned_vs_untuned(what: str, fn, fu, a, b, eff: float, card: str) -> float:
     """CUDA-event medians of the tuned and the untuned executor, in turns
-    (untuned, tuned, tuned, untuned)."""
+    (untuned, tuned, tuned, untuned). Returns the tuned median (ms)."""
     u1 = cuda_median_ms(lambda: fu(a.data, b.data), reps=10)
     t1 = cuda_median_ms(lambda: fn(a.data, b.data), reps=10)
     t2 = cuda_median_ms(lambda: fn(a.data, b.data), reps=10)
@@ -4157,6 +4172,7 @@ def tuned_vs_untuned(what: str, fn, fu, a, b, eff: float, card: str) -> None:
     log(f"      {what} executor medians [{card}]: tuned auto ({fn.plan.route}) {tm:.4f} ms "
         f"(runs {t1:.4f}/{t2:.4f}), {eff / tm / 1e6:.1f} GFLOP/s; untuned auto "
         f"({fu.plan.route}) {um:.4f} ms (runs {u1:.4f}/{u2:.4f}), {eff / um / 1e6:.1f} GFLOP/s")
+    return tm
 
 
 def phase_tuned_auto(dev, card: str) -> dict:
@@ -4174,6 +4190,7 @@ def phase_tuned_auto(dev, card: str) -> dict:
     from dbcsr_tpu_torch import autotune
     from dbcsr_tpu_torch.block.store import store_layout
     from dbcsr_tpu_torch.block.tileops import take_tiles
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
 
     table = autotune._cached_table(dev)
     launches = {}
@@ -4181,7 +4198,10 @@ def phase_tuned_auto(dev, card: str) -> dict:
     a, b = autotune._mk_banded(MAIN_ROWS)(0, dev)
     cls, dist = autotune.nearest_class(autotune.workload_features(a.index, b.index), table)
     best = table["results"][cls]["best"]
+    get_plan_cache().clear()  # a cold build, as phase 18b's
+    t1 = time.perf_counter()
     fn, c_index, eff = dt.build_multiply_executor("N", "N", a, b)
+    PHASE16["build_s"] = time.perf_counter() - t1
     log(f"  16c {MAIN_ROWS} rows: nearest class {cls} at distance {dist:.4f}, its best row "
         f"{best}; auto takes route {fn.plan.route} (set-up and plan "
         f"{time.perf_counter() - t0:.1f} s)")
@@ -4207,7 +4227,8 @@ def phase_tuned_auto(dev, card: str) -> dict:
     fu = untuned_executor(dev, table, a, b)
     if fu.plan.route != "panel":
         fail(f"16c the untuned auto took {fu.plan.route}, not phase 4's panel route")
-    tuned_vs_untuned("16c", fn, fu, a, b, eff, card)
+    PHASE16["exec_ms"] = tuned_vs_untuned("16c", fn, fu, a, b, eff, card)
+    PHASE16["route"] = fn.plan.route
     del a, b, fn, fu, got
     torch.cuda.empty_cache()
 
@@ -4637,6 +4658,253 @@ def phase_mp(dev, card: str, refs_a: dict) -> dict:
             "c": None if row_c is None else row_c["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples, the large-scale check, weak scaling
+# ---------------------------------------------------------------------------
+
+#: the port's counterparts of the JAX examples, in examples/torch/
+EXAMPLES = ("example_1_create_multiply", "example_2_tensor_contraction",
+            "example_3_sparse_1000", "example_5_purification", "example_8_reordering",
+            "example_9_reference_example_3", "example_10_reference_tensor_example_2")
+#: 18b: rows and band (blocks) of tools/torch/large_scale_check.py: 2.5x
+#: phase 4's rows, ~73,000 blocks a side, a 7,813² tile grid at T = 128
+#: (past the JAX package's native planner cap of 2^24 cells, inside the
+#: port's); a fixed number, never shrunk at run time
+LARGE_ROWS = 1_000_000
+LARGE_BAND = 8
+#: 18c: 23-row blocks a rank (the JAX tool's 64 is launch overhead on a
+#: card), rounds and calls a round of tools/torch/weak_scaling.py
+WS_BLOCKS, WS_ROUNDS, WS_REPS = 256, 5, 3
+PHASE18_BUDGET_S = 60
+#: phase 4's readings at MAIN_ROWS (set-up s: pattern, index, layout and
+#: operands on the card; the untuned executors' build s) and phase 16c's
+#: (the tuned auto's build s, median ms and route), beside phase 18b's
+PHASE4 = {}
+PHASE16 = {}
+
+
+def port_program(sub: str, name: str):
+    """Import ``sub/name.py`` (``examples/torch`` or ``tools/torch``) by
+    its plain name, its directory on the path: workers that a program
+    spawns import it again by that name."""
+    import importlib
+
+    path = os.path.join(REPO, *sub.split("/"))
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def phase_examples(dev) -> dict:
+    """18a: each example in this process on the card, its output kept to
+    its last line; example 9 again across two processes. Returns the
+    launches of the in-process runs."""
+    import contextlib
+    import io
+
+    launches = {}
+    outs = {}
+    for name in EXAMPLES:
+        mod = port_program("examples/torch", name)
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(["--device", "cuda"])
+        sync(dev)
+        secs = time.perf_counter() - t0
+        got = {k: n for k, n in read_launches().items() if n}
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        outs[name] = out
+        route = out.get("route") or out.get("routes")
+        extra = ""
+        if name == "example_3_sparse_1000":
+            extra = (f"; executor {out['ms']:.4f} ms ({out['clock']}), "
+                     f"{out['launches'] or 'no kernel'} a call")
+            if out["clock"] != "CUDA events":
+                fail("18a example 3 was not timed by CUDA events")
+        lines = buf.getvalue().strip().splitlines()
+        log(f"  18a {name}: {secs:.2f} s, route {route}, launches {got or 'none'}{extra}; "
+            f"last line: {lines[-1] if lines else ''}")
+    one = outs["example_9_reference_example_3"]
+    t0 = time.perf_counter()
+    two = port_program("examples/torch", "example_9_reference_example_3").main(
+        ["--device", "cuda", "--nprocs", "2", "--backend", "gloo"])
+    same = two["digest"] == one["digest"] and two["checksum"] == one["checksum"]
+    log(f"  18a example 9 with --nprocs 2 over gloo: {time.perf_counter() - t0:.2f} s, "
+        f"process 0's launches {two['launches'] or 'none'}; C bitwise the "
+        f"single-process one: {same}")
+    if not same:
+        fail("18a example 9 across two processes differs from the single-process product")
+    return launches
+
+
+def phase_large_scale(dev, card: str, rows4: dict) -> dict:
+    """18b: tools/torch/large_scale_check.py at LARGE_ROWS, two legs.
+    Returns the launches of the legs' executor calls."""
+    import torch
+
+    from dbcsr_tpu_torch.block.store import store_layout
+    from dbcsr_tpu_torch.block.tileops import take_tiles
+    from dbcsr_tpu_torch.core.machine import m_memory
+
+    lsc = port_program("tools/torch", "large_scale_check")
+    peak_memory(dev)  # keep the run's peak before resetting torch's counter
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rss0 = m_memory()
+    a, b, su = lsc.build(LARGE_ROWS, LARGE_BAND, dev)
+    sync(dev)
+    log(f"  18b {LARGE_ROWS} rows, band ±{LARGE_BAND}: {su['blocks']} blocks, tile grid "
+        f"{su['tile_grid'][0]}², A/B {su['n_tiles']} tiles ({su['store_mb']} MB each); "
+        f"pattern and index {su['setup_s']:.2f} s, store_layout {su['store_layout_s']:.2f} s, "
+        f"set-up with the operands on the card {su['operands_s']:.2f} s against phase 4's "
+        f"{PHASE4.get('setup_s', float('nan')):.2f} s at {MAIN_ROWS} rows "
+        f"({su['operands_s'] / PHASE4.get('setup_s', float('nan')):.2f}x); native layout "
+        f"{su['native_layout']}"
+        f"{'' if su['native_layout'] else ' (the numpy path: a host-memory finding)'}")
+    launches, prods = {}, {}
+    for driver in ("auto", "stack"):
+        leg, fn, c_index, prod = lsc.measure(a, b, driver)
+        if not leg["launches"]:
+            fail(f"18b {driver}: the executor launched no hand-written kernel")
+        for k, n in leg["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        ref = take_tiles(plain_of(fn.plan, a.data, b.data),
+                         fn.plan.align_map(store_layout(c_index, 128).tile_keys()), 128)
+        sync(dev)
+        err, rel = rel_err(prod, ref)
+        del ref
+        serr, srel = sampled_f64_check(fn.plan, prod, c_index, a.data, b.data)
+        # the same driver at MAIN_ROWS: the tuned auto is phase 16c's, the
+        # explicit stack phase 4's
+        if driver == "auto":
+            what, was = "phase 16c's tuned auto", PHASE16
+        else:
+            what, p4 = "phase 4's stack", rows4[("highest", driver)]
+            was = {"route": p4["route"], "build_s": PHASE4[("highest", driver)],
+                   "exec_ms": p4["exec_ms"]}
+        build0, ms0 = was.get("build_s", float("nan")), was.get("exec_ms", float("nan"))
+        tuned = leg["tuned_class"]
+        log(f"  18b {driver}: route {leg['route']}"
+            + (f" (tuned class {tuned['class']} at distance {tuned['distance']:.4f})"
+               if tuned else "")
+            + f", launches {leg['launches']} a call; first multiply "
+            f"{leg['first_multiply_s']:.2f} s, executor build {leg['executor_build_s']:.2f} s "
+            f"and first call {leg['executor_first_call_s']:.2f} s, executor median "
+            f"{leg['executor_median_ms']:.4f} ms ({leg['clock']}); against {what} at "
+            f"{MAIN_ROWS} rows ({was.get('route')}): build {build0:.2f} s "
+            f"({leg['executor_build_s'] / build0:.2f}x), median {ms0:.4f} ms "
+            f"({leg['executor_median_ms'] / ms0:.2f}x) for {LARGE_ROWS / MAIN_ROWS:.1f}x the "
+            f"rows; {leg['eff_tflops']:.3f} effective TFLOP/s; C {leg['c_blocks']} blocks "
+            f"[{card}]")
+        log(f"      vs plain (whole store) max_abs_err={err:.3e} rel={rel:.2e}; vs float64 "
+            f"(64 tiles) max_abs_err={serr:.3e} rel={srel:.2e} (bound {KERNEL_RTOL:.0e})")
+        if not (rel <= KERNEL_RTOL and srel <= KERNEL_RTOL):
+            fail(f"18b {driver} disagrees with its references")
+        prods[driver] = (prod, c_index)
+        if driver == "auto":
+            legs_route, c_blocks = leg["route"], leg["c_blocks"]
+        del fn
+    (pa, ia), (ps, is_) = prods["auto"], prods["stack"]
+    if store_layout(ia, 128).n_tiles != store_layout(is_, 128).n_tiles:
+        fail("18b the two legs' C layouts differ")
+    err, rel = rel_err(pa, ps)
+    log(f"  18b auto against stack: max_abs_err={err:.3e} rel={rel:.2e} (bound "
+        f"{KERNEL_RTOL:.0e}); host RSS {rss0 / 1e9:.2f} GB before the phase, "
+        f"{m_memory() / 1e9:.2f} GB now; peak device memory of the two legs "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if not rel <= KERNEL_RTOL:
+        fail("18b the auto and stack legs disagree")
+    del a, b, prods, pa, ps
+    torch.cuda.empty_cache()
+
+    # the tool as a user runs it, in a process of its own: its host peak RSS
+    # and device peak are the tool's alone (this process's include phases 1-17)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "torch", "large_scale_check.py"),
+         str(LARGE_ROWS), str(LARGE_BAND), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    if res.returncode != 0:
+        fail(f"18b the tool as a program failed: {res.stderr[-2000:]}")
+    own = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+    log(f"  18b the tool as a program ({time.perf_counter() - t0:.1f} s with its start): "
+        f"route {own['route']}, launches {own['launches']} a call, executor median "
+        f"{own['executor_median_ms']:.4f} ms, set-up {own['operands_s']:.2f} s, first multiply "
+        f"{own['first_multiply_s']:.2f} s, build {own['executor_build_s']:.2f} s and first "
+        f"call {own['executor_first_call_s']:.2f} s; host peak "
+        f"RSS {own['host_peak_rss_mb'] / 1e3:.2f} GB (sampled; the process high-water mark "
+        f"reads {own['host_hwm_mb'] / 1e3:.2f} GB), peak device memory "
+        f"{own['device_peak_mb'] / 1e3:.2f} GB [{card}]")
+    if (own["blocks"], own["n_tiles"], own["c_blocks"]) != (su["blocks"], su["n_tiles"],
+                                                            c_blocks) \
+            or own["route"] != legs_route or not own["launches"]:
+        fail("18b the tool as a program disagrees with the in-process auto leg")
+    return launches
+
+
+def phase_weak_scaling(dev, card: str) -> dict:
+    """18c: tools/torch/weak_scaling.py over every card (and across as many
+    processes with nccl) where there are two or more, else over four
+    virtual ranks of the one card. Returns the launches of one n-rank call."""
+    import torch
+
+    ws = port_program("tools/torch", "weak_scaling")
+    ncards = torch.cuda.device_count()
+    legs = []
+    if ncards >= 2:
+        legs.append(("every card", lambda: ws.run(WS_BLOCKS, WS_ROUNDS, WS_REPS)))
+        legs.append((f"{ncards} processes over nccl", lambda: ws.main(
+            [str(WS_BLOCKS), str(WS_ROUNDS), str(WS_REPS), "--nprocs", str(ncards),
+             "--backend", "nccl", "--device", "cuda"])))
+    else:
+        legs.append(("four virtual ranks of one card", lambda: ws.run(
+            WS_BLOCKS, WS_ROUNDS, WS_REPS, devices=[dev], ranks=4)))
+    launches = {}
+    for what, leg in legs:
+        t0 = time.perf_counter()
+        out = leg()
+        eff = out["weak_scaling_efficiency_median"]
+        log(f"  18c {what}: {out['devices']} ranks, grid {out['grid']}, {out['processes']} "
+            f"process(es), shared_device: {str(out['shared_device']).lower()}; t1 "
+            f"{out['t_1dev_median_s'] * 1e3:.3f} ms, tn {out['t_ndev_median_s'] * 1e3:.3f} ms, "
+            f"efficiency {eff:.3f} (IQR {out['efficiency_iqr'][0]:.3f}-"
+            f"{out['efficiency_iqr'][1]:.3f})"
+            + (f", x n {out['efficiency_x_n_median']:.3f} ({out['note']})"
+               if out["shared_device"] else "")
+            + f"; launches of an n-rank call {out['launches_n']}; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if not (0 < eff < float("inf")) or not out["launches_n"]:
+            fail(f"18c {what}: efficiency {eff} or no kernel launched")
+        for k, n in out["launches_n"].items():
+            launches[k] = launches.get(k, 0) + n
+    if ncards < 2:
+        log(f"  18c the multi-card leg was not run: this machine has {ncards} card "
+            f"(not counted as passed)")
+    return launches
+
+
+def phase_examples_tools(dev, card: str, rows4: dict) -> dict:
+    """Phase 18. Returns its launches by leg."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    a = phase_examples(dev)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = phase_large_scale(dev, card, rows4)
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = phase_weak_scaling(dev, card)
+    t_c = time.perf_counter() - t0
+    took = time.perf_counter() - t_phase
+    log(f"  phase 18 took {took:.1f} s (budget {PHASE18_BUDGET_S} s"
+        f"{'' if took <= PHASE18_BUDGET_S else ', OVER'}): (a) {t_a:.1f} s, (b) {t_b:.1f} s, "
+        f"(c) {t_c:.1f} s [{card}]")
+    return {"a": a, "b": b, "c": c}
+
+
 def element_csr(m):
     """The matrix as an element-level torch CSR tensor on its device (what
     ``torch.sparse.mm`` multiplies: cuSPARSE SpGEMM has no block format)."""
@@ -4937,6 +5205,17 @@ def main() -> int:
     mp_launches = phase_mp(dev, card, refs_a)
     get_plan_cache().clear()
 
+    # 18. the examples and the planner-scale tools, with the tuned table
+    log(f"[18] the examples (examples/torch/ 1, 2, 3, 5, 8, 9, 10), the large-scale check at "
+        f"{LARGE_ROWS} rows and weak scaling [{card}]")
+    del autotune._TABLE_CACHE[name]
+    ex_launches = phase_examples_tools(dev, card, rows)
+    autotune._TABLE_CACHE[name] = None  # phase 10 runs untuned, as before
+    get_plan_cache().clear()
+    log(f"    phase-18 launches: (a) examples {ex_launches['a']}, (b) large-scale executor "
+        f"calls {ex_launches['b']}, (c) weak scaling n-rank call {ex_launches['c']}; peak "
+        f"device memory {peak_memory(dev) / 1e9:.2f} GB")
+
     # the library yardstick, last: a failed cuSPARSE call cannot disturb a phase
     log("[10] library yardstick: torch.sparse.mm on the banded SCF shape")
     torch.cuda.empty_cache()
@@ -4989,25 +5268,32 @@ def main() -> int:
         e["phase17_launches"] = {
             "a": mp_launches["a"].get(kname), "b": [n.get(kname, 0) for n in mp_launches["b"]],
             "c": None if mp_launches["c"] is None else mp_launches["c"].get(kname)}
+        return with18(e, kname)
+
+    def with18(e, kname):
+        # phase 18's launches: (a) the examples, (b) the large-scale executor
+        # calls, (c) one n-rank weak-scaling call
+        e["phase18_launches"] = {leg: ex_launches[leg].get(kname, 0) for leg in "abc"}
         return e
 
     print(json.dumps({"kernels": [
         with17(entry14("stack_matmul (K1)", "dbcsr_tpu_torch/csrc/stack_matmul.cu",
                        "dbcsr_tpu/mm/kernels.py:76", "K1", "stack"), "K1"),
-        entry14("panel_matmul (K2)", "dbcsr_tpu_torch/csrc/panel_matmul.cu",
-                "dbcsr_tpu/mm/panel.py:297", "K2", "auto"),
-        entry9("panel_runs_matmul (K3)", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu",
-               "dbcsr_tpu/mm/panel.py:757", "K3"),
-        entry9("grouped_matmul (K4)", "dbcsr_tpu_torch/csrc/grouped_matmul.cu",
-               "dbcsr_tpu/mm/kernels.py:419", "K4"),
-        entry9("band_matmul (K5)", "dbcsr_tpu_torch/csrc/band_matmul.cu",
-               "dbcsr_tpu/mm/band.py:257", "K5"),
+        with18(entry14("panel_matmul (K2)", "dbcsr_tpu_torch/csrc/panel_matmul.cu",
+                       "dbcsr_tpu/mm/panel.py:297", "K2", "auto"), "K2"),
+        with18(entry9("panel_runs_matmul (K3)", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu",
+                      "dbcsr_tpu/mm/panel.py:757", "K3"), "K3"),
+        with18(entry9("grouped_matmul (K4)", "dbcsr_tpu_torch/csrc/grouped_matmul.cu",
+                      "dbcsr_tpu/mm/kernels.py:419", "K4"), "K4"),
+        with18(entry9("band_matmul (K5)", "dbcsr_tpu_torch/csrc/band_matmul.cu",
+                      "dbcsr_tpu/mm/band.py:257", "K5"), "K5"),
         with17(entry("stack_matmul_f64 (K6)", "dbcsr_tpu_torch/csrc/stack_matmul_f64.cu",
                      "dbcsr_tpu/mm/ozaki_panel.py:222", r64["launches"],
                      max(f64_err, r64["max_abs_err"]), r64["kernel_ms"], r64["plain_ms"],
                      r64["counts"], "float64"), "K6"),
-        entry13("stack_matmul_c64 (KC1)", "KC1", "dbcsr_tpu_torch/csrc/stack_matmul_c64.cu",
-                "dbcsr_tpu/mm/kernels.py:76", "complex64"),
+        with18(entry13("stack_matmul_c64 (KC1)", "KC1",
+                       "dbcsr_tpu_torch/csrc/stack_matmul_c64.cu",
+                       "dbcsr_tpu/mm/kernels.py:76", "complex64"), "KC1"),
         with17(entry13("stack_matmul_c128 (KC2)", "KC2",
                        "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
                        "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"), "KC2"),

@@ -38,6 +38,7 @@ from .block.store import store_layout
 from .block.tileops import valid_mask
 from .core.config import config_override, get_config, set_config
 from .core.errors import DbcsrError
+from .core.machine import program_device
 from .ops.random import random_block_sizes, random_matrix
 
 __all__ = [
@@ -346,6 +347,15 @@ def tuned_stack_params(a_index, b_index, device=None) -> Optional[dict]:
     return table["results"].get(cls, {}).get("best")
 
 
+def tuned_class(a_index, b_index, device=None):
+    """(class name, distance) of the tuned class nearest to this product in
+    the table of ``device``; None without a table or feature vectors."""
+    table = _cached_table(device)
+    if table is None:
+        return None
+    return nearest_class(workload_features(a_index, b_index), table)
+
+
 def save_params(table: dict, path: Optional[str] = None) -> str:
     if path is None:
         os.makedirs(PARAMS_DIR, exist_ok=True)
@@ -420,13 +430,12 @@ def steady_state_time(fn, args, *, reps: int = 10, warmup: int = 2) -> float:
 
 
 def _sweep_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise DbcsrError(
-            "the sweep measures on a CUDA device and none is available "
-            "(--device cpu sweeps the kernels' plain versions on the CPU)"
-        )
-    return dev
+    """``program_device``'s rule, raised as a ``DbcsrError`` (``--device cpu``
+    sweeps the kernels' plain versions on the CPU)."""
+    try:
+        return program_device(device)
+    except SystemExit as e:
+        raise DbcsrError(str(e)) from None
 
 
 def _dense_fits(a, b, tile: int, device: torch.device) -> bool:

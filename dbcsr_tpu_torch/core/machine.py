@@ -26,6 +26,7 @@ __all__ = [
     "m_energy",
     "backend_supports_complex",
     "device_memory_stats",
+    "program_device",
 ]
 
 _PAGE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
@@ -101,3 +102,16 @@ def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
         "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
         "bytes_limit": int(torch.cuda.get_device_properties(device).total_memory),
     }
+
+
+def program_device(name) -> torch.device:
+    """The device a program of the port (an example, a tool) was given:
+    ``--device`` defaults to the card, and where torch finds no CUDA device
+    the program stops (``SystemExit``) with a message naming ``--device
+    cpu``; it never carries on on the CPU by itself."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {name}: torch finds no CUDA device. This program runs on "
+            f"the card; pass --device cpu to run it on the CPU.")
+    return dev

@@ -26,6 +26,9 @@ class MMStats:
     #: reference's MPI message statistics with size buckets
     #: (``dbcsr_mpi_statistics_type``, ``dbcsr_types.F:578-589``)
     comm_msgs: Dict[Tuple[str, int], Tuple[int, float]] = field(default_factory=dict)
+    #: route of a one-shot local product ("dense", "band", "stack", ...) ->
+    #: the products that took it
+    local_routes: Dict[str, int] = field(default_factory=dict)
 
     def record_comm(self, kind: str, count: int, msg_bytes: float) -> None:
         """Record ``count`` rank-to-rank messages of ``msg_bytes`` each
@@ -69,6 +72,9 @@ def print_statistics(out=None) -> str:
         lines.append(
             f" max device memory        {s.max_memory_bytes / 1e9:.3f} GB"
         )
+    if s.local_routes:
+        lines.append(" local routes             " + ", ".join(
+            f"{r} {n}" for r, n in sorted(s.local_routes.items())))
     if s.comm_msgs:
         lines.append(" device communication (collective, message-size bucket)")
         lines.append(f" {'kind':<14} {'size bucket':>14} {'messages':>10} {'bytes':>14}")

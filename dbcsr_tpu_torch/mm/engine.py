@@ -835,7 +835,9 @@ def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
         lp = _plan_local(a, ta, b, tb, cfg, cfg.mm_driver, conj=conj)
         pcache.put(key, (lp,))
     prod = lp.run(a.data, b.data)
-    get_stats().hardware_flops += lp.hw_flops
+    stats = get_stats()
+    stats.hardware_flops += lp.hw_flops
+    stats.local_routes[lp.route] = stats.local_routes.get(lp.route, 0) + 1
     c_keys = store_layout(c_index, tile).tile_keys()
     prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
     return _finish(prod, c, c_index, tile, alpha, beta, mask_result)

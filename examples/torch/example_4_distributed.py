@@ -19,22 +19,19 @@ travel through pinned host memory), one process a card may take ``nccl``.
 import argparse
 import os
 import sys
-import tempfile
 
 import numpy as np
-import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from _common import spawn  # noqa: E402
 
 
-def run(pid: int, nprocs: int, url: str, device: str, backend: str) -> None:
+def run() -> None:
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch.core.logging import get_logger
     from dbcsr_tpu_torch.dist import ProcessGrid, comm, tile_aligned_dist
 
-    torch.set_num_threads(1)
-    dt.init_lib(distributed=True, coordinator_address=url, num_processes=nprocs,
-                process_id=pid, backend=backend, device=None if device == "cuda" else device)
     dt.set_config(tile_size=32)
     dev = comm.device()
     say = get_logger().note  # prints on the I/O process (rank 0) only
@@ -54,7 +51,7 @@ def run(pid: int, nprocs: int, url: str, device: str, backend: str) -> None:
 
     # square grid -> Cannon: A shifts left, B up, between the processes
     grid = ProcessGrid.make(2, 2)
-    say(f"{nprocs} processes, grid 2x2 held by processes {grid.owner_list()}")
+    say(f"{comm.world_size()} processes, grid 2x2 held by processes {grid.owner_list()}")
     dist = tile_aligned_dist(grid, rbs, rbs, a.tile)
     check("Cannon on 2x2", dt.multiply("N", "N", 1.0, a, b, dist=dist))
 
@@ -74,7 +71,6 @@ def run(pid: int, nprocs: int, url: str, device: str, backend: str) -> None:
     dist2 = tile_aligned_dist(ProcessGrid.make(4, 2), rbs, rbs, a.tile)
     check("SUMMA on 4x2", dt.multiply("N", "N", 1.0, a, b, dist=dist2))
     say("OK — every process holds the product")
-    dt.finalize_lib()
 
 
 def main() -> None:
@@ -83,10 +79,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     ap.add_argument("--backend", default="gloo", help="gloo or nccl")
     args = ap.parse_args()
-    with tempfile.TemporaryDirectory() as d:
-        torch.multiprocessing.start_processes(
-            run, args=(args.nprocs, f"file://{d}/rendezvous", args.device, args.backend),
-            nprocs=args.nprocs, start_method="spawn")
+    spawn(run, args.nprocs, args.device, args.backend)
 
 
 if __name__ == "__main__":

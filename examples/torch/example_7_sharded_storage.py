@@ -19,12 +19,13 @@ import sys
 import tempfile
 
 import numpy as np
-import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from _common import spawn  # noqa: E402
 
 
-def run(pid: int, nprocs: int, url: str, device: str, backend: str, work: str) -> None:
+def run(work: str) -> None:
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch.core.logging import get_logger
     from dbcsr_tpu_torch.dist import (
@@ -33,9 +34,6 @@ def run(pid: int, nprocs: int, url: str, device: str, backend: str, work: str) -
         sharded_trace, tile_aligned_dist,
     )
 
-    torch.set_num_threads(1)
-    dt.init_lib(distributed=True, coordinator_address=url, num_processes=nprocs,
-                process_id=pid, backend=backend, device=None if device == "cuda" else device)
     dt.set_config(tile_size=32)
     dev = comm.device()
     say = get_logger().note  # prints on the I/O process (rank 0) only
@@ -52,7 +50,7 @@ def run(pid: int, nprocs: int, url: str, device: str, backend: str, work: str) -
     held = sum(x is not None for x in sh.data)
     say(f"H: {sh.nblks} blocks in {sh.shard.ndev} shards of [{sh.shard.n_max}, 32, 32]; "
         f"processes of the shards {grid.plane().owner_list()}")
-    print(f"process {pid}: holds {held} of {sh.shard.ndev} shards", flush=True)
+    print(f"process {comm.rank()}: holds {held} of {sh.shard.ndev} shards", flush=True)
 
     # a damped matrix-polynomial iteration, fully sharded:
     #   X <- 0.5 * (X·H + X),  filtered each step
@@ -81,7 +79,6 @@ def run(pid: int, nprocs: int, url: str, device: str, backend: str, work: str) -
     say(f"max |sharded - local| = {err:.2e} (rel {err / scale:.2e})")
     assert err < 1e-5 * scale
     say("OK — the sharded loop matches the local one")
-    dt.finalize_lib()
 
 
 def main() -> None:
@@ -90,10 +87,8 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     ap.add_argument("--backend", default="gloo", help="gloo or nccl")
     args = ap.parse_args()
-    with tempfile.TemporaryDirectory() as d:
-        torch.multiprocessing.start_processes(
-            run, args=(args.nprocs, f"file://{d}/rendezvous", args.device, args.backend, d),
-            nprocs=args.nprocs, start_method="spawn")
+    with tempfile.TemporaryDirectory() as work:  # the checkpoint's directory
+        spawn(run, args.nprocs, args.device, args.backend, work)
 
 
 if __name__ == "__main__":

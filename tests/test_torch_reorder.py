@@ -238,22 +238,29 @@ def test_native_planner_source_is_the_ports_own_identical_copy():
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(os.path.join(REPO, "dbcsr_tpu_torch")):
-        if "_build" not in root:
-            out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in ("dbcsr_tpu_torch", os.path.join("examples", "torch"),
+                os.path.join("tools", "torch")):
+        for root, _, files in os.walk(os.path.join(REPO, top)):
+            if "_build" not in root:
+                out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
 def test_no_port_module_names_a_path_under_the_jax_package():
-    """No ``.py`` of the port, nor ``chip_smoke.py``, imports the JAX
+    """No ``.py`` of the port, of its examples (``examples/torch/``) and
+    tools (``tools/torch/``), nor ``chip_smoke.py``, imports the JAX
     package or builds a path into ``dbcsr_tpu/`` in code: no string literal
     outside a docstring names the package's directory, and no path join
     has it as a component. Docstrings and comments may mention its files,
     and a bare ``file.py:line`` citation is not a path that is opened."""
     import ast
 
-    assert len(_port_sources()) > 30
-    for path in _port_sources():
+    sources = _port_sources()
+    assert len(sources) > 30
+    for sub in ("examples/torch/example_9_reference_example_3.py",
+                "tools/torch/large_scale_check.py", "tools/torch/weak_scaling.py"):
+        assert os.path.join(REPO, sub) in sources
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         docstrings = set()
@@ -267,9 +274,9 @@ def test_no_port_module_names_a_path_under_the_jax_package():
                     docstrings.add(id(body[0].value))
             if isinstance(node, ast.Import):
                 for alias in node.names:
-                    assert not re.match(r"(jax|dbcsr_tpu)(\\.|$)", alias.name), (path, alias.name)
+                    assert not re.match(r"(jax|dbcsr_tpu)(\.|$)", alias.name), (path, alias.name)
             if isinstance(node, ast.ImportFrom) and node.level == 0:
-                assert not re.match(r"(jax|dbcsr_tpu)(\\.|$)", node.module or ""), (path, node.module)
+                assert not re.match(r"(jax|dbcsr_tpu)(\.|$)", node.module or ""), (path, node.module)
         for node in ast.walk(tree):
             if (isinstance(node, ast.Constant) and isinstance(node.value, str)
                     and id(node) not in docstrings):
