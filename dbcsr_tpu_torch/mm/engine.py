@@ -1130,36 +1130,47 @@ def build_multiply_executor(
     symbolic product, tile stack, driver choice, band/panel/group plan, the
     RCM tile renumbering when it makes the panel plan admissible (config
     ``reorder``) — and every index upload happen here; a call is the device
-    work alone. ``fn.plan`` is the ``LocalPlan`` (its ``route`` names the
+    work alone, and adds one multiplication, its effective flops and the
+    plan's tile flops to ``get_stats()``. ``fn.plan`` is the ``LocalPlan`` (its ``route`` names the
     driver). A real and a complex operand run in the promoted complex type;
     ``fn`` converts its inputs to it."""
-    cfg = get_config()
-    drv = driver or cfg.mm_driver
-    _check_config(cfg, drv)
-    ta, ca = _effective_trans(transa)
-    tb, cb = _effective_trans(transb)
     from ..ops.transform import desymmetrize
 
-    a, b = _promote_operands(a, b)
-    a = desymmetrize(a)
-    b = desymmetrize(b)
-    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
-    symb = symbolic_product(a.index, ta, b.index, tb)
-    c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
-    c_keys = store_layout(c_index, a.tile).tile_keys()
-    lp = _plan_local(a, ta, b, tb, cfg, drv, may_reorder=True,
-                     conj=(ca and a.dtype.is_complex, cb and b.dtype.is_complex))
-    gather = tile_gather(lp.align_map(c_keys), len(lp.prod_keys), a.device)
+    with timed("executor/build"):
+        cfg = get_config()
+        drv = driver or cfg.mm_driver
+        _check_config(cfg, drv)
+        ta, ca = _effective_trans(transa)
+        tb, cb = _effective_trans(transb)
+        a, b = _promote_operands(a, b)
+        a = desymmetrize(a)
+        b = desymmetrize(b)
+        m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
+        n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
+        with timed("executor/symbolic"):
+            symb = symbolic_product(a.index, ta, b.index, tb)
+            c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
+            c_keys = store_layout(c_index, a.tile).tile_keys()
+        lp = _plan_local(a, ta, b, tb, cfg, drv, may_reorder=True,
+                         conj=(ca and a.dtype.is_complex, cb and b.dtype.is_complex))
+        gather = tile_gather(lp.align_map(c_keys), len(lp.prod_keys), a.device)
     dtype = a.dtype
+    eff_flops = symb.eff_flops
 
     def fn(a_data: torch.Tensor, b_data: torch.Tensor) -> torch.Tensor:
         if a_data.dtype != dtype or b_data.dtype != dtype:
             a_data, b_data = a_data.to(dtype), b_data.to(dtype)
-        return apply_tile_gather(lp.run(a_data, b_data), gather)
+        prod = lp.run(a_data, b_data)
+        with timed("executor/align"):
+            out = apply_tile_gather(prod, gather)
+        stats = get_stats()
+        stats.num_multiplications += 1
+        stats.total_flops += eff_flops
+        stats.hardware_flops += lp.hw_flops
+        return out
 
     fn.plan = lp
-    return fn, c_index, symb.eff_flops
+    return fn, c_index, eff_flops
 
 
 def build_distributed_executor(

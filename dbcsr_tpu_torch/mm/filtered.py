@@ -49,6 +49,7 @@ from ..block.tileops import (
     tile_align_map,
 )
 from ..core.errors import dbcsr_assert
+from ..core.timing import timed
 
 __all__ = ["FilteredExecutor", "build_filtered_executor"]
 
@@ -83,13 +84,16 @@ class FilteredExecutor:
         if nblks == 0:
             empty = torch.zeros(0, dtype=torch.float32, device=c_sup.device)
             return c_sup, empty, empty
-        info = device_block_info(self.c_index, self.tile, c_sup.device)
-        nsq = info.block_sum(per_tile_block_sums(c_sup, info).reshape(-1))
-        # eps² rounded to float32 as the reference's single-precision norms;
-        # a Python scalar needs no host-to-device copy
-        keep = (nsq >= float(np.float32(self.eps) ** 2)).to(torch.float32)
-        mask = block_mask_store(self.c_index, self.tile, c_sup.device, keep=keep)
-        return c_sup * mask.to(c_sup.dtype), keep, nsq
+        with timed("filtered/norms"):
+            info = device_block_info(self.c_index, self.tile, c_sup.device)
+            nsq = info.block_sum(per_tile_block_sums(c_sup, info).reshape(-1))
+        with timed("filtered/mask"):
+            # eps² rounded to float32 as the reference's single-precision
+            # norms; a Python scalar needs no host-to-device copy
+            keep = (nsq >= float(np.float32(self.eps) ** 2)).to(torch.float32)
+            mask = block_mask_store(self.c_index, self.tile, c_sup.device, keep=keep)
+            c_data = c_sup * mask.to(c_sup.dtype)
+        return c_data, keep, nsq
 
     def kept_flops(self, keep) -> float:
         """Effective flops restricted to kept blocks — the number the
@@ -143,29 +147,32 @@ def build_filtered_executor(
     from ..ops.transform import desymmetrize
     from .engine import build_multiply_executor
 
-    dbcsr_assert(eps is not None and float(eps) > 0.0, "eps must be > 0")
-    # the flop weights below read the operand patterns: expand symmetric
-    # storage first (the JAX package reads the stored triangle there and
-    # undercounts kept_flops)
-    a, b = desymmetrize(a), desymmetrize(b)
-    fn, c_index, eff_flops = build_multiply_executor(
-        transa, transb, a, b, driver=driver
-    )
-    # the indicator structure goes to the device at plan time, not in step
-    device_block_info(c_index, a.tile, a.device)
+    with timed("filtered/build"):
+        dbcsr_assert(eps is not None and float(eps) > 0.0, "eps must be > 0")
+        # the flop weights below read the operand patterns: expand symmetric
+        # storage first (the JAX package reads the stored triangle there and
+        # undercounts kept_flops)
+        a, b = desymmetrize(a), desymmetrize(b)
+        fn, c_index, eff_flops = build_multiply_executor(
+            transa, transb, a, b, driver=driver
+        )
+        with timed("filtered/prep"):
+            # the indicator structure goes to the device at plan time, not in step
+            device_block_info(c_index, a.tile, a.device)
 
-    # per-block effective flops of the superset product (static):
-    # flops(i,j) = 2 * m_i * n_j * sum_k k_size over contributing triples
-    ta = transa.upper() in ("T", "C")
-    tb = transb.upper() in ("T", "C")
-    k_sizes = (a.index.row_block_sizes if ta else a.index.col_block_sizes).astype(np.float64)
-    ksum = (_pattern(a.index, ta).multiply(k_sizes[None, :]).tocsr()
-            @ _pattern(b.index, tb)).tocsr()
-    rows = c_index.blk_rows.astype(np.int64)
-    cols = c_index.col_idx.astype(np.int64)
-    ks = np.asarray(ksum[rows, cols]).ravel() if c_index.nblks else np.zeros(0)
-    flop_w = (2.0 * c_index.row_block_sizes.astype(np.float64)[rows]
-              * c_index.col_block_sizes.astype(np.float64)[cols] * ks)
+            # per-block effective flops of the superset product (static):
+            # flops(i,j) = 2 * m_i * n_j * sum_k k_size over contributing triples
+            ta = transa.upper() in ("T", "C")
+            tb = transb.upper() in ("T", "C")
+            k_sizes = (a.index.row_block_sizes if ta
+                       else a.index.col_block_sizes).astype(np.float64)
+            ksum = (_pattern(a.index, ta).multiply(k_sizes[None, :]).tocsr()
+                    @ _pattern(b.index, tb)).tocsr()
+            rows = c_index.blk_rows.astype(np.int64)
+            cols = c_index.col_idx.astype(np.int64)
+            ks = np.asarray(ksum[rows, cols]).ravel() if c_index.nblks else np.zeros(0)
+            flop_w = (2.0 * c_index.row_block_sizes.astype(np.float64)[rows]
+                      * c_index.col_block_sizes.astype(np.float64)[cols] * ks)
 
     return FilteredExecutor(
         transa=transa, transb=transb, eps=float(eps), c_index=c_index,
