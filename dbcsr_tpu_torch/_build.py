@@ -142,9 +142,10 @@ def kernels() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp,
             ]
             lib.dbcsr_torch_stack_matmul_f64.restype = i32
-            # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, device, stream)
+            # (a, b, c, c_ptr, a_idx, b_idx, a_chunks, b_chunks, n_c, tile,
+            #  device, stream); the chunk masks may be null
             lib.dbcsr_torch_stack_matmul_f64.argtypes = [
-                vp, vp, vp, vp, vp, vp, i64, i32, i32, vp,
+                vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, vp,
             ]
             # KC1 and KC2, the complex64 / complex128 flat stack kernels:
             # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, device, stream)

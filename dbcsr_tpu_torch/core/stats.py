@@ -2,8 +2,11 @@
 
 Port of ``dbcsr_tpu/core/stats.py``: effective flops
 are counted at user-block granularity (2·m·n·k per contributing block
-triple), hardware flops at tile granularity (2·T³ per stack entry, or the
-full dense grid); their ratio is the tile packing efficiency. The
+triple), padded flops at tile granularity (2·T³ per stack entry, or the
+full dense grid), hardware flops as the kernels issue them: the padded
+figure, less the mma depths that the float64 stack kernel skips
+(``mm/f64_stack.py``). effective / hardware is the tile packing
+efficiency, 1 − hardware / padded the share of the tile work skipped. The
 distributed executors count their messages (``record_comm``). Reference:
 ``src/mm/dbcsr_mm_sched.F:392-663``, printed like
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
@@ -20,7 +23,8 @@ __all__ = ["MMStats", "get_stats", "reset_stats", "print_statistics"]
 class MMStats:
     num_multiplications: int = 0
     total_flops: float = 0.0  # effective, 2*m*n*k per contributing triple
-    hardware_flops: float = 0.0  # tile-granular flops actually issued
+    hardware_flops: float = 0.0  # flops the kernels issue
+    padded_flops: float = 0.0  # tile-granular: 2·T³ a stack entry
     max_memory_bytes: int = 0  # peak device memory seen after a multiply
     #: (collective kind, size decade) -> (message count, total bytes): the
     #: reference's MPI message statistics with size buckets
@@ -29,6 +33,12 @@ class MMStats:
     #: route of a one-shot local product ("dense", "band", "stack", ...) ->
     #: the products that took it
     local_routes: Dict[str, int] = field(default_factory=dict)
+
+    def add_tile_flops(self, issued: float, padded: float) -> None:
+        """Count one product's kernel work: the flops issued and the tile
+        figure they come from."""
+        self.hardware_flops += issued
+        self.padded_flops += padded
 
     def record_comm(self, kind: str, count: int, msg_bytes: float) -> None:
         """Record ``count`` rank-to-rank messages of ``msg_bytes`` each
@@ -63,10 +73,15 @@ def print_statistics(out=None) -> str:
     lines = ["-" * 72, " DBCSR-TORCH STATISTICS", "-" * 72]
     lines.append(f" multiplications          {s.num_multiplications}")
     lines.append(f" effective flops          {s.total_flops:.6E}")
-    lines.append(f" hardware (tile) flops    {s.hardware_flops:.6E}")
+    lines.append(f" hardware flops (issued)  {s.hardware_flops:.6E}")
+    lines.append(f" padded (tile) flops      {s.padded_flops:.6E}")
     if s.hardware_flops > 0:
         lines.append(
             f" tile packing efficiency  {s.total_flops / s.hardware_flops:.3f}"
+        )
+    if s.padded_flops > 0:
+        lines.append(
+            f" tile work skipped        {1.0 - s.hardware_flops / s.padded_flops:.3f}"
         )
     if s.max_memory_bytes:
         lines.append(

@@ -23,6 +23,21 @@
 // the operations. So it is bound by operations at the FP64 tensor-core rate,
 // and next by what L2 can deliver (4 TB/s at that rate).
 //
+// On atom-block patterns most of those operations multiply padding: a
+// 128-row tile of liquid water holds some 17 atoms of 5 and 13 rows at
+// random places, and most of a tile product's K range is empty in A's
+// columns or in B's rows (the water benchmark issued 77× the work its
+// blocks need, at 71% of the FP64 peak). So the stack may carry, for every
+// A and B tile, a mask of the mma depths (8 columns of A, 8 rows of B) that
+// hold a stored block, built on the host from the block index
+// (mm/f64_stack.py); at T = 64 and 128 the kernel then copies only the K
+// chunks with a depth set in both tiles of an entry and issues only those
+// depths (ChunkStackJob, tile_ring.cuh). The depths it skips hold exact
+// zeros by the store invariant, so the result equals the unmasked launch
+// up to the sign of a zero. What bounds it then is still the tensor cores
+// on the depths it issues, and next the copies of the 16-deep chunks, of
+// which one depth may be empty.
+//
 // T = 128 and T = 64 run on the FP64 tensor cores: one block of 256 threads
 // per C tile, mma.sync m16n8k8 over 64×32 (T = 64: 32×16) warp tiles held in
 // registers, K chunks of 16 brought by cp.async into a four-slot ring of
@@ -38,10 +53,13 @@
 // micro-tile): a 16-row mma tile spread over 8 warps reuses nothing there.
 #include "tile_kernel.cuh"
 
+// a_chunks, b_chunks: the K occupancy of every A and B tile (ChunkStackJob in
+// tile_kernel.cuh), or both null to multiply every chunk; read at T = 64
+// and 128 only, where the tensor-core routine can skip a depth.
 extern "C" int dbcsr_torch_stack_matmul_f64(
     const void* a, const void* b, void* c, const void* c_ptr,
-    const void* a_idx, const void* b_idx, long long n_c, int tile,
-    int device, void* stream)
+    const void* a_idx, const void* b_idx, const void* a_chunks, const void* b_chunks,
+    long long n_c, int tile, int device, void* stream)
 {
     using namespace dbcsr_torch;
     int err = (int)cudaSetDevice(device);
@@ -49,11 +67,21 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     if (n_c <= 0) return 0;
     const StackJob job{static_cast<const int*>(c_ptr), static_cast<const int*>(a_idx),
                        static_cast<const int*>(b_idx)};
+    const ChunkStackJob chunk_job{job.c_ptr, job.a_idx, job.b_idx,
+                                  static_cast<const int*>(a_chunks),
+                                  static_cast<const int*>(b_chunks)};
+    const bool masked = a_chunks && b_chunks;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dispatch_tile<double>(tile, [&](auto, auto tile_tag) {
         constexpr int T = decltype(tile_tag)::value;
-        return launch_tile_kernel<double, T>(
-            static_cast<const double*>(a), static_cast<const double*>(b),
-            static_cast<double*>(c), n_c, job, s);
+        auto launch = [&](const auto& with) {
+            return launch_tile_kernel<double, T>(
+                static_cast<const double*>(a), static_cast<const double*>(b),
+                static_cast<double*>(c), n_c, with, s);
+        };
+        if constexpr (T >= 64) {
+            if (masked) return launch(chunk_job);
+        }
+        return launch(job);
     });
 }

@@ -11,7 +11,9 @@
 //
 // For output tile q (the block index) it calls run(slot, e0, e1, pair) once:
 // C slot `slot` = Σ_{e in [e0, e1)} A[pair(e).x] @ B[pair(e).y], where
-// pair(e) is an int2, either slot negative for an absent tile. Every routine
+// pair(e) is an int2, either slot negative for an absent tile (or, for the
+// float64 routine alone, an int3 that also carries the pair's K occupancy:
+// ChunkStackJob, tile_ring.cuh). Every routine
 // calls pair once for each e, ascending, from every thread of the block at
 // the same point (so a pair function may hold a barrier). A Job that
 // has nothing to write for q (a padding row, a slot another block owns)
@@ -71,7 +73,7 @@ struct StackJob {
 // For a Job whose pair function is costly (divisions, dependent loads, absent
 // cells): thread t of the block evaluates expand(e0 + t) into a window of
 // kStage pairs in static shared memory, and the pair function handed to the
-// routine is one 8-byte shared-memory read (the blocked float32 routine sits
+// routine is one shared-memory read (the blocked float32 routine sits
 // at its cap of 128 registers: work in the ring loop is paid in spills). A
 // run longer than kStage refills the window. Called by every thread.
 constexpr int kStage = 64;  // a power of 2
@@ -79,7 +81,7 @@ constexpr int kStage = 64;  // a power of 2
 template <typename Expand>
 __device__ __forceinline__ auto stage_pairs(int e0, int e1, Expand expand)
 {
-    __shared__ int2 window[kStage];
+    __shared__ decltype(expand(e0)) window[kStage];
     auto fill = [=](int v0) {
         for (int v = v0 + (int)threadIdx.x; v < e1 && v < v0 + kStage; v += kThreads)
             window[v - v0] = expand(v);
@@ -96,6 +98,30 @@ __device__ __forceinline__ auto stage_pairs(int e0, int e1, Expand expand)
         return window[w];
     };
 }
+
+// The float64 stack with the K occupancy of its tiles (stack_matmul_f64.cu
+// at T = 64 and 128): a_chunks[ia] has bit h set iff columns 8h..8h+7 of A
+// tile ia hold a stored block, b_chunks[ib] the same for rows of B tile ib;
+// a pair's occupancy is their AND (tile_ring.cuh). The pairs and their masks
+// go through stage_pairs: the mask lookups depend on the slot loads, and a
+// chain of two loads on every entry would stall the ring.
+struct ChunkStackJob {
+    const int* c_ptr;
+    const int* a_idx;
+    const int* b_idx;
+    const int* a_chunks;
+    const int* b_chunks;
+
+    template <typename Run>
+    __device__ __forceinline__ void operator()(int64_t c, Run&& run) const
+    {
+        const int e0 = c_ptr[c], e1 = c_ptr[c + 1];
+        run(c, e0, e1, stage_pairs(e0, e1, [job = *this](int e) {
+            const int ia = job.a_idx[e], ib = job.b_idx[e];
+            return make_int3(ia, ib, job.a_chunks[ia] & job.b_chunks[ib]);
+        }));
+    }
+};
 
 // 64-bit tile offsets throughout: slot·T² crosses 2³¹ elements past 131,072
 // tiles at T = 128.

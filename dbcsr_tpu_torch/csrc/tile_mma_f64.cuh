@@ -48,13 +48,23 @@
 //    T = 64 82,944 bytes and two blocks an SM. Registers (ptxas, sm_90a, CUDA
 //    12.9): 218 a thread at T = 128, 91 at T = 64, no spills.
 //
+//  - K occupancy (the float64 stack kernel): with a pair function that
+//    carries each entry's mask of occupied mma depths (tile_ring.cuh), the
+//    cursor yields only the chunks with a depth set, and load(..., depths)
+//    and compute(stage, depths) copy and issue only those depths. The mask
+//    is block-uniform, so the mma branch does not diverge. Without masks
+//    both depths are copied and issued, and K4, K5 and the unmasked stack
+//    compile as before.
+//
 // What is left on the table: with one block an SM nothing hides a C tile's
 // prologue (two chunk latencies) and epilogue (a 128 KB store), about 3 µs
 // of the 35 µs a C tile of the banded SCF shape takes; a persistent block
 // that carries the ring from one C tile into the next would.
 //
 // Determinism: every C element is summed by one thread, entries in stack
-// order and K chunks ascending, so two launches are bitwise equal. Inside one
+// order and K chunks ascending, so two launches are bitwise equal; a launch
+// with masks equals one without up to the sign of a zero (a skipped depth
+// adds exact zeros). Inside one
 // mma the order of the 8 products is the hardware's, so the result is not
 // bitwise that of a DFMA chain; it is held to 1e-12 against the plain
 // version.
@@ -133,30 +143,42 @@ struct MmaF64 {
                 for (int i = 0; i < 4; ++i) acc[n][m][i] = 0.0;
     }
 
-    // chunk [k0, k0+KC) of the tiles at a and b -> ring slot `stage`
-    __device__ __forceinline__ void load(int stage, const double* a, const double* b, int k0)
+    // chunk [k0, k0+KC) of the tiles at a and b -> ring slot `stage`; of the
+    // two depths only those set in `depths` (compute never reads the other:
+    // a thread's A copies lie in one depth, each B copy row in one too)
+    __device__ __forceinline__ void load(int stage, const double* a, const double* b, int k0,
+                                         unsigned depths = ~0u)
     {
         double* slot = smem + stage * kStageElems;
         const double* ap = a + a_src + k0;
         const double* bp = b + b_src + k0 * T;
         constexpr int kARows = kThreads / kAVecRow, kBRows = kThreads / kBVecRow;
+        static_assert(kBRows <= 8 && 8 % kBRows == 0, "a B copy row stays in one depth");
+        const bool all = depths == ~0u;
+        const int tid = threadIdx.x;
+        if (all || ((depths >> (2 * (tid % kAVecRow) / 8)) & 1u)) {
 #pragma unroll
-        for (int i = 0; i < kAVecs / kThreads; ++i)
-            cp_async16(slot + a_dst + i * kARows * LDA, ap + i * kARows * T);
+            for (int i = 0; i < kAVecs / kThreads; ++i)
+                cp_async16(slot + a_dst + i * kARows * LDA, ap + i * kARows * T);
+        }
 #pragma unroll
         for (int i = 0; i < kBVecs / kThreads; ++i)
-            cp_async16(slot + b_dst + i * kBRows * LDB, bp + i * kBRows * T);
+            if (all || ((depths >> ((tid / kBVecRow + i * kBRows) / 8)) & 1u))
+                cp_async16(slot + b_dst + i * kBRows * LDB, bp + i * kBRows * T);
     }
 
     // acc += A chunk · B chunk, as Cᵀ += Bᵀ·Aᵀ: the mma's 16-row operand is
     // read from the B chunk, its 8-column operand from the A chunk, so that
     // every 128-bit read lands in the register pair the mma wants.
-    // The two depths of 8 are taken in ascending order.
-    __device__ __forceinline__ void compute(int stage)
+    // The two depths of 8 are taken in ascending order; a depth whose bit in
+    // `depths` is clear is skipped (the bit is block-uniform, so the branch
+    // does not diverge; the default issues every depth).
+    __device__ __forceinline__ void compute(int stage, unsigned depths = ~0u)
     {
         const double* slot = smem + stage * kStageElems;
 #pragma unroll
         for (int h = 0; h < KC / 8; ++h) {
+            if (!((depths >> h) & 1u)) continue;
             // B rows 8h + 2t (mma k = t) and 8h + 2t + 1 (mma k = t + 4),
             // columns 2g, 2g + 1 of m tile m (mma rows g, g + 8)
             double2 bf[MT][2];

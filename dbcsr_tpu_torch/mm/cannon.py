@@ -1078,7 +1078,8 @@ def execute_cannon(
                 tile, a.data.element_size())
     with timed("cannon/exec"):
         prod = ex(a.data, b.data, conj).to(a.dtype)
-    get_stats().hardware_flops += 2.0 * ex.plan.n_stack * tile**3
+    tile_flops = 2.0 * ex.plan.n_stack * tile**3
+    get_stats().add_tile_flops(tile_flops, tile_flops)
     return _finish(prod, c, c_index, tile, alpha, beta, mask_result)
 
 

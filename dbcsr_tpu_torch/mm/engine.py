@@ -90,7 +90,12 @@ from ..core.stats import get_stats
 from ..core.timing import timed
 from .band import DeviceBandPlan, band_matmul, device_band_plan, plan_band
 from .c_stack import tile_stack_matmul_c
-from .f64_stack import tile_stack_matmul_f64
+from .f64_stack import (
+    CHUNKED_TILES,
+    chunked_hw_flops,
+    operand_chunk_masks,
+    tile_stack_matmul_f64,
+)
 from .kernels import (
     DeviceGroupPlan,
     DeviceStack,
@@ -487,7 +492,7 @@ class LocalPlan:
 
     route: str  # the driver that planned it ("panel_runs": K3 under "panel")
     prod_keys: np.ndarray
-    hw_flops: float
+    hw_flops: float  # what the kernel issues a call
     product: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # op stores -> tiles
     in_dtype: Optional[torch.dtype] = None  # what a stack kernel consumes
     tile_plan: Optional[TileStackPlan] = None
@@ -503,6 +508,13 @@ class LocalPlan:
     a_gather: Optional[torch.Tensor] = None
     b_gather: Optional[torch.Tensor] = None
     nt: int = 0  # tile columns of the product grid (for ``align_map``)
+    #: the tile figure ``hw_flops`` comes from (None: the same; the float64
+    #: stack kernel skips the mma depths its K masks leave empty)
+    padded_flops: Optional[float] = None
+
+    def __post_init__(self):
+        if self.padded_flops is None:
+            self.padded_flops = self.hw_flops
 
     def op_stores(self, a_data: torch.Tensor, b_data: torch.Tensor):
         """The op(A), op(B) tile stores as the plan's kernel reads them."""
@@ -711,16 +723,24 @@ def _stack_route(p: _Problem, explicit: bool) -> LocalPlan:
 
 def _f64_route(p: _Problem) -> LocalPlan:
     """Every float64 sparse stack product: the float64 stack kernel (the
-    port of K6) over the flat c-sorted stack."""
+    port of K6) over the flat c-sorted stack, with the K occupancy masks of
+    the op(A) and op(B) tiles where the kernel reads them (T = 64 and 128):
+    it then issues only the mma depths that both tiles of an entry fill."""
     tplan = p.tile_plan()
-    ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device)
+    padded = 2.0 * len(tplan.stack) * p.tile**3
+    chunks, issued = None, padded
+    if p.tile in CHUNKED_TILES:
+        chunks = (operand_chunk_masks(p.a_index, p.tile, p.ta, p.a_op.perm, "a"),
+                  operand_chunk_masks(p.b_index, p.tile, p.tb, p.b_op.perm, "b"))
+        issued = chunked_hw_flops(*chunks, tplan.stack[:, 1], tplan.stack[:, 2], p.tile)
+    ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device, chunks)
 
     def run(a_st, b_st):
         return tile_stack_matmul_f64(a_st, b_st, ds)
 
     return LocalPlan(
-        "f64_stack", tplan.c_tile_keys, 2.0 * len(tplan.stack) * p.tile**3, run,
-        in_dtype=torch.float64, tile_plan=tplan, stack=ds,
+        "f64_stack", tplan.c_tile_keys, issued, run,
+        in_dtype=torch.float64, tile_plan=tplan, stack=ds, padded_flops=padded,
     )
 
 
@@ -836,7 +856,7 @@ def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
         pcache.put(key, (lp,))
     prod = lp.run(a.data, b.data)
     stats = get_stats()
-    stats.hardware_flops += lp.hw_flops
+    stats.add_tile_flops(lp.hw_flops, lp.padded_flops)
     stats.local_routes[lp.route] = stats.local_routes.get(lp.route, 0) + 1
     c_keys = store_layout(c_index, tile).tile_keys()
     prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
@@ -1166,7 +1186,7 @@ def build_multiply_executor(
         stats = get_stats()
         stats.num_multiplications += 1
         stats.total_flops += eff_flops
-        stats.hardware_flops += lp.hw_flops
+        stats.add_tile_flops(lp.hw_flops, lp.padded_flops)
         return out
 
     fn.plan = lp

@@ -93,6 +93,10 @@ class DeviceStack:
     c_ptr_host: np.ndarray  # int64 [n_c+1]
     a_end: int  # 1 + largest a slot (0 when empty): A must hold this many
     b_end: int
+    #: the float64 kernel's K occupancy of each op(A) and op(B) tile (int32,
+    #: one entry a tile of the stores, ``f64_stack.py``), or None: every depth
+    a_chunks: Optional[torch.Tensor] = None
+    b_chunks: Optional[torch.Tensor] = None
 
 
 def stack_of_runs(c_ptr: np.ndarray, a_idx: np.ndarray, b_idx: np.ndarray) -> np.ndarray:
@@ -103,9 +107,12 @@ def stack_of_runs(c_ptr: np.ndarray, a_idx: np.ndarray, b_idx: np.ndarray) -> np
     return np.stack([c, a_idx, b_idx], axis=1).astype(np.int32)
 
 
-def device_stack(stack_np: np.ndarray, n_c_tiles: int, device) -> DeviceStack:
+def device_stack(stack_np: np.ndarray, n_c_tiles: int, device,
+                 chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> DeviceStack:
     """Upload a host stack (int32 [S, 3], sorted by c, every c in
-    [0, n_c_tiles)) for the flat kernel; validates it on the host."""
+    [0, n_c_tiles)) for the flat kernel; validates it on the host.
+    ``chunks``: the K occupancy masks of the op(A) and op(B) tiles, for the
+    float64 kernel (``f64_stack.py``)."""
     stack = np.asarray(stack_np).reshape(-1, 3)
     s = len(stack)
     if s >= 2**31:
@@ -117,10 +124,11 @@ def device_stack(stack_np: np.ndarray, n_c_tiles: int, device) -> DeviceStack:
         raise ValueError("negative tile slot in stack")
     c_ptr = np.searchsorted(c, np.arange(n_c_tiles + 1)).astype(np.int64)
 
+    def upload(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
+
     def col(j):
-        return torch.as_tensor(
-            np.ascontiguousarray(stack[:, j], dtype=np.int32), device=device
-        )
+        return upload(stack[:, j])
 
     return DeviceStack(
         n_c=int(n_c_tiles),
@@ -130,6 +138,8 @@ def device_stack(stack_np: np.ndarray, n_c_tiles: int, device) -> DeviceStack:
         c_ptr_host=c_ptr,
         a_end=int(stack[:, 1].max()) + 1 if s else 0,
         b_end=int(stack[:, 2].max()) + 1 if s else 0,
+        a_chunks=None if chunks is None else upload(chunks[0]),
+        b_chunks=None if chunks is None else upload(chunks[1]),
     )
 
 

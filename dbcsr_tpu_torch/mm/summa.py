@@ -309,5 +309,6 @@ def execute_summa(
                 plan.n_b, plan.n_c, tile, a.data.element_size())
     with timed("summa/exec"):
         prod = ex(a.data, b.data, conj).to(a.dtype)
-    get_stats().hardware_flops += 2.0 * ex.plan.n_stack * tile**3
+    tile_flops = 2.0 * ex.plan.n_stack * tile**3
+    get_stats().add_tile_flops(tile_flops, tile_flops)
     return _finish(prod, c, c_index, tile, alpha, beta, mask_result)

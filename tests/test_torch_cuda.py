@@ -23,12 +23,18 @@ that lists each kernel's products in its own order). K5's band has absent
 cells, which the pipelined routines' cursor steps over: first, last,
 several in a row and every cell of a run (a zero tile).
 """
+import dataclasses
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import dbcsr_tpu_torch as dtt
 from dbcsr_tpu_torch import autotune
+from dbcsr_tpu_torch.block.index import build_index
+from dbcsr_tpu_torch.block.store import store_layout
 from dbcsr_tpu_torch.core.config import config_override
 from dbcsr_tpu_torch.mm.f64_stack import (
     tile_stack_matmul_f64,
@@ -67,6 +73,7 @@ from torch_example_runner import load
 
 RTOL = 1e-5
 RTOL_F64 = 1e-12
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.cuda
 
 
@@ -175,6 +182,101 @@ def test_f64_mma_kernel_runs(dev, tile, run):
     got = tile_stack_matmul_f64(a, b, ds)
     assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
     assert torch.equal(got, tile_stack_matmul_f64(a, b, ds))
+
+
+def unmasked(ds):
+    """The same stack without its K occupancy masks: every depth issued."""
+    return dataclasses.replace(ds, a_chunks=None, b_chunks=None)
+
+
+def f64_matrix(sizes, rows, cols, tile, seed, dev):
+    """The port's float64 matrix over a block pattern, N(0, 1) data."""
+    index, _ = build_index(rows.astype(np.int32), cols.astype(np.int32), sizes, sizes)
+    lay = store_layout(index, tile)
+    flat = np.random.default_rng(seed).standard_normal(index.nelems)
+    return dtt.BCSRMatrix(name="A", index=index,
+                          data=torch.from_numpy(lay.store_from_flat(flat)).to(dev))
+
+
+def masked_product_check(a, b):
+    """The float64 executor's stack on A·B: the masked launch is bitwise the
+    unmasked one and within 1e-12 of the plain version; returns the plan."""
+    fn, _, _ = dtt.build_multiply_executor("N", "N", a, b, driver="stack")
+    lp = fn.plan
+    assert lp.route == "f64_stack" and lp.stack.a_chunks is not None
+    a_st, b_st = lp.op_stores(a.data, b.data)
+    before = tile_stack_matmul_f64.launches
+    got = tile_stack_matmul_f64(a_st, b_st, lp.stack)
+    full = tile_stack_matmul_f64(a_st, b_st, unmasked(lp.stack))
+    assert tile_stack_matmul_f64.launches == before + 2
+    assert torch.equal(got, full)
+    plain = tile_stack_matmul_f64_plain(a_st, b_st, lp.stack)
+    assert rel_err(got, plain) <= RTOL_F64
+    assert torch.equal(got, tile_stack_matmul_f64(a_st, b_st, lp.stack))  # deterministic
+    return lp
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_f64_masked_kernel_on_water(dev, tile):
+    """The benchmark's water pattern at 2 × 2 × 2 cells (the fewest its 8 Å
+    cutoff admits), read through ``benchmark.operands.pattern_of`` alone:
+    most entries leave some depth empty."""
+    from benchmark.operands import pattern_of
+
+    with open(os.path.join(REPO, "benchmark", "configs", "water_2048.json")) as f:
+        cfg = json.load(f)
+    cfg["replicas"] = [2, 2, 2]
+    blocks = pattern_of(cfg).blocks
+    sizes = blocks.row_sizes.astype(np.int32)
+    a = f64_matrix(sizes, blocks.rows, blocks.cols, tile, 1, dev)
+    b = f64_matrix(sizes, blocks.rows, blocks.cols, tile, 2, dev)
+    lp = masked_product_check(a, b)
+    assert lp.hw_flops < lp.padded_flops
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_f64_masked_kernel_full_tiles(dev, tile):
+    """A banded pattern of whole-tile blocks: every mask is full, and the
+    plan issues the tile figure, as before the masks."""
+    sizes = np.full(24, tile, np.int32)
+    i, j = np.nonzero(np.abs(np.subtract.outer(np.arange(24), np.arange(24))) <= 2)
+    a = f64_matrix(sizes, i, j, tile, 3, dev)
+    lp = masked_product_check(a, a)
+    full = (1 << (tile // 8)) - 1
+    assert bool((lp.stack.a_chunks == full).all()) and bool((lp.stack.b_chunks == full).all())
+    assert lp.hw_flops == lp.padded_flops == 2.0 * len(lp.tile_plan.stack) * tile**3
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_f64_masked_kernel_cursor(dev, tile):
+    """Random masks over a random stack, the stores zeroed where the masks
+    are clear (the store invariant): entries with no common depth or one,
+    a run of such entries only (a zero tile), runs longer than the staged
+    window of 64 pairs. The masked launch equals the unmasked one bitwise."""
+    rng = np.random.default_rng(tile + 7)
+    n_tiles, depths = 16, tile // 8
+    a_m = rng.integers(0, 1 << depths, n_tiles).astype(np.int32)
+    b_m = rng.integers(0, 1 << depths, n_tiles).astype(np.int32)
+    a_m[:3] = [0, 1, 1 << (depths - 1)]
+    b_m[:3] = [(1 << depths) - 1, 1, 1 << (depths - 2)]
+    c = np.repeat(np.arange(6), [1, 3, 150, 70, 2, 40])
+    ia, ib = rng.integers(0, n_tiles, len(c)), rng.integers(0, n_tiles, len(c))
+    ia[c == 4], ib[c == 4] = 2, 2  # no common depth in the whole run
+    ia[0], ib[0] = 0, 0            # a run of one entry with no common depth
+    stack = np.stack([c, ia, ib], axis=1).astype(np.int32)
+
+    def keep(m):
+        return torch.from_numpy(((m[:, None] >> np.arange(depths)) & 1).repeat(8, axis=1) > 0)
+
+    a = torch.randn(n_tiles, tile, tile, dtype=torch.float64)
+    b = torch.randn(n_tiles, tile, tile, dtype=torch.float64)
+    a = a.masked_fill(~keep(a_m)[:, None, :], 0).to(dev)
+    b = b.masked_fill(~keep(b_m)[:, :, None], 0).to(dev)
+    ds = device_stack(stack, 6, dev, (a_m, b_m))
+    got = tile_stack_matmul_f64(a, b, ds)
+    assert torch.equal(got, tile_stack_matmul_f64(a, b, unmasked(ds)))
+    assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
+    assert not bool(got[0].any()) and not bool(got[4].any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

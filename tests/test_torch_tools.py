@@ -103,3 +103,42 @@ def test_weak_scaling_across_two_gloo_processes(jax_weak_scaling_keys):
     assert two["processes"] == 2 and two["grid"] == one["grid"] == [1, 2]
     assert two["product_digest"] == one["product_digest"]
     assert np.isfinite(two["t_ndev_median_s"])
+
+
+chunk_work = load("tools/torch/chunk_work.py", "torch_chunk_work")
+
+
+def test_chunk_work_counts_what_the_executor_issues():
+    """``chunk_work`` on the benchmark's water pattern at 2 × 2 × 2 cells
+    (the fewest its 8 Å cutoff admits): its tile figure, its 8-deep figure
+    and its effective flops are the float64 executor's ``padded_flops``,
+    ``hw_flops`` and effective flops on the same pattern, and each finer
+    granularity issues no more than the coarser."""
+    import dbcsr_tpu_torch as dt
+
+    out = chunk_work.main(["--replicas", "2", "2", "2"])
+    w, t = out["work"], out["tile"]
+    assert w["tile"] == 2.0 * out["entries"] * t**3
+    assert 0 < w["skip8"] <= w["skip16"] < w["tile"]
+    assert out["tile_util_pct"]["skip8"] == 100.0 * out["eff_flops"] / w["skip8"]
+
+    from benchmark.operands import pattern_of
+    from dbcsr_tpu_torch.block.index import build_index
+    from dbcsr_tpu_torch.block.store import store_layout
+
+    with open(os.path.join(REPO, "benchmark", "configs", "water_2048.json")) as f:
+        cfg = json.load(f)
+    cfg["replicas"] = [2, 2, 2]
+    blocks = pattern_of(cfg).blocks
+    sizes = blocks.row_sizes.astype(np.int32)
+    index, _ = build_index(blocks.rows.astype(np.int32), blocks.cols.astype(np.int32),
+                           sizes, sizes)
+    n_tiles = store_layout(index, t).n_tiles
+    a = dt.BCSRMatrix(name="A", index=index,
+                      data=torch.zeros((n_tiles, t, t), dtype=torch.float64))
+    # at 2 × 2 × 2 the tile pattern is dense enough for "auto" to take the
+    # dense class; the benchmark's 4 × 4 × 4 takes the stack under "auto"
+    fn, _, eff = dt.build_multiply_executor("N", "N", a, a, driver="stack")
+    assert fn.plan.route == "f64_stack"
+    assert (fn.plan.padded_flops, fn.plan.hw_flops, eff) == (w["tile"], w["skip8"],
+                                                            out["eff_flops"])
