@@ -4349,9 +4349,10 @@ def mp_timed_calls(ex, a_data, b_data, reps: int, first) -> dict:
     """CUDA-event medians over the same ``reps`` calls of a warm
     distributed executor and of its parts: pack (this process's
     ranks' pieces), ticks (launches, adds, ring shifts, layer sums) and
-    unpack (every process's C panels into the whole store); transfers =
-    the host seconds inside ``dist/comm.py`` a call (staging included),
-    which lie inside ticks and unpack. ``bitwise``: every call's C equals
+    unpack (every process's C panels into the whole store); transfer_host =
+    the host seconds inside ``dist/comm.py`` a call (``TransferCounts.host_s``:
+    staging, posting and host waits; under NCCL posting alone, the card
+    moves the bytes later), which lie inside ticks and unpack. ``bitwise``: every call's C equals
     ``first``, the store of the call before them."""
     import torch
 
@@ -4360,11 +4361,11 @@ def mp_timed_calls(ex, a_data, b_data, reps: int, first) -> dict:
     from dbcsr_tpu_torch.mm.kernels import accumulator_dtype
 
     acc = accumulator_dtype(a_data.dtype)
-    rows = {"ms": [], "pack": [], "ticks": [], "unpack": [], "transfers": []}
+    rows = {"ms": [], "pack": [], "ticks": [], "unpack": [], "transfer_host": []}
     same = True
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        s0 = comm.transfer_counts().seconds
+        s0 = comm.transfer_counts().host_s
         ev[0].record()
         pa = ex.pack_a(_op_store(a_data, ex.a_perm))
         pb = ex.pack_b(_op_store(b_data, ex.b_perm))
@@ -4379,7 +4380,7 @@ def mp_timed_calls(ex, a_data, b_data, reps: int, first) -> dict:
         rows["pack"].append(ev[0].elapsed_time(ev[1]))
         rows["ticks"].append(ev[1].elapsed_time(ev[2]))
         rows["unpack"].append(ev[2].elapsed_time(ev[3]))
-        rows["transfers"].append((comm.transfer_counts().seconds - s0) * 1e3)
+        rows["transfer_host"].append((comm.transfer_counts().host_s - s0) * 1e3)
         del pa, pb, panels, c
     return {"bitwise": same, **{k: float(np.median(v)) for k, v in rows.items()}}
 
@@ -4554,8 +4555,8 @@ def mp_check_a(what: str, work: str, nprocs: int, refs: dict, card: str) -> dict
                 f"tiles bitwise {r['tiles_bitwise']}, vs host float64 (64 tiles) rel="
                 f"{r['host_rel']:.2e} (bound {rtol:.0e}), the {MP_REPS} timed calls "
                 f"bitwise the first {r['bitwise']}; executor {r['ms']:.3f} ms (pack {r['pack']:.3f}, "
-                f"ticks {r['ticks']:.3f}, unpack {r['unpack']:.3f}; transfers "
-                f"{r['transfers']:.3f} of host time) [{card}]")
+                f"ticks {r['ticks']:.3f}, unpack {r['unpack']:.3f}; "
+                f"{r['transfer_host']:.3f} of host time in transfers) [{card}]")
             if not (r["digest"] == refs[tname]["digest"] and r["tiles_bitwise"]
                     and r["host_rel"] <= rtol and r["bitwise"]):
                 fail(f"{what} {tname}: process {pid}'s product is not the single-process one")

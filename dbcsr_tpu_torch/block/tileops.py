@@ -31,6 +31,7 @@ __all__ = [
     "OrderedSegmentSum",
     "ordered_segment_sum",
     "TileBlockInfo",
+    "tile_block_pairs",
     "tile_block_info",
     "DeviceBlockInfo",
     "device_block_info",
@@ -38,6 +39,7 @@ __all__ = [
     "per_tile_block_sums",
     "block_sums_sq",
     "block_mask_store",
+    "keep_blocks_",
     "valid_mask",
     "transpose_order",
     "transpose_store",
@@ -197,6 +199,41 @@ class TileBlockInfo:
     bid: np.ndarray
 
 
+def tile_block_pairs(index: BCSRIndex, tile: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Every (block, tile) pair of ``index`` at tile edge T: int64 arrays of
+    the store slot, the block's segment in the tile row (``a``) and tile
+    column (``b``), and the block id, block by block."""
+    lay = store_layout(index, tile)
+    rind = row_indicators(index.row_block_sizes, tile, index, "rows")
+    cind = row_indicators(index.col_block_sizes, tile, index, "cols")
+    # (block, tile) pairs: blocks span <= few tiles each
+    ro = index.row_offsets
+    co = index.col_offsets
+    br = index.blk_rows.astype(np.int64)
+    bc = index.col_idx.astype(np.int64)
+    r0, r1 = ro[br], ro[br + 1]
+    c0, c1 = co[bc], co[bc + 1]
+    tr0, tr1 = r0 // tile, (r1 - 1) // tile
+    tc0, tc1 = c0 // tile, (c1 - 1) // tile
+    nr = (tr1 - tr0 + 1).astype(np.int64)
+    nc = (tc1 - tc0 + 1).astype(np.int64)
+    counts = nr * nc
+    total = int(counts.sum())
+    b_of = np.repeat(np.arange(index.nblks, dtype=np.int64), counts)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    t_local = np.arange(total, dtype=np.int64) - starts[b_of]
+    tr = tr0[b_of] + t_local // nc[b_of]
+    tc = tc0[b_of] + t_local % nc[b_of]
+    slot = np.searchsorted(lay.tile_keys(), tr * lay.ntc + tc)
+    # the block rows/cols intersecting one tile row/col are consecutive
+    # ids: the segment position is the offset from the first block of that
+    # tile row/col
+    a = br[b_of] - rind.block_of_seg[tr, 0]
+    b = bc[b_of] - cind.block_of_seg[tc, 0]
+    return slot, a, b, b_of
+
+
 def tile_block_info(index: BCSRIndex, tile: int) -> TileBlockInfo:
     """Cached per-(index, tile) block/tile structure."""
     key = ("tile_block_info", tile)
@@ -210,32 +247,9 @@ def tile_block_info(index: BCSRIndex, tile: int) -> TileBlockInfo:
         K = np.zeros((nt, amax, bmax), dtype=np.float32)
         bid = np.full((nt, amax, bmax), -1, dtype=np.int64)
         if nt:
-            # (block, tile) pairs: blocks span <= few tiles each
-            ro = index.row_offsets
-            co = index.col_offsets
-            br = index.blk_rows.astype(np.int64)
-            bc = index.col_idx.astype(np.int64)
-            r0, r1 = ro[br], ro[br + 1]
-            c0, c1 = co[bc], co[bc + 1]
-            tr0, tr1 = r0 // tile, (r1 - 1) // tile
-            tc0, tc1 = c0 // tile, (c1 - 1) // tile
-            nr = (tr1 - tr0 + 1).astype(np.int64)
-            nc = (tc1 - tc0 + 1).astype(np.int64)
-            counts = nr * nc
-            total = int(counts.sum())
-            b_of = np.repeat(np.arange(index.nblks, dtype=np.int64), counts)
-            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-            t_local = np.arange(total, dtype=np.int64) - starts[b_of]
-            tr = tr0[b_of] + t_local // nc[b_of]
-            tc = tc0[b_of] + t_local % nc[b_of]
-            slot = np.searchsorted(lay.tile_keys(), tr * lay.ntc + tc)
-            # the block rows/cols intersecting one tile row/col are
-            # consecutive ids: the segment position is the offset from the
-            # first block of that tile row/col
-            A = br[b_of] - rind.block_of_seg[tr, 0]
-            B = bc[b_of] - cind.block_of_seg[tc, 0]
-            K[slot, A, B] = 1.0
-            bid[slot, A, B] = b_of
+            slot, a, b, b_of = tile_block_pairs(index, tile)
+            K[slot, a, b] = 1.0
+            bid[slot, a, b] = b_of
         return TileBlockInfo(
             amax=amax, bmax=bmax, J=rind.J, I=cind.J, K=K, bid=bid,
         )
@@ -351,6 +365,24 @@ def block_mask_store(
             jk, info.I.index_select(0, info.cols[s:e]).transpose(1, 2)
         ).to(dtype)
     return out
+
+
+def keep_blocks_(store: torch.Tensor, info: DeviceBlockInfo, keep: torch.Tensor
+                 ) -> torch.Tensor:
+    """Zero, in place, the blocks of ``store`` whose ``keep`` entry (a 0/1
+    float32 vector over ``info``'s blocks) is 0, and every position no
+    block covers: ``block_mask_store``'s mask, made and applied a batch of
+    tiles at a time. Tiles past ``info``'s (a shard's padding) are left as
+    they are."""
+    kf = torch.zeros(keep.shape[0] + 1, dtype=torch.float32, device=info.K.device)
+    kf[1:] = keep
+    n = info.K.shape[0]
+    for s in range(0, n, _TILE_STEP):
+        e = min(s + _TILE_STEP, n)
+        kd = kf[info.bid_p1[s:e]] * info.K[s:e]
+        jk = torch.bmm(info.J.index_select(0, info.rows[s:e]), kd)
+        store[s:e] *= torch.bmm(jk, info.I.index_select(0, info.cols[s:e]).transpose(1, 2))
+    return store
 
 
 def valid_mask(index: BCSRIndex, tile: int, device) -> torch.Tensor:

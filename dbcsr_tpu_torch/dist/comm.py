@@ -75,13 +75,18 @@ Message = Tuple[int, int, Tuple[int, ...], torch.dtype]
 @dataclass
 class TransferCounts:
     """What this process moved across process boundaries: messages and
-    bytes sent and received, and the host seconds spent in transfers
-    (staging included)."""
+    bytes sent and received, and ``host_s``, the host seconds spent inside
+    ``exchange`` (staging, posting, waiting on the host). Under ``gloo``
+    the host waits for each transfer, so ``host_s`` holds it whole; under
+    ``nccl`` waiting only orders the stream after the transfer, so
+    ``host_s`` is the time to post it, and the card moves the bytes
+    later. A transfer's device time is the ``cannon/shift`` span's, under
+    a profiler (``core/timing.py``)."""
 
     messages: int = 0
     bytes_sent: int = 0
     bytes_received: int = 0
-    seconds: float = 0.0
+    host_s: float = 0.0
 
 
 @dataclass
@@ -329,7 +334,7 @@ def exchange(messages: Sequence[Message], payload: Callable[[int], torch.Tensor]
     c.messages += len(ops)
     c.bytes_sent += nsent
     c.bytes_received += nrecv
-    c.seconds += time.perf_counter() - t0
+    c.host_s += time.perf_counter() - t0
     return out
 
 

@@ -28,8 +28,9 @@ import torch
 
 from ..block.index import BCSRIndex
 from ..block.store import store_layout
-from ..block.tileops import take_tiles
+from ..block.tileops import TileGather, apply_tile_gather, tile_gather
 from ..core.errors import dbcsr_assert
+from ..core.timing import timed
 from . import comm
 from .distribution import Distribution, dist_tile_bins
 
@@ -141,14 +142,33 @@ def plane_owners(grid) -> List[int]:
 def shard_store_with_layout(m, sl: ShardLayout, grid) -> List[Optional[torch.Tensor]]:
     """Local store -> the owner shards (one ``[n_max, T, T]`` tensor per
     rank of ``grid``'s plane, zero padded), each on its rank's device; a
-    shard of another process is None."""
+    shard of another process is None. The cut is the span
+    ``sharded/cut``; its gathers are resolved once per (matrix index,
+    layout, store device), so cutting new data over one pattern is device
+    work alone."""
     t = m.tile
     me = comm.rank()
     out = []
-    for d, (dev, o) in enumerate(zip(plane_devices(grid), plane_owners(grid))):
-        take = sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max]
-        out.append(take_tiles(m.data, take, t).to(dev) if o == me else None)
+    with timed("sharded/cut"):
+        for d, (dev, o) in enumerate(zip(plane_devices(grid), plane_owners(grid))):
+            if o != me:
+                out.append(None)
+            elif m.data.shape[0] == 0:
+                out.append(m.data.new_zeros((sl.n_max, t, t), device=dev))
+            else:
+                g = _cut_gather(m.index, sl, d, m.data.shape[0], m.data.device)
+                out.append(apply_tile_gather(m.data, g).to(dev))
     return out
+
+
+def _cut_gather(index: BCSRIndex, sl: ShardLayout, d: int, n_store: int, device
+                ) -> TileGather:
+    """Shard ``d``'s tile gather out of a store of ``index``, cached on it."""
+    def mk():
+        return tile_gather(sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max], n_store, device)
+
+    return index._cached(("shard_cut", sl.token, sl.n_max, len(sl.owner_of_slot), d,
+                          n_store, str(device)), mk)
 
 
 def shard_store(m, dist: Distribution) -> List[torch.Tensor]:

@@ -7,7 +7,7 @@ from .c_stack import (
 )
 from .engine import LocalPlan, build_multiply_executor, multiply
 from .f64_stack import tile_stack_matmul_f64, tile_stack_matmul_f64_plain
-from .filtered import FilteredExecutor, build_filtered_executor
+from .filtered import FilteredExecutor, ShardedFilteredExecutor, build_filtered_executor
 from .kernels import (
     device_group_plan,
     tile_stack_matmul,
@@ -65,7 +65,7 @@ __all__ = [
     "tile_stack_matmul_c_plain",
     "LocalPlan", "build_multiply_executor", "multiply",
     "tile_stack_matmul_f64", "tile_stack_matmul_f64_plain",
-    "FilteredExecutor", "build_filtered_executor",
+    "FilteredExecutor", "ShardedFilteredExecutor", "build_filtered_executor",
     "device_group_plan", "tile_stack_matmul", "tile_stack_matmul_grouped",
     "tile_stack_matmul_grouped_plain", "tile_stack_matmul_plain",
     "PanelPlan", "PanelRunPlan", "plan_panel_runs", "plan_panel_stack",

@@ -30,7 +30,10 @@ a Python loop over P ticks:
 - after each tick A shifts left along 'pc' and B up along 'pr': between
   ranks on one device the tensor is handed over, between devices it is a
   peer copy, between processes one message (``dist/comm.py``); panels are
-  read-only inside the loop, C is per rank;
+  read-only inside the loop, C is per rank. Each tick's launches are the
+  span ``cannon/ticks``, each shift the span ``cannon/shift``
+  (``core/timing.py``; under a profiler the shift's device time runs to
+  its completion, since the stream waits for the transfer);
 - with ``nlayer > 1`` the layer partials are summed in layer order
   (the 2.5D C-reduction, ``src/mm/dbcsr_mm_3d.F``).
 
@@ -819,14 +822,16 @@ class RankPlan:
         src_a = [self._rank(i, (j + 1) % p, l) for (i, j, l) in ranks]
         src_b = [self._rank((i + 1) % p, j, l) for (i, j, l) in ranks]
         for tick in range(p):
-            for r in range(len(ranks)):
-                ts = self.ticks[r][tick]
-                if ts is not None:
-                    c[r] = accumulate(c[r], kernel(a[r], b[r], ts.stack), ts, self.n_c)
+            with timed("cannon/ticks"):
+                for r in range(len(ranks)):
+                    ts = self.ticks[r][tick]
+                    if ts is not None:
+                        c[r] = accumulate(c[r], kernel(a[r], b[r], ts.stack), ts, self.n_c)
             if tick == p - 1:
                 break
-            a, b = comm.shift(g, [(a, src_a, (self.n_a, t, t), dtype),
-                                  (b, src_b, (self.n_b, t, t), dtype)])
+            with timed("cannon/shift"):
+                a, b = comm.shift(g, [(a, src_a, (self.n_a, t, t), dtype),
+                                      (b, src_b, (self.n_b, t, t), dtype)])
         return c
 
     def _summa(self, a, b, kernel, dtype):

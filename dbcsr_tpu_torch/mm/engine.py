@@ -1217,7 +1217,10 @@ def build_distributed_executor(
     T]`` shards in the executor's shard layouts (``fn.shard_a``,
     ``fn.shard_b``), C as the list of its rank shards (``fn.shard_c``: a
     rank's C panel IS its shard). The ranks' pieces are gathered from
-    the shards they need (the reference's ``make_images`` alltoall).
+    the shards they need (the reference's ``make_images`` alltoall);
+    ``fn.pieces_a`` / ``fn.pieces_b`` do that gather alone, so that a
+    caller whose B stays can gather B's pieces once and call
+    ``fn.plan.run`` with them.
 
     On a grid that spans processes (``init_lib(distributed=True)``) every
     process builds the same plan and runs its own ranks: ``fn`` returns the
@@ -1303,12 +1306,18 @@ def build_distributed_executor(
                 out.append(x)
             return out
 
+        def pieces_a(a_sh):
+            return op_tiles(gather_a(a_sh, dtype), ta, conj[0])
+
+        def pieces_b(b_sh):
+            return op_tiles(gather_b(b_sh, dtype), tb, conj[1])
+
         def fn(a_sh, b_sh):
-            panels = rplan.run(op_tiles(gather_a(a_sh, dtype), ta, conj[0]),
-                               op_tiles(gather_b(b_sh, dtype), tb, conj[1]), dtype)
+            panels = rplan.run(pieces_a(a_sh), pieces_b(b_sh), dtype)
             return [None if x is None else x.to(dtype) for x in panels]
 
         fn.shard_a, fn.shard_b, fn.shard_c = sl_a, sl_b, sl_c
+        fn.pieces_a, fn.pieces_b = pieces_a, pieces_b
         fn.plan = rplan
     else:
         ex = dist_exec(algo, plan, grid, tile, _perm(a_op, dev), _perm(b_op, dev),

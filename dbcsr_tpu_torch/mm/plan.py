@@ -84,6 +84,21 @@ def _triples_of(pa: sp.csr_matrix, pb: sp.csr_matrix):
     return c_row, c_col, a_pos, b_pos, k_of_t
 
 
+def _values_at(m: sp.spmatrix, keep: sp.csr_matrix, rows: np.ndarray,
+               cols: np.ndarray) -> np.ndarray:
+    """``m``'s values at the entries of ``keep`` (``rows``, ``cols``: its
+    sorted CSR order). Where ``m`` has exactly ``keep``'s sparsity (the
+    unfiltered product: the same pattern product with other weights) they
+    are its data as it is; else each entry is looked up."""
+    if not len(rows):
+        return np.zeros(0)
+    m = m.tocsr()
+    m.sort_indices()
+    if np.array_equal(m.indptr, keep.indptr) and np.array_equal(m.indices, keep.indices):
+        return np.asarray(m.data, dtype=np.float64)
+    return np.asarray(m[rows, cols]).ravel()
+
+
 def symbolic_product(
     a_index: BCSRIndex,
     transa: bool,
@@ -213,7 +228,7 @@ def symbolic_product(
     rows = coo.row.astype(np.int32)
     cols = coo.col.astype(np.int32)
     # flops restricted to surviving C blocks
-    ksel = np.asarray(ksum.tocsr()[rows, cols]).ravel() if len(rows) else np.zeros(0)
+    ksel = _values_at(ksum, keep, rows, cols)
     eff = float(
         2.0
         * np.sum(
@@ -222,7 +237,7 @@ def symbolic_product(
             * ksel
         )
     )
-    tsel = np.asarray(ntrip.tocsr()[rows, cols]).ravel() if len(rows) else np.zeros(0)
+    tsel = _values_at(ntrip, keep, rows, cols)
     return SymbolicProduct(
         rows=rows, cols=cols, eff_flops=eff, nnz_triples=int(tsel.sum())
     )

@@ -2,9 +2,10 @@
 (``tests/test_torch_multiprocess.py``), the counterpart of
 ``tests/mp_worker.py``: the ten scenarios of the JAX package's battery
 (cannon, summa, cannon25d, summa25d, tas, sharded, sharded_elementwise,
-checkpoint, tensor, complex), the self-test ``testing.test_dist`` and unit
-checks of the transport (``comm``) and of the logger, over ``torch.distributed``
-(``gloo``) on the CPU.
+checkpoint, tensor, complex), the self-test ``testing.test_dist``, unit
+checks of the transport (``comm``) and of the logger, and the filtered step
+over a grid (``filtered_cannon``, held against the benchmark's plain
+reference), over ``torch.distributed`` (``gloo``) on the CPU.
 
 Each process first runs every named scenario alone, with no world up (the
 port's single-process virtual ranks on the same grids), then brings the
@@ -227,6 +228,66 @@ def scenario_complex(z, ctx):
     return exact, {"c": c.to_dense().numpy(), "fro": np.array([fro])}, {}
 
 
+def water_case(replicas, tile: int, seed: int, drop: float = 0.4):
+    """The benchmark's water pattern at a small box (blocks to 4.6 Å, so a
+    single 32-molecule cell is admitted), its float64 operands on the CPU,
+    and an eps between two reference block norms² at the ``drop`` quantile
+    of C's superset (no block near a tie). Returns (cfg, ops, A, B, eps,
+    reference product)."""
+    import json
+
+    from benchmark import products
+    from benchmark.operands import make_operands, pattern_of
+    from benchmark.reference.product import Product, sq
+
+    with open(os.path.join(REPO, "benchmark", "configs", "water_2048.json")) as f:
+        cfg = json.load(f)
+    cfg.update(replicas=list(replicas), decay_per_angstrom=2.5, tile=tile)
+    pat = pattern_of(cfg)
+    ops = make_operands(cfg, pat, seed, 1, CPU)
+    a, b = products.matrices(cfg, ops)
+    ref = Product(ops.pattern, ops.keys, ops.b, torch.float64)
+    acc = torch.zeros((ref.nb + 1, ref.nb + 1), dtype=torch.float64)
+    for t0, r in ref.rows(ops.a[0]):
+        acc += ref.sums(sq(r), t0)
+    sup = ref.bound(ops.a[0]) > 0
+    nsq = np.sort(acc[:-1, :-1][sup].numpy())
+    k = int(drop * len(nsq))
+    eps = float(np.sqrt(np.sqrt(nsq[k - 1] * nsq[k])))
+    return cfg, ops, a, b, eps, ref
+
+
+def scenario_filtered_cannon(z, ctx):
+    """``build_filtered_executor(..., dist=)`` over a 2×2 grid on a water
+    box: this process's C shards, keep and norms² (bitwise against the
+    single-process virtual ranks), and its held tiles within the per-shard
+    judge's limit of the plain reference."""
+    from dbcsr_tpu_torch.dist import tile_aligned_dist
+    from dbcsr_tpu_torch.dist.sharded import shard_store_with_layout
+
+    from benchmark import products
+    from benchmark.reference.layout import tile_keys
+    from benchmark.reference.shards import Held, RowsProduct, held_block_err
+
+    cfg, ops, a, b, eps, _ = water_case((2, 1, 1), 32, 17)
+    g = grid(2, 2)
+    ex = dt.build_filtered_executor("N", "N", a, b, eps,
+                                    dist=tile_aligned_dist(g, a.row_block_sizes,
+                                                           a.row_block_sizes, 32))
+    c, keep, nsq = ex.step(shard_store_with_layout(a, ex.shard_a, g))
+    sl = ex.shard_c
+    keys = tile_keys(products.blocks_of(ex.c_index, ops.pattern), 32)
+    counts = np.bincount(sl.owner_of_slot, minlength=sl.ndev)
+    ref = RowsProduct(ops.pattern, ops.keys, ops.b, torch.float64)
+    for d, x in enumerate(c):
+        if x is not None:
+            held = Held(keys=keys[sl.slot_of_pos[d * sl.n_max:d * sl.n_max + counts[d]]])
+            err = held_block_err(ref, ops.a[0], held, x[:counts[d]], eps,
+                                 cfg["norm_tie_rel"])
+            assert err <= 1e-10, (d, err)
+    return {"c": c, "keep": keep, "nsq": nsq}, {}, {"spanning": ex.spanning}
+
+
 def scenario_selftest(z, ctx):
     """``testing.test_dist`` as it is: every process takes part, every
     process checks."""
@@ -300,6 +361,7 @@ SCENARIOS = {
     "checkpoint": scenario_checkpoint,
     "tensor": scenario_tensor,
     "complex": scenario_complex,
+    "filtered_cannon": scenario_filtered_cannon,
     "selftest": scenario_selftest,
     "comm": scenario_comm,
     "logger": scenario_logger,
