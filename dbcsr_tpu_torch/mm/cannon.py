@@ -20,7 +20,11 @@ a Python loop over P ticks:
   their plain versions on CPU tensors). The plan's stacks become
   ``DeviceStack``s once per plan: the trash rows are dropped, each tick's
   C slots are renumbered among those it touches (C-sorted, as the kernels
-  require) and an empty tick launches nothing;
+  require) and an empty tick launches nothing. A float64 tiled Cannon
+  plan at T = 64 or 128 gives each (rank, tick) stack the K occupancy
+  masks of the pieces the rank holds at that tick (``cannon_piece_masks``;
+  ``f64_stack.py``), so the kernel issues only the mma depths both tiles
+  of an entry fill, as the one-card executor does;
 - a tick's partial is added into the rank's C panel in tick order
   (deterministic: each slot once a tick). A tick that touches at least
   half the panel's slots launches over the whole panel (the kernel writes
@@ -63,6 +67,7 @@ from ..block.bcsr import BCSRMatrix
 from ..block.index import BCSRIndex
 from ..block.store import store_layout
 from ..block.tileops import apply_tile_gather, tile_gather
+from ..core.errors import dbcsr_assert
 from ..core.stats import get_stats
 from ..core.timing import timed
 from ..dist import comm
@@ -70,13 +75,19 @@ from ..dist.comm import move
 from ..dist.distribution import Distribution, LocalMap, local_map
 from ..dist.grid import ProcessGrid
 from .c_stack import tile_stack_matmul_c
-from .f64_stack import tile_stack_matmul_f64
+from .f64_stack import (
+    CHUNKED_TILES,
+    chunked_hw_flops,
+    operand_chunk_masks,
+    tile_stack_matmul_f64,
+)
 from .kernels import DeviceStack, accumulator_dtype, device_stack, tile_stack_matmul
 from .tileplan import enumerate_tile_triples
 
 __all__ = [
     "CannonPlan", "TiledCannonPlan", "plan_cannon", "plan_cannon_tiled",
     "execute_cannon", "RankPlan", "DistExec", "dist_exec", "rank_kernel",
+    "cannon_piece_masks",
 ]
 
 
@@ -564,23 +575,46 @@ class TickStack:
     touched: Optional[torch.Tensor]
 
 
-def tick_stack(rows: np.ndarray, n_c: int, device,
-               whole: bool = False) -> Optional[TickStack]:
-    """A plan's padded [s_max, 3] stack (C-sorted, padding and absent-C
-    rows on the trash slot ``n_c``) as a ``TickStack``; None when empty. A
+def tick_stack(rows: np.ndarray, n_c: int, device, whole: bool = False,
+               chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None
+               ) -> Optional[TickStack]:
+    """A (rank, tick) stack of a plan, its rows on the trash slot ``n_c``
+    dropped ([S, 3], C-sorted), as a ``TickStack``; None when empty. A
     rank's first partial (``whole``) and a tick that touches at least half
     the panel launch over all of it: a zero tile costs one write, where an
     add restricted to the touched slots costs a gather, an add and a
-    scatter. A sparser later tick launches over its touched slots only."""
-    rows = rows[rows[:, 0] < n_c]
+    scatter. A sparser later tick launches over its touched slots only.
+    ``chunks``: the K masks of the A and B pieces the tick multiplies,
+    piece slot by piece slot (``device_stack``)."""
     if not len(rows):
         return None
     touched, local = np.unique(rows[:, 0], return_inverse=True)
     if whole or 2 * len(touched) >= n_c:
-        return TickStack(device_stack(rows.astype(np.int32), n_c, device), None)
+        return TickStack(device_stack(rows.astype(np.int32), n_c, device, chunks), None)
     stack = np.stack([local, rows[:, 1], rows[:, 2]], axis=1).astype(np.int32)
-    return TickStack(device_stack(stack, len(touched), device),
+    return TickStack(device_stack(stack, len(touched), device, chunks),
                      torch.as_tensor(touched.astype(np.int64), device=device))
+
+
+def cannon_piece_masks(plan: TiledCannonPlan, dtype: torch.dtype, tile: int,
+                       a_index: BCSRIndex, ta: bool, a_perm: Optional[np.ndarray],
+                       b_index: BCSRIndex, tb: bool, b_perm: Optional[np.ndarray]
+                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The float64 kernel's K masks (``f64_stack.py``) of every A and B
+    piece slot of a tiled Cannon plan as packed, in ``a_pack``/``b_pack``
+    order: slot s holds op-store tile ``pack[s]`` and takes its mask (from
+    the block index alone, ``operand_chunk_masks`` with the op store's
+    ``perm``); a padding slot (-1), which no entry names, takes 0. None
+    where the rank kernel reads no masks: stores other than float64, tile
+    edges outside ``CHUNKED_TILES``."""
+    if dtype != torch.float64 or tile not in CHUNKED_TILES:
+        return None
+
+    def per_slot(pack, masks):
+        return np.where(pack >= 0, masks[np.maximum(pack, 0)], 0).astype(np.int32)
+
+    return (per_slot(plan.a_pack, operand_chunk_masks(a_index, tile, ta, a_perm, "a")),
+            per_slot(plan.b_pack, operand_chunk_masks(b_index, tile, tb, b_perm, "b")))
 
 
 def accumulate(c: Optional[torch.Tensor], part: torch.Tensor, ts: TickStack,
@@ -774,6 +808,11 @@ class RankPlan:
     #: whether each rank (of any process) computes a partial: known from the
     #: plan everywhere, so a layer sum knows which partials to expect
     has_part: List[bool]
+    #: float64 [ranks], every rank of any process: the flops its ticks issue
+    #: (``chunked_hw_flops`` with the ticks' K masks, else 2·T³ an entry)
+    #: and the tile figure they come from (2·T³ an entry)
+    hw_flops: np.ndarray
+    padded_flops: np.ndarray
 
     @property
     def launches(self) -> int:
@@ -781,25 +820,47 @@ class RankPlan:
         non-empty (rank, tick) stacks."""
         return sum(ts is not None for per in self.ticks for ts in per)
 
+    def tile_flops(self) -> Tuple[float, float]:
+        """``(issued, padded)`` of one ``run`` over every rank, as
+        ``Stats.add_tile_flops`` takes them."""
+        return float(self.hw_flops.sum()), float(self.padded_flops.sum())
+
     @staticmethod
     def build(algo: str, grid: ProcessGrid, tile: int, n_a: int, n_b: int,
-              n_c: int, stacks: np.ndarray) -> "RankPlan":
+              n_c: int, stacks: np.ndarray,
+              chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> "RankPlan":
         """``stacks``: [P, Q, L, T, s_max, 3] (ticks T = P for Cannon, 1 for
-        SUMMA), in rank order."""
+        SUMMA), in rank order. ``chunks`` (Cannon only): the K masks of
+        every rank's A and B piece slots as packed (``cannon_piece_masks``);
+        rank (i, j, l) holds at tick t the A piece of rank (i, j+t, l) and
+        the B piece of rank (i+t, j, l), so each (rank, tick) stack takes
+        those pieces' masks."""
+        dbcsr_assert(chunks is None or algo == "cannon", "K masks need a Cannon plan")
         ranks = grid.ranks()
+        p, nl = grid.nprow, grid.nlayer
         st = stacks.reshape(len(ranks), -1, stacks.shape[-2], 3)
+        entries = (st[..., 0] < n_c).sum(axis=(1, 2))
+        padded = 2.0 * tile**3 * entries
+        issued = padded.copy() if chunks is None else np.zeros(len(ranks))
         ticks = []
-        for r, rk in enumerate(ranks):
+        for r, (i, j, l) in enumerate(ranks):
             per, first = [], True
             for t in range(st.shape[1]):
-                ts = (tick_stack(st[r, t], n_c, grid.device(*rk), whole=first)
-                      if grid.is_local(*rk) else None)
+                rows = st[r, t][st[r, t, :, 0] < n_c]
+                masks = None
+                if chunks is not None:
+                    sa = (i * p + (j + t) % p) * nl + l
+                    sb = (((i + t) % p) * p + j) * nl + l
+                    masks = (chunks[0][sa * n_a:(sa + 1) * n_a],
+                             chunks[1][sb * n_b:(sb + 1) * n_b])
+                    issued[r] += chunked_hw_flops(*masks, rows[:, 1], rows[:, 2], tile)
+                ts = (tick_stack(rows, n_c, grid.device(i, j, l), whole=first, chunks=masks)
+                      if grid.is_local(i, j, l) else None)
                 first = first and ts is None
                 per.append(ts)
             ticks.append(per)
-        n_stack = int((stacks[..., 0] < n_c).sum())
-        has_part = [bool((st[r, :, :, 0] < n_c).any()) for r in range(len(ranks))]
-        return RankPlan(algo, grid, tile, n_a, n_b, n_c, ticks, n_stack, has_part)
+        return RankPlan(algo, grid, tile, n_a, n_b, n_c, ticks, int(entries.sum()),
+                        [bool(e) for e in entries], issued, padded)
 
     def run(self, a_pieces: List[Optional[torch.Tensor]],
             b_pieces: List[Optional[torch.Tensor]], dtype: torch.dtype
@@ -913,17 +974,18 @@ class DistExec:
 
 
 def dist_exec(algo: str, plan, grid: ProcessGrid, tile: int, a_perm, b_perm,
-              n_a_store: int, n_b_store: int, device) -> DistExec:
+              n_a_store: int, n_b_store: int, device, chunks=None) -> DistExec:
     """A tiled Cannon (``TiledCannonPlan``) or SUMMA (``summa.SummaPlan``)
     host plan made resident: op stores with ``n_a_store``/``n_b_store``
-    tiles on ``device``, ranks on ``grid``."""
+    tiles on ``device``, ranks on ``grid``; ``chunks`` as ``RankPlan.build``
+    takes them."""
     stacks = plan.stacks
     if algo == "summa":
         stacks = stacks.reshape(plan.p, plan.q, plan.layers, 1, plan.s_max, 3)
     ranks, local = _rank_devices(grid)
     plane, owners = _plane(grid)
     return DistExec(
-        RankPlan.build(algo, grid, tile, plan.n_a, plan.n_b, plan.n_c, stacks),
+        RankPlan.build(algo, grid, tile, plan.n_a, plan.n_b, plan.n_c, stacks, chunks),
         RankGather(plan.a_pack, plan.n_a, n_a_store, device, ranks, tile, local=local),
         RankGather(plan.b_pack, plan.n_b, n_b_store, device, ranks, tile, local=local),
         RankUnpack(plan.c_unpack, plan.n_c, tile, len(plane), plane, device,
@@ -1054,8 +1116,10 @@ def execute_cannon(
     c_lay = store_layout(c_index, tile)
     conj = (ca and a.dtype.is_complex, cb and b.dtype.is_complex)
     pcache = get_plan_cache()
+    # the executor's stacks carry K masks for float64 stores only
     fp = (index_fingerprint(c_index), dist_fingerprint(dist),
-          array_fingerprint(k_dist), tile, layers, str(a.device))
+          array_fingerprint(k_dist), tile, layers, str(a.device),
+          a.dtype == torch.float64)
 
     with timed("cannon/plan"):
         tplan = _try_tiled_plan(a, ta, b, tb, c_index, dist, k_dist, tile, layers)
@@ -1064,9 +1128,12 @@ def execute_cannon(
         ex = pcache.get(key)
         if ex is None:
             a_op, b_op = _op_pattern(a, ta), _op_pattern(b, tb)
+            chunks = cannon_piece_masks(tplan, a.dtype, tile, a.index, ta, a_op.perm,
+                                        b.index, tb, b_op.perm)
             ex = dist_exec(
                 "cannon", tplan, dist.grid, tile, _perm(a_op, a.device),
                 _perm(b_op, b.device), a.data.shape[0], b.data.shape[0], a.device,
+                chunks,
             )
             pcache.put(key, ex, nbytes=ex.nbytes)
         n_a, n_b, n_c = tplan.n_a, tplan.n_b, tplan.n_c
@@ -1083,8 +1150,7 @@ def execute_cannon(
                 tile, a.data.element_size())
     with timed("cannon/exec"):
         prod = ex(a.data, b.data, conj).to(a.dtype)
-    tile_flops = 2.0 * ex.plan.n_stack * tile**3
-    get_stats().add_tile_flops(tile_flops, tile_flops)
+    get_stats().add_tile_flops(*ex.plan.tile_flops())
     return _finish(prod, c, c_index, tile, alpha, beta, mask_result)
 
 

@@ -1228,7 +1228,14 @@ def build_distributed_executor(
     (None for the others')."""
     from ..dist.distribution import dist_tile_bins, tile_dist_vector
     from ..ops.transform import desymmetrize
-    from .cannon import RankPlan, ShardGather, _perm, dist_exec, plan_cannon_tiled
+    from .cannon import (
+        RankPlan,
+        ShardGather,
+        _perm,
+        cannon_piece_masks,
+        dist_exec,
+        plan_cannon_tiled,
+    )
     from .summa import plan_summa
 
     cfg = get_config()
@@ -1263,6 +1270,9 @@ def build_distributed_executor(
                               kb % q, kb % p, p, q, grid.nlayer)
     dtype = a.dtype
     conj = (ca and dtype.is_complex, cb and dtype.is_complex)
+    # the K masks of the ranks' pieces, where the rank kernel reads them
+    chunks = (cannon_piece_masks(plan, dtype, tile, a.index, ta, a_op.perm,
+                                 b.index, tb, b_op.perm) if algo == "cannon" else None)
 
     if sharded:
         from ..dist.sharded import shard_layout_from_bins
@@ -1288,7 +1298,7 @@ def build_distributed_executor(
 
         rplan = RankPlan.build(
             algo, grid, tile, plan.n_a, plan.n_b, plan.n_c,
-            plan.stacks.reshape(p, q, grid.nlayer, -1, plan.s_max, 3),
+            plan.stacks.reshape(p, q, grid.nlayer, -1, plan.s_max, 3), chunks,
         )
         gather_a = ShardGather(remap(plan.a_pack, sl_a, a_op), plan.n_a, sl_a.n_max,
                                grid, tile)
@@ -1321,7 +1331,7 @@ def build_distributed_executor(
         fn.plan = rplan
     else:
         ex = dist_exec(algo, plan, grid, tile, _perm(a_op, dev), _perm(b_op, dev),
-                       a.data.shape[0], b.data.shape[0], dev)
+                       a.data.shape[0], b.data.shape[0], dev, chunks)
 
         def fn(a_data, b_data):
             if a_data.dtype != dtype or b_data.dtype != dtype:

@@ -219,7 +219,8 @@ class _RankFilter:
     n: int
     info: DeviceBlockInfo
     eff_flops: float
-    hw_flops: float
+    hw_flops: float  # what its ticks issue (``RankPlan.hw_flops``, layers summed)
+    padded_flops: float  # the tile figure, 2·T³ an entry
 
 
 @dataclass
@@ -295,7 +296,7 @@ class ShardedFilteredExecutor:
         for rf in ranks:
             if rf is not None:
                 stats.total_flops += rf.eff_flops
-                stats.add_tile_flops(rf.hw_flops, rf.hw_flops)
+                stats.add_tile_flops(rf.hw_flops, rf.padded_flops)
         return c, keep, nsq
 
     def _sum_shared(self, part: list) -> list:
@@ -436,10 +437,9 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
             rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
             colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
             eff = _rank_eff_flops(a, ta, b, tb, rowb, colb, tile, p, q).reshape(-1)
-            # tile products the ticks of each plane rank's layers issue
-            # (the plan's stacks, padding rows on the trash slot n_c)
-            hp = fn.host_plan
-            entries = (hp.stacks[..., 0] < hp.n_c).reshape(p, q, -1).sum(axis=2).reshape(-1)
+            # the flops the ticks of each plane rank's layers issue
+            issued = fn.plan.hw_flops.reshape(p * q, -1).sum(axis=1)
+            padded = fn.plan.padded_flops.reshape(p * q, -1).sum(axis=1)
             # (block, tile) pairs of C's superset, by owner rank; the pairs
             # run block by block, so each rank's blocks come sorted
             pairs = tile_block_pairs(c_index, tile)
@@ -465,7 +465,8 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
                 info = _rank_block_info(c_index, tile, sl, d, pairs, owner == d,
                                         rank_blocks[d], *on_dev[str(dev)], dev)
                 ranks.append(_RankFilter(n=info.K.shape[0], info=info, eff_flops=float(eff[d]),
-                                         hw_flops=2.0 * tile ** 3 * float(entries[d])))
+                                         hw_flops=float(issued[d]),
+                                         padded_flops=float(padded[d])))
             shares = _shares(rank_blocks, holders, owners, devices, me)
     return ShardedFilteredExecutor(
         transa=transa, transb=transb, eps=float(eps), c_index=c_index,

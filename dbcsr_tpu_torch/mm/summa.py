@@ -309,6 +309,5 @@ def execute_summa(
                 plan.n_b, plan.n_c, tile, a.data.element_size())
     with timed("summa/exec"):
         prod = ex(a.data, b.data, conj).to(a.dtype)
-    tile_flops = 2.0 * ex.plan.n_stack * tile**3
-    get_stats().add_tile_flops(tile_flops, tile_flops)
+    get_stats().add_tile_flops(*ex.plan.tile_flops())
     return _finish(prod, c, c_index, tile, alpha, beta, mask_result)

@@ -1133,6 +1133,69 @@ def test_distributed_multiply_and_sharded_ops_on_the_card(dev):
     assert test_dist(dev)
 
 
+def _water_f64(dev, tile):
+    """A and B over the benchmark's water pattern at 2 × 2 × 2 cells (read
+    through ``benchmark.operands.pattern_of`` alone), float64, N(0, 1)."""
+    from benchmark.operands import pattern_of
+
+    with open(os.path.join(REPO, "benchmark", "configs", "water_2048.json")) as f:
+        cfg = json.load(f)
+    cfg["replicas"] = [2, 2, 2]
+    blocks = pattern_of(cfg).blocks
+    sizes = blocks.row_sizes.astype(np.int32)
+    return (f64_matrix(sizes, blocks.rows, blocks.cols, tile, 1, dev),
+            f64_matrix(sizes, blocks.rows, blocks.cols, tile, 2, dev), sizes)
+
+
+def _unmask_ticks(plan):
+    """The same Cannon plan with every tick's K masks removed."""
+    plan.ticks = [[None if ts is None else dataclasses.replace(ts, stack=unmasked(ts.stack))
+                   for ts in per] for per in plan.ticks]
+
+
+@pytest.mark.parametrize("form", ["unsharded", "sharded_filtered"])
+def test_distributed_masked_ticks_on_water(dev, form):
+    """Four cuda:0 ranks on a 2×2 Cannon grid over the water pattern,
+    float64, T = 128: every tick carries K masks and the plan issues less
+    than the tile figure; the masked product (the unsharded executor, or
+    the sharded filtered step: C shards, keep and norms²) equals the same
+    plan's with the masks removed, bitwise up to the sign of a zero, with
+    as many launches of the float64 kernel."""
+    from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
+    from dbcsr_tpu_torch.dist.sharded import shard_store_with_layout
+
+    a, b, sizes = _water_f64(dev, 128)
+    grid = ProcessGrid.make(2, 2, devices=[dev] * 4)
+    dist = tile_aligned_dist(grid, sizes, sizes, 128)
+    if form == "unsharded":
+        fn, _, _ = dtt.build_distributed_executor("N", "N", a, b, dist)
+        plan = fn.plan
+
+        def call():
+            return [fn(a.data, b.data)]
+    else:
+        ex = dtt.build_filtered_executor("N", "N", a, b, 1e-5, dist=dist)
+        a_sh = shard_store_with_layout(a, ex.shard_a, grid)
+        plan = ex.fn.plan
+
+        def call():
+            c, keep, nsq = ex.step(a_sh)
+            return c + keep + nsq
+    ticks = [ts for per in plan.ticks for ts in per if ts is not None]
+    assert ticks and all(ts.stack.a_chunks is not None for ts in ticks)
+    issued, padded = plan.tile_flops()
+    assert issued < padded
+    before = tile_stack_matmul_f64.launches
+    got = call()
+    n = tile_stack_matmul_f64.launches - before
+    assert n == plan.launches == len(ticks)
+    assert all(torch.equal(x, y) for x, y in zip(got, call()))  # deterministic
+    _unmask_ticks(plan)
+    full = call()
+    assert tile_stack_matmul_f64.launches - before == 3 * n
+    assert len(got) == len(full) and all(torch.equal(x, y) for x, y in zip(got, full))
+
+
 # ---------------------------------------------------------------------------
 # the C API shim on the card
 # ---------------------------------------------------------------------------

@@ -154,7 +154,7 @@ def test_empty_shard():
 def test_counts_a_call():
     """A step adds one multiplication, the effective flops of the C
     elements its ranks own (they sum to the product's) and the tile work
-    its ticks issue (whole tiles: the distributed stacks carry no K masks)."""
+    its ticks issue (whole tiles: at T = 32 the stacks carry no K masks)."""
     cfg, ops, a, b, eps, ref, one, _ = case("2x1x1")
     g = ProcessGrid.make(2, 2, devices=[CPU] * 4)
     ex = dt.build_filtered_executor("N", "N", a, b, eps,

@@ -142,3 +142,23 @@ def test_chunk_work_counts_what_the_executor_issues():
     assert fn.plan.route == "f64_stack"
     assert (fn.plan.padded_flops, fn.plan.hw_flops, eff) == (w["tile"], w["skip8"],
                                                             out["eff_flops"])
+
+
+def test_chunk_work_over_a_grid():
+    """``chunk_work --grid 2 2`` on the four-card configuration at 2 × 2 × 2
+    cells: the plane ranks' tile and 8-deep figures and effective flops sum
+    to the one-card counts of the same pattern, and each rank issues less
+    than its tile figure at 8-deep masks."""
+    cfg = os.path.join(REPO, "benchmark", "configs", "water_4000_2x2.json")
+    one = chunk_work.main(["--config", cfg, "--replicas", "2", "2", "2"])
+    out = chunk_work.main(["--config", cfg, "--replicas", "2", "2", "2", "--grid", "2", "2"])
+    assert out["grid"] == [2, 2] and len(out["ranks"]) == 4
+    assert out["entries"] == one["entries"] and out["eff_flops"] == one["eff_flops"]
+    for k in ("tile", "skip8"):
+        assert out["work"][k] == one["work"][k]
+        assert sum(r["work"][k] for r in out["ranks"]) == one["work"][k]
+    assert sum(r["eff_flops"] for r in out["ranks"]) == pytest.approx(one["eff_flops"],
+                                                                      rel=1e-12)
+    for r in out["ranks"]:
+        assert 0 < r["work"]["skip8"] < r["work"]["tile"]
+        assert r["tile_util_pct"]["skip8"] == 100.0 * r["eff_flops"] / r["work"]["skip8"]
