@@ -4,9 +4,16 @@ Port of ``dbcsr_tpu/mm/cannon.py`` (reference ``multiply_cannon``,
 ``src/mm/dbcsr_mm_cannon.F:839-1772``). The host plans are the JAX
 package's, copied unchanged (numpy): the element-granular ``plan_cannon``
 for arbitrary block distributions and the tile-granular
-``plan_cannon_tiled`` (with ``_try_tiled_plan``, ``_tile_layer_split``)
-for tile-aligned ones. Their stacks are ``[P, P, L, P(ticks), s_max, 3]``
-with padding rows aimed at the trash C slot ``n_c``.
+``plan_cannon_tiled`` (with ``_tile_layer_split``) for tile-aligned ones.
+Their stacks are ``[P, P, L, P(ticks), s_max, 3]`` with padding rows aimed
+at the trash C slot ``n_c``.
+
+One planner, ``plan_distributed``, decides how op(A)·op(B) runs over a
+grid, Cannon or SUMMA (``summa.py``): the op block sizes, the default
+``k_dist``, the tile bins, the host plan and the K masks, as one
+``DistPlan``. Both entry points take it: the one-shot ``multiply(dist=)``
+through ``execute_distributed`` (its resident plan cached by content) and
+``engine.build_distributed_executor``.
 
 Execution. The JAX package runs the ticks as a ``lax.fori_loop`` inside
 ``jax.shard_map``, each tick body an XLA gather + ``dot_general`` +
@@ -51,8 +58,8 @@ the single-process result: a transfer moves bytes and adds nothing.
 Panels are pre-shifted at pack time (the reference's ``make_images``,
 ``dbcsr_mm_cannon.F:146-751``) and padded to the largest panel's tile
 count ``n_a``/``n_b``, so the packed panels can hold more than one copy of
-A and B. The message statistics (``record_comm``) are the JAX package's,
-computed from the panel shapes.
+A and B. The message statistics (``RankPlan.record_comm``) are the JAX
+package's, computed from the panel shapes.
 """
 from __future__ import annotations
 
@@ -86,8 +93,8 @@ from .tileplan import enumerate_tile_triples
 
 __all__ = [
     "CannonPlan", "TiledCannonPlan", "plan_cannon", "plan_cannon_tiled",
-    "execute_cannon", "RankPlan", "DistExec", "dist_exec", "rank_kernel",
-    "cannon_piece_masks",
+    "DistPlan", "plan_distributed", "execute_distributed", "RankPlan", "DistExec",
+    "dist_exec", "rank_kernel", "cannon_piece_masks",
 ]
 
 
@@ -419,10 +426,6 @@ def plan_cannon_tiled(
     the per-(device, layer, tick) stacks all come from one global triple
     enumeration + numpy grouping — no Python loop over tiles, panels or
     grid cells (the O(P²) per-panel scipy loop flagged in round 1)."""
-    import scipy.sparse as sp
-
-    from .tileplan import enumerate_tile_triples
-
     klay = _tile_layer_split(kb, layers)
     kl = kb * layers + klay  # combined (bin, layer) id per k tile
     nkl = p * layers
@@ -820,6 +823,20 @@ class RankPlan:
         non-empty (rank, tick) stacks."""
         return sum(ts is not None for per in self.ticks for ts in per)
 
+    def record_comm(self, itemsize: int) -> None:
+        """The JAX package's static message accounting of one ``run``: each
+        rank receives P-1 ring shifts of each panel (Cannon), or the other
+        owners' pieces (SUMMA: Q-1 of A's, P-1 of B's); one C reduction
+        across layers."""
+        st, g = get_stats(), self.grid
+        kind, shifts_a = (("ppermute", g.nprow - 1) if self.algo == "cannon"
+                          else ("allgather", g.npcol - 1))
+        tt = self.tile * self.tile * itemsize
+        st.record_comm(f"{kind}_a", g.size * shifts_a, self.n_a * tt)
+        st.record_comm(f"{kind}_b", g.size * (g.nprow - 1), self.n_b * tt)
+        if g.nlayer > 1:
+            st.record_comm("psum_c_layers", g.size * (g.nlayer - 1), self.n_c * tt)
+
     def tile_flops(self) -> Tuple[float, float]:
         """``(issued, padded)`` of one ``run`` over every rank, as
         ``Stats.add_tile_flops`` takes them."""
@@ -923,20 +940,6 @@ class RankPlan:
         return comm.ordered_sum(g, parts, self.has_part, sums, (self.n_c, t, t), acc)
 
 
-def record_comm(kind_a: str, kind_b: str, grid: ProcessGrid, shifts_a: int,
-                shifts_b: int, n_a: int, n_b: int, n_c: int, tile: int,
-                itemsize: int) -> None:
-    """The JAX package's static message accounting: ``shifts`` messages per
-    rank of each operand's panel, one C reduction across layers."""
-    st = get_stats()
-    ndev = grid.size
-    st.record_comm(kind_a, ndev * shifts_a, n_a * tile * tile * itemsize)
-    st.record_comm(kind_b, ndev * shifts_b, n_b * tile * tile * itemsize)
-    if grid.nlayer > 1:
-        st.record_comm("psum_c_layers", ndev * (grid.nlayer - 1),
-                       n_c * tile * tile * itemsize)
-
-
 @dataclass
 class DistExec:
     """A distributed plan with everything it reads on the devices: the
@@ -979,9 +982,7 @@ def dist_exec(algo: str, plan, grid: ProcessGrid, tile: int, a_perm, b_perm,
     host plan made resident: op stores with ``n_a_store``/``n_b_store``
     tiles on ``device``, ranks on ``grid``; ``chunks`` as ``RankPlan.build``
     takes them."""
-    stacks = plan.stacks
-    if algo == "summa":
-        stacks = stacks.reshape(plan.p, plan.q, plan.layers, 1, plan.s_max, 3)
+    stacks = plan.stacks.reshape(grid.nprow, grid.npcol, grid.nlayer, -1, plan.s_max, 3)
     ranks, local = _rank_devices(grid)
     plane, owners = _plane(grid)
     return DistExec(
@@ -1032,72 +1033,103 @@ def _element_exec(plan: CannonPlan, a, b, c_lay, grid, tile, device) -> DistExec
     )
 
 
-def _try_tiled_plan(a, ta, b, tb, c_index, dist, k_dist, tile, layers):
-    """Tiled plan when ``use_tiled_cannon`` is on (block distributions are
-    honored as their nearest tile-aligned form), else None. Plans are
-    content-cached (index patterns + distribution + k_dist), as in the JAX
-    package."""
-    from ..core.config import get_config
-    from ..dist.distribution import dist_tile_bins
-    from .engine import _op_pattern
-    from .plancache import (
-        array_fingerprint,
-        dist_fingerprint,
-        get_plan_cache,
-        index_fingerprint,
-    )
+@dataclass(frozen=True)
+class DistPlan:
+    """How op(A)·op(B) into a C index runs over a grid (``plan_distributed``):
+    the host ``plan`` (a ``TiledCannonPlan``, a ``summa.SummaPlan``, or the
+    element-granular ``CannonPlan``) and what both entry points read off it.
+    ``rowb``/``colb``/``kb`` bin each m/n/k tile on the grid and
+    ``a_op``/``b_op`` are the op patterns, all None on the element plan,
+    which bins blocks; ``chunks`` are the pieces' K masks
+    (``cannon_piece_masks``), ``stacks`` the plan's stacks as
+    ``RankPlan.build`` takes them, ``[P, Q, L, ticks, s_max, 3]``."""
 
-    if not get_config().use_tiled_cannon:
-        return None
-    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
-    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
-    pcache = get_plan_cache()
-    key = pcache.key(
-        a.index, ta, b.index, tb,
-        extra=("cannon_tiled", index_fingerprint(c_index), dist_fingerprint(dist),
-               array_fingerprint(k_dist), tile, layers),
-    )
-    cached = pcache.get(key)
-    if cached is not None:
-        return cached
+    algo: str
+    grid: ProcessGrid
+    plan: object
+    tile: int
+    m_sizes: np.ndarray
+    k_sizes: np.ndarray
+    n_sizes: np.ndarray
+    c_layout: object
+    stacks: np.ndarray
+    rowb: Optional[np.ndarray] = None
+    colb: Optional[np.ndarray] = None
+    kb: Optional[np.ndarray] = None
+    a_op: Optional[object] = None
+    b_op: Optional[object] = None
+    chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    def resident(self, a: BCSRMatrix, b: BCSRMatrix) -> DistExec:
+        """The plan made resident for op stores of ``a`` and ``b`` (new
+        data, the same patterns), on their device."""
+        dev = a.device
+        if self.a_op is None:
+            return _element_exec(self.plan, a, b, self.c_layout, self.grid, self.tile, dev)
+        return dist_exec(self.algo, self.plan, self.grid, self.tile, _perm(self.a_op, dev),
+                         _perm(self.b_op, dev), a.data.shape[0], b.data.shape[0], dev,
+                         self.chunks)
+
+
+def plan_distributed(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool,
+                     c_index: BCSRIndex, dist: Distribution, k_dist: Optional[np.ndarray],
+                     algo: str, *, tiled: bool) -> DistPlan:
+    """How op(A)·op(B) into ``c_index`` runs over ``dist``'s grid by
+    ``algo`` ("cannon" | "summa"): the one planner of ``multiply(dist=)``
+    and ``build_distributed_executor``. ``k_dist`` bins the inner blocks
+    (None: whole tile rows round-robin over P for Cannon, max(P, Q) for
+    SUMMA). The tile-granular plans honor a block distribution as its
+    nearest tile-aligned form (``dist_tile_bins``, ``majority``); Cannon
+    with ``tiled`` off takes the element-granular plan instead, SUMMA is
+    tile-granular always. The host plan is the span ``cannon/plan`` or
+    ``summa/plan``."""
+    from ..dist.distribution import dist_tile_bins, tile_dist_vector
+    from .engine import _op_pattern, _op_sizes
+    from .summa import plan_summa
+
+    grid, tile = dist.grid, a.tile
+    p, q, layers = grid.nprow, grid.npcol, grid.nlayer
+    sizes = _op_sizes(a, ta, b, tb)
+    m_sizes, k_sizes, n_sizes = sizes
+    if k_dist is None:
+        k_dist = tile_dist_vector(k_sizes, p if algo == "cannon" else max(p, q), tile)
+    c_lay = store_layout(c_index, tile)
+    if algo == "cannon" and not tiled:
+        with timed("cannon/plan"):
+            plan = plan_cannon(a.index, ta, b.index, tb, c_index, dist, k_dist, tile)
+        return DistPlan(algo, grid, plan, tile, *sizes, c_lay, plan.stacks)
     rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
     colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
     kb = dist_tile_bins(k_dist, k_sizes, tile, majority=True)
-    plan = plan_cannon_tiled(
-        _op_pattern(a, ta).coords, _op_pattern(b, tb).coords,
-        store_layout(c_index, tile), rowb, colb, kb, dist.grid.nprow, layers,
-    )
-    if plan is not None:
-        pcache.put(key, plan)
-    return plan
+    a_op, b_op = _op_pattern(a, ta), _op_pattern(b, tb)
+    with timed(f"{algo}/plan"):
+        if algo == "cannon":
+            plan = plan_cannon_tiled(a_op.coords, b_op.coords, c_lay, rowb, colb, kb, p,
+                                     layers)
+        else:
+            plan = plan_summa(a_op.coords, b_op.coords, c_lay, rowb, colb, kb % q, kb % p,
+                              p, q, layers)
+    # the K masks of the ranks' pieces, where the rank kernel reads them
+    chunks = (cannon_piece_masks(plan, a.dtype, tile, a.index, ta, a_op.perm, b.index, tb,
+                                 b_op.perm) if algo == "cannon" else None)
+    return DistPlan(algo, grid, plan, tile, *sizes, c_lay,
+                    plan.stacks.reshape(p, q, layers, -1, plan.s_max, 3),
+                    rowb, colb, kb, a_op, b_op, chunks)
 
 
-def execute_cannon(
-    a: BCSRMatrix,
-    ta: bool,
-    ca: bool,
-    b: BCSRMatrix,
-    tb: bool,
-    cb: bool,
-    c: Optional[BCSRMatrix],
-    c_index: BCSRIndex,
-    alpha,
-    beta,
-    dist: Distribution,
-    k_dist: Optional[np.ndarray],
-    cfg,
-    *,
-    mask_result: bool = False,
-) -> torch.Tensor:
-    """Distributed execution path called from the engine; returns C's tile
-    store on the operands' device.
-
-    Fast path: with tile-aligned distributions (``tile_aligned_dist``)
-    every panel tile is a tile of the op store, so packing and unpacking are
-    tile-level gathers. Fallback (``use_tiled_cannon`` off): the
-    element-granular plan, packing through composed element maps."""
-    from .engine import _finish, _op_pattern
+def execute_distributed(a: BCSRMatrix, ta: bool, ca: bool, b: BCSRMatrix, tb: bool,
+                        cb: bool, c: Optional[BCSRMatrix], c_index: BCSRIndex, alpha,
+                        beta, dist: Distribution, k_dist: Optional[np.ndarray], algo: str,
+                        *, tiled: bool, mask_result: bool = False) -> torch.Tensor:
+    """The distributed path of ``multiply``; returns C's tile store on the
+    operands' device. The resident plan (``plan_distributed``, then
+    ``DistPlan.resident``) is kept in the plan cache under the content of
+    the patterns, the distribution, ``k_dist``, the device and whether the
+    stores are float64 (the only ones whose stacks carry K masks), so a
+    repeated call plans nothing. Tile-granular plans pack and unpack by
+    tile-level gathers; the element-granular plan (``tiled`` off, Cannon)
+    packs through composed element maps."""
+    from .engine import _finish
     from .plancache import (
         array_fingerprint,
         dist_fingerprint,
@@ -1105,53 +1137,22 @@ def execute_cannon(
         index_fingerprint,
     )
 
-    tile = a.tile
-    p = dist.grid.nprow
-    layers = dist.grid.nlayer
-    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
-    if k_dist is None:
-        from ..dist.distribution import tile_dist_vector
-
-        k_dist = tile_dist_vector(k_sizes, p, tile)
-    c_lay = store_layout(c_index, tile)
-    conj = (ca and a.dtype.is_complex, cb and b.dtype.is_complex)
     pcache = get_plan_cache()
-    # the executor's stacks carry K masks for float64 stores only
-    fp = (index_fingerprint(c_index), dist_fingerprint(dist),
-          array_fingerprint(k_dist), tile, layers, str(a.device),
-          a.dtype == torch.float64)
-
-    with timed("cannon/plan"):
-        tplan = _try_tiled_plan(a, ta, b, tb, c_index, dist, k_dist, tile, layers)
-    if tplan is not None:
-        key = pcache.key(a.index, ta, b.index, tb, extra=("cannon_exec",) + fp)
-        ex = pcache.get(key)
-        if ex is None:
-            a_op, b_op = _op_pattern(a, ta), _op_pattern(b, tb)
-            chunks = cannon_piece_masks(tplan, a.dtype, tile, a.index, ta, a_op.perm,
-                                        b.index, tb, b_op.perm)
-            ex = dist_exec(
-                "cannon", tplan, dist.grid, tile, _perm(a_op, a.device),
-                _perm(b_op, b.device), a.data.shape[0], b.data.shape[0], a.device,
-                chunks,
-            )
-            pcache.put(key, ex, nbytes=ex.nbytes)
-        n_a, n_b, n_c = tplan.n_a, tplan.n_b, tplan.n_c
-    else:
-        key = pcache.key(a.index, ta, b.index, tb, extra=("cannon_element",) + fp)
-        ex = pcache.get(key)
-        if ex is None:
-            with timed("cannon/plan-element"):
-                plan = plan_cannon(a.index, ta, b.index, tb, c_index, dist, k_dist, tile)
-            ex = _element_exec(plan, a, b, c_lay, dist.grid, tile, a.device)
-            pcache.put(key, ex, nbytes=ex.nbytes)
-        n_a, n_b, n_c = ex.plan.n_a, ex.plan.n_b, ex.plan.n_c
-    record_comm("ppermute_a", "ppermute_b", dist.grid, p - 1, p - 1, n_a, n_b, n_c,
-                tile, a.data.element_size())
-    with timed("cannon/exec"):
-        prod = ex(a.data, b.data, conj).to(a.dtype)
+    key = pcache.key(a.index, ta, b.index, tb, extra=(
+        f"{algo}_exec", tiled, index_fingerprint(c_index), dist_fingerprint(dist),
+        None if k_dist is None else array_fingerprint(k_dist), a.tile, str(a.device),
+        a.dtype == torch.float64))
+    ex = pcache.get(key)
+    if ex is None:
+        ex = plan_distributed(a, ta, b, tb, c_index, dist, k_dist, algo,
+                              tiled=tiled).resident(a, b)
+        pcache.put(key, ex, nbytes=ex.nbytes)
+    ex.plan.record_comm(a.data.element_size())
+    with timed(f"{algo}/exec"):
+        prod = ex(a.data, b.data,
+                  (ca and a.dtype.is_complex, cb and b.dtype.is_complex)).to(a.dtype)
     get_stats().add_tile_flops(*ex.plan.tile_flops())
-    return _finish(prod, c, c_index, tile, alpha, beta, mask_result)
+    return _finish(prod, c, c_index, a.tile, alpha, beta, mask_result)
 
 
 def _perm(op, device) -> Optional[torch.Tensor]:

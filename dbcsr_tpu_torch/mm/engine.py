@@ -39,6 +39,10 @@ bandedness gate and its replan is admitted, the plan runs on the renumbered
 stack and gathers the operand stores into the new slot order on each call.
 The one-shot ``multiply`` does not reorder, as in the JAX package.
 
+With a ``dist``, ``multiply`` and ``build_distributed_executor`` run over a
+process grid and plan through one function, ``cannon.plan_distributed``
+(Cannon on square grids, SUMMA otherwise, ``mm_dist_algo``).
+
 float64 data: "auto", "stack" and "panel" take the float64 stack kernel, the
 port of K6 (``f64_stack.py``), as the JAX package never gives float64 to its
 f32 panel or flat kernels; an explicit "band" or "grouped" runs that
@@ -186,8 +190,8 @@ def _check_config(cfg, driver: str) -> None:
     if cfg.f64_slices != 0:
         raise NotImplementedError(
             f"f64_slices={cfg.f64_slices}: the port multiplies float64 "
-            "natively and has no Ozaki slices to count (ROADMAP Queue 1 "
-            "item 7: ops/f64_emu.py is not ported); use f64_slices=0"
+            "natively and has no Ozaki slices to count (ops/f64_emu.py is on "
+            "ROADMAP Queue 1's \"Do not port\" list); use f64_slices=0"
         )
     dbcsr_assert(
         cfg.matmul_precision in _PRECISIONS,
@@ -210,6 +214,13 @@ class _OpPattern:
     coords: np.ndarray
     grid: Tuple[int, int]
     perm: Optional[np.ndarray]
+
+
+def _op_sizes(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool):
+    """op(A)·op(B)'s block sizes along m, k and n."""
+    m, k = ((a.index.col_block_sizes, a.index.row_block_sizes) if ta
+            else (a.index.row_block_sizes, a.index.col_block_sizes))
+    return m, k, b.index.row_block_sizes if tb else b.index.col_block_sizes
 
 
 def _op_pattern(m: BCSRMatrix, trans: bool) -> _OpPattern:
@@ -978,15 +989,13 @@ def multiply(
             eff_dist = a.dist
         mask_result = filter_eps is not None or retain_sparsity
         if eff_dist is not None:
+            from .cannon import execute_distributed
+
             algo = _dist_algo(cfg.mm_dist_algo, eff_dist.grid)
             with timed(f"multiply/{algo}"):
-                if algo == "summa":
-                    from .summa import execute_summa as exec_dist
-                else:
-                    from .cannon import execute_cannon as exec_dist
-                out_data = exec_dist(
+                out_data = execute_distributed(
                     a, ta, ca, b, tb, cb, c, c_index, alpha, beta, eff_dist,
-                    k_dist, cfg, mask_result=mask_result,
+                    k_dist, algo, tiled=cfg.use_tiled_cannon, mask_result=mask_result,
                 )
         else:
             with timed("multiply/exec"):
@@ -1210,7 +1219,9 @@ def build_distributed_executor(
     and index upload done here (the JAX package's
     ``build_distributed_executor``). Each rank's tick launches the port's
     stack kernel for the dtype; ``fn.plan`` is the ``cannon.RankPlan``
-    (``launches`` per call) and ``fn.exec`` the packing around it.
+    (``launches`` per call) and ``fn.exec`` the packing around it;
+    ``fn.dist_plan`` is the ``cannon.DistPlan`` the one-shot
+    ``multiply(dist=)`` plans through too, ``fn.host_plan`` its host plan.
 
     With ``sharded=True`` the executor takes and gives the SHARDED at-rest
     form (``dist/sharded.py``): A and B as lists of per-rank ``[n_max, T,
@@ -1226,17 +1237,8 @@ def build_distributed_executor(
     process builds the same plan and runs its own ranks: ``fn`` returns the
     whole C store on every process, or the shards of this process's ranks
     (None for the others')."""
-    from ..dist.distribution import dist_tile_bins, tile_dist_vector
     from ..ops.transform import desymmetrize
-    from .cannon import (
-        RankPlan,
-        ShardGather,
-        _perm,
-        cannon_piece_masks,
-        dist_exec,
-        plan_cannon_tiled,
-    )
-    from .summa import plan_summa
+    from .cannon import RankPlan, ShardGather, plan_distributed
 
     cfg = get_config()
     ta, ca = _effective_trans(transa)
@@ -1247,36 +1249,20 @@ def build_distributed_executor(
     tile = a.tile
     grid = dist.grid
     algo = _dist_algo(algo or cfg.mm_dist_algo, grid)
-    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
-    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
+    m_sizes, _, n_sizes = _op_sizes(a, ta, b, tb)
     symb = symbolic_product(a.index, ta, b.index, tb)
     c_index, _ = build_index(symb.rows, symb.cols, m_sizes, n_sizes)
-    p, q = grid.nprow, grid.npcol
-    if k_dist is None:
-        k_dist = tile_dist_vector(k_sizes, p if algo == "cannon" else max(p, q), tile)
-    a_op, b_op = _op_pattern(a, ta), _op_pattern(b, tb)
-    c_lay = store_layout(c_index, tile)
-    rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
-    colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
-    kb = dist_tile_bins(k_dist, k_sizes, tile, majority=True)
-    dev = a.device
-    with timed(f"{algo}/plan"):
-        if algo == "cannon":
-            plan = plan_cannon_tiled(a_op.coords, b_op.coords, c_lay, rowb, colb, kb,
-                                     p, grid.nlayer)
-        else:
-            plan = plan_summa(a_op.coords, b_op.coords, c_lay, rowb, colb,
-                              kb % q, kb % p, p, q, grid.nlayer)
+    # tile-granular whatever use_tiled_cannon says, as the JAX package's executor
+    dp = plan_distributed(a, ta, b, tb, c_index, dist, k_dist, algo, tiled=True)
+    plan = dp.plan
     dtype = a.dtype
     conj = (ca and dtype.is_complex, cb and dtype.is_complex)
-    # the K masks of the ranks' pieces, where the rank kernel reads them
-    chunks = (cannon_piece_masks(plan, dtype, tile, a.index, ta, a_op.perm,
-                                 b.index, tb, b_op.perm) if algo == "cannon" else None)
 
     if sharded:
         from ..dist.sharded import shard_layout_from_bins
 
+        p, q = grid.nprow, grid.npcol
+        rowb, colb, kb = dp.rowb, dp.colb, dp.kb
         # each operand shards along its OWN stored dims: the per-tile bin
         # of a logical dim (m -> rowb, n -> colb, k -> kb) folded onto the grid
         a_rbins = (kb % p) if ta else rowb
@@ -1296,13 +1282,11 @@ def build_distributed_executor(
                 idx = np.where(idx >= 0, op.perm[np.maximum(idx, 0)], -1)
             return np.where(idx >= 0, sl.pos_of_slot[np.maximum(idx, 0)], -1)
 
-        rplan = RankPlan.build(
-            algo, grid, tile, plan.n_a, plan.n_b, plan.n_c,
-            plan.stacks.reshape(p, q, grid.nlayer, -1, plan.s_max, 3), chunks,
-        )
-        gather_a = ShardGather(remap(plan.a_pack, sl_a, a_op), plan.n_a, sl_a.n_max,
+        rplan = RankPlan.build(algo, grid, tile, plan.n_a, plan.n_b, plan.n_c, dp.stacks,
+                               dp.chunks)
+        gather_a = ShardGather(remap(plan.a_pack, sl_a, dp.a_op), plan.n_a, sl_a.n_max,
                                grid, tile)
-        gather_b = ShardGather(remap(plan.b_pack, sl_b, b_op), plan.n_b, sl_b.n_max,
+        gather_b = ShardGather(remap(plan.b_pack, sl_b, dp.b_op), plan.n_b, sl_b.n_max,
                                grid, tile)
 
         def op_tiles(pieces, trans, cj):
@@ -1330,8 +1314,7 @@ def build_distributed_executor(
         fn.pieces_a, fn.pieces_b = pieces_a, pieces_b
         fn.plan = rplan
     else:
-        ex = dist_exec(algo, plan, grid, tile, _perm(a_op, dev), _perm(b_op, dev),
-                       a.data.shape[0], b.data.shape[0], dev, chunks)
+        ex = dp.resident(a, b)
 
         def fn(a_data, b_data):
             if a_data.dtype != dtype or b_data.dtype != dtype:
@@ -1339,5 +1322,5 @@ def build_distributed_executor(
             return ex(a_data, b_data, conj).to(dtype)
 
         fn.plan, fn.exec = ex.plan, ex
-    fn.algo, fn.host_plan = algo, plan
+    fn.algo, fn.host_plan, fn.dist_plan = algo, plan, dp
     return fn, c_index, symb.eff_flops

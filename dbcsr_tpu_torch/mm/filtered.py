@@ -393,27 +393,24 @@ def _elements_in_bins(sizes: np.ndarray, tile_bins: np.ndarray, tile: int,
                        ).reshape(len(sizes), nbins).astype(np.float64)
 
 
-def _rank_eff_flops(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, rowb, colb,
-                    tile: int, p: int, q: int) -> np.ndarray:
+def _rank_eff_flops(a: BCSRMatrix, ta: bool, b: BCSRMatrix, tb: bool, dp) -> np.ndarray:
     """float64 ``[p, q]``: the effective flops (2·m·k·n a block triple) of
-    the C elements each plane rank owns. A triple's sum over (i, j) for a
-    fixed k factorises, so rank (r, s) takes 2·Σ_k k·(Σ_i m_i^r)·(Σ_j n_j^s)
-    over the i of op(A)'s column k and the j of op(B)'s row k, m_i^r being
-    block row i's elements in row bin r."""
-    k_sizes = (a.index.row_block_sizes if ta else a.index.col_block_sizes).astype(np.float64)
-    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
-    m_in = _elements_in_bins(m_sizes, rowb, tile, p)
-    n_in = _elements_in_bins(n_sizes, colb, tile, q)
+    the C elements each plane rank of ``dp`` (a ``cannon.DistPlan``) owns.
+    A triple's sum over (i, j) for a fixed k factorises, so rank (r, s)
+    takes 2·Σ_k k·(Σ_i m_i^r)·(Σ_j n_j^s) over the i of op(A)'s column k and
+    the j of op(B)'s row k, m_i^r being block row i's elements in row bin
+    r."""
+    m_in = _elements_in_bins(dp.m_sizes, dp.rowb, dp.tile, dp.grid.nprow)
+    n_in = _elements_in_bins(dp.n_sizes, dp.colb, dp.tile, dp.grid.npcol)
     a_col = _pattern(a.index, ta).T.tocsr() @ m_in  # [k, p]
     b_row = _pattern(b.index, tb) @ n_in  # [k, q]
-    return 2.0 * np.einsum("k,kr,ks->rs", k_sizes, np.asarray(a_col), np.asarray(b_row))
+    return 2.0 * np.einsum("k,kr,ks->rs", dp.k_sizes.astype(np.float64),
+                           np.asarray(a_col), np.asarray(b_row))
 
 
 def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
                    eps: float, dist) -> ShardedFilteredExecutor:
     from ..dist import comm
-    from ..dist.distribution import dist_tile_bins
     from ..dist.sharded import plane_devices, plane_owners, shard_store_with_layout
     from ..ops.transform import desymmetrize
     from .engine import _effective_trans, _promote_operands, build_distributed_executor
@@ -432,11 +429,7 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
             p, q = sl.p, sl.q
             me = comm.rank()
             owners, devices = plane_owners(grid), plane_devices(grid)
-            m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-            n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
-            rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
-            colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
-            eff = _rank_eff_flops(a, ta, b, tb, rowb, colb, tile, p, q).reshape(-1)
+            eff = _rank_eff_flops(a, ta, b, tb, fn.dist_plan).reshape(-1)
             # the flops the ticks of each plane rank's layers issue
             issued = fn.plan.hw_flops.reshape(p * q, -1).sum(axis=1)
             padded = fn.plan.padded_flops.reshape(p * q, -1).sum(axis=1)

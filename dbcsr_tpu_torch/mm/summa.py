@@ -5,7 +5,10 @@ i and col-bin j and consumes A's row panel i (k-sharded along 'pc') and
 B's column panel j (k-sharded along 'pr'). SUMMA has no grid-shape
 constraint, so it is the choice whenever nprow != npcol. The host plan
 (``plan_summa``, ``pad_summa_plan``) is the JAX package's, copied
-unchanged (numpy, tile-granular).
+unchanged (numpy, tile-granular). ``cannon.plan_distributed``, the one
+planner of ``multiply(dist=)`` and ``build_distributed_executor``, calls
+``plan_summa``; the TAS sub-grids (``tas/parallel.py``) call it per group
+and pad the plans to common capacities.
 
 Execution (``cannon.RankPlan``, algorithm "summa"). The JAX package's
 ``lax.all_gather`` of A along 'pc' and of B along 'pr' is a concatenation
@@ -20,22 +23,13 @@ pre-split over the layers and the layer partials are summed in layer order
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
-import torch
 
-from ..block.bcsr import BCSRMatrix
-from ..block.index import BCSRIndex
-from ..block.store import store_layout
-from ..core.stats import get_stats
-from ..core.timing import timed
-from ..dist.distribution import Distribution, dist_tile_bins
-from .cannon import dist_exec, record_comm
 from .tileplan import enumerate_tile_triples
 
-__all__ = ["SummaPlan", "plan_summa", "pad_summa_plan", "execute_summa"]
+__all__ = ["SummaPlan", "plan_summa", "pad_summa_plan"]
 
 
 @dataclass
@@ -236,78 +230,3 @@ def pad_summa_plan(
         b_pack=repad_pack(plan.b_pack, plan.n_b, n_b),
         stacks=new, c_unpack=c_unpack,
     )
-
-
-def execute_summa(
-    a: BCSRMatrix,
-    ta: bool,
-    ca: bool,
-    b: BCSRMatrix,
-    tb: bool,
-    cb: bool,
-    c: Optional[BCSRMatrix],
-    c_index: BCSRIndex,
-    alpha,
-    beta,
-    dist: Distribution,
-    k_dist: Optional[np.ndarray],
-    cfg,
-    *,
-    mask_result: bool = False,
-) -> torch.Tensor:
-    """SUMMA execution path (any grid shape); returns C's tile store on the
-    operands' device."""
-    from .cannon import _perm
-    from .engine import _finish, _op_pattern
-    from .plancache import (
-        array_fingerprint,
-        dist_fingerprint,
-        get_plan_cache,
-        index_fingerprint,
-    )
-
-    tile = a.tile
-    p, q = dist.grid.nprow, dist.grid.npcol
-    layers = dist.grid.nlayer
-    m_sizes = a.index.col_block_sizes if ta else a.index.row_block_sizes
-    k_sizes = a.index.row_block_sizes if ta else a.index.col_block_sizes
-    n_sizes = b.index.row_block_sizes if tb else b.index.col_block_sizes
-    if k_dist is None:
-        from ..dist.distribution import tile_dist_vector
-
-        k_dist = tile_dist_vector(k_sizes, max(p, q), tile)
-    c_lay = store_layout(c_index, tile)
-    conj = (ca and a.dtype.is_complex, cb and b.dtype.is_complex)
-
-    with timed("summa/plan"):
-        pcache = get_plan_cache()
-        fp = ("summa", index_fingerprint(c_index), dist_fingerprint(dist),
-              array_fingerprint(k_dist), tile, layers)
-        key = pcache.key(a.index, ta, b.index, tb, extra=fp)
-        plan = pcache.get(key)
-        if plan is None:
-            rowb = dist_tile_bins(dist.row_dist, m_sizes, tile, majority=True)
-            colb = dist_tile_bins(dist.col_dist, n_sizes, tile, majority=True)
-            kb = dist_tile_bins(k_dist, k_sizes, tile, majority=True)
-            plan = plan_summa(
-                _op_pattern(a, ta).coords, _op_pattern(b, tb).coords, c_lay,
-                rowb, colb, kb % q, kb % p, p, q, layers,
-            )
-            pcache.put(key, plan)
-        ekey = pcache.key(a.index, ta, b.index, tb, extra=fp + (str(a.device),))
-        ex = pcache.get(ekey)
-        if ex is None:
-            ex = dist_exec("summa", plan, dist.grid, tile,
-                           _perm(_op_pattern(a, ta), a.device),
-                           _perm(_op_pattern(b, tb), b.device), a.data.shape[0],
-                           b.data.shape[0], a.device)
-            pcache.put(ekey, ex, nbytes=ex.nbytes)
-
-    # static message accounting: each rank receives the other owners'
-    # panel pieces in the all_gathers
-    record_comm("allgather_a", "allgather_b", dist.grid, q - 1, p - 1, plan.n_a,
-                plan.n_b, plan.n_c, tile, a.data.element_size())
-    with timed("summa/exec"):
-        prod = ex(a.data, b.data, conj).to(a.dtype)
-    get_stats().add_tile_flops(*ex.plan.tile_flops())
-    return _finish(prod, c, c_index, tile, alpha, beta, mask_result)

@@ -211,8 +211,9 @@ def test_tiled_cannon_plan(rng, shape):
     with both():
         pj = jcannon._try_tiled_plan(aj, False, bj, False, c_index, dj,
                                      jdist.tile_dist_vector(kbs, shape[0], T), T, shape[2])
-        pt = tcannon._try_tiled_plan(at, False, bt, False, c_index, dt_,
-                                     tdist.tile_dist_vector(kbs, shape[0], T), T, shape[2])
+        pt = tcannon.plan_distributed(at, False, bt, False, c_index, dt_,
+                                      tdist.tile_dist_vector(kbs, shape[0], T), "cannon",
+                                      tiled=True).plan
     for f in ("p", "layers", "n_a", "n_b", "n_c", "s_max"):
         assert getattr(pt, f) == getattr(pj, f), f
     for f in ("a_pack", "b_pack", "stacks", "c_unpack"):
@@ -386,6 +387,83 @@ def test_distributed_executor_transposes(rng):
                                                   carry_dist(dj, (2, 2, 2)))
         assert rel_err(ft(at.data, bt.data).numpy(),
                        np.asarray(fj(aj.data, bj.data))) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# one planner: multiply(dist=) and build_distributed_executor
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,trans,tile", [
+    ((2, 2, 1), np.float64, "NN", 64),
+    ((2, 2, 2), np.float32, "NN", T),
+    ((2, 4, 1), np.float64, "NN", T),
+    ((2, 2, 1), np.complex128, "TC", T),
+], ids=["cannon-f64-T64", "cannon25d-f32", "summa-f64", "cannon-TC"])
+def test_oneshot_and_executor_share_a_plan(rng, monkeypatch, shape, dtype, trans, tile):
+    """``multiply(dist=)`` and ``build_distributed_executor`` plan through
+    ``plan_distributed``: the same C store bitwise, the same rank stacks,
+    K masks and flop figures; a repeated one-shot call plans nothing."""
+    from dbcsr_tpu_torch.mm.plancache import get_plan_cache
+
+    made, resident = [], []
+    plan_fn, resident_fn = tcannon.plan_distributed, tcannon.DistPlan.resident
+
+    def spy_plan(*args, **kw):
+        made.append(plan_fn(*args, **kw))
+        return made[-1]
+
+    def spy_resident(self, *args):
+        resident.append(resident_fn(self, *args))
+        return resident[-1]
+
+    monkeypatch.setattr(tcannon, "plan_distributed", spy_plan)
+    monkeypatch.setattr(tcannon.DistPlan, "resident", spy_resident)
+    get_plan_cache().clear()
+    p, q, _ = shape
+    algo = "cannon" if p == q else "summa"
+    rbs, kbs, cbs = sizes(rng)
+    a_shape = (kbs, rbs) if trans[0] != "N" else (rbs, kbs)
+    b_shape = (cbs, kbs) if trans[1] != "N" else (kbs, cbs)
+    with torch_override(tile_size=tile, mm_dist_algo=algo):
+        a = dtt.random_matrix(*a_shape, 0.2, rng, device="cpu", dtype=dtype)
+        b = dtt.random_matrix(*b_shape, 0.2, rng, device="cpu", dtype=dtype)
+        dist = tdist.tile_aligned_dist(tdist.ProcessGrid.make(*shape, devices=CPU8),
+                                       rbs, cbs, tile)
+        one = dtt.multiply(trans[0], trans[1], 1.0, a, b, dist=dist)
+        again = dtt.multiply(trans[0], trans[1], 1.0, a, b, dist=dist)
+        assert len(made) == 1, "a repeated one-shot call must not plan again"
+        fn, c_index, _ = dtt.build_distributed_executor(trans[0], trans[1], a, b, dist)
+        out = fn(a.data, b.data)
+    assert len(made) == 2 and len(resident) == 2
+    np.testing.assert_array_equal(one.index.row_ptr, c_index.row_ptr)
+    np.testing.assert_array_equal(one.index.col_idx, c_index.col_idx)
+    assert torch.equal(one.data, out) and torch.equal(again.data, out)
+    d1, d2 = made
+    assert d1.algo == d2.algo == fn.algo == algo and fn.dist_plan is d2
+    for f in ("stacks", "rowb", "colb", "kb"):
+        np.testing.assert_array_equal(getattr(d1, f), getattr(d2, f))
+    masked = dtype == np.float64 and tile == 64 and algo == "cannon"
+    assert (d1.chunks is not None) == masked and (d2.chunks is not None) == masked
+    if masked:
+        for x, y in zip(d1.chunks, d2.chunks):
+            np.testing.assert_array_equal(x, y)
+    r1, r2 = resident[0].plan, fn.plan
+    assert r1.n_stack == r2.n_stack and (r1.n_a, r1.n_b, r1.n_c) == (r2.n_a, r2.n_b, r2.n_c)
+    np.testing.assert_array_equal(r1.hw_flops, r2.hw_flops)
+    np.testing.assert_array_equal(r1.padded_flops, r2.padded_flops)
+    if masked:
+        assert r1.hw_flops.sum() < r1.padded_flops.sum()
+    for per1, per2 in zip(r1.ticks, r2.ticks):
+        for t1, t2 in zip(per1, per2):
+            assert (t1 is None) == (t2 is None)
+            if t1 is None:
+                continue
+            assert (t1.touched is None) == (t2.touched is None)
+            if t1.touched is not None:
+                assert torch.equal(t1.touched, t2.touched)
+            for f in ("c_ptr", "a_idx", "b_idx", "a_chunks", "b_chunks"):
+                x, y = getattr(t1.stack, f), getattr(t2.stack, f)
+                assert (x is None and y is None) or torch.equal(x, y), f
 
 
 # ---------------------------------------------------------------------------

@@ -91,7 +91,6 @@ def count_grid(cfg: dict, p: int, q: int) -> dict:
     from dbcsr_tpu_torch.block.bcsr import BCSRMatrix
     from dbcsr_tpu_torch.block.store import store_layout
     from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
-    from dbcsr_tpu_torch.dist.distribution import dist_tile_bins
     from dbcsr_tpu_torch.mm.engine import build_distributed_executor
     from dbcsr_tpu_torch.mm.filtered import _rank_eff_flops
 
@@ -104,9 +103,7 @@ def count_grid(cfg: dict, p: int, q: int) -> dict:
     grid = ProcessGrid.make(p, q, devices=[torch.device("cpu")] * (p * q))
     dist = tile_aligned_dist(grid, sizes, sizes, tile)
     fn, c_index, eff = build_distributed_executor("N", "N", a, a, dist, sharded=True)
-    rowb = dist_tile_bins(dist.row_dist, sizes, tile, majority=True)
-    colb = dist_tile_bins(dist.col_dist, sizes, tile, majority=True)
-    rank_eff = _rank_eff_flops(a, False, a, False, rowb, colb, tile, p, q).reshape(-1)
+    rank_eff = _rank_eff_flops(a, False, a, False, fn.dist_plan).reshape(-1)
     works = {"tile": fn.plan.padded_flops.reshape(p * q, -1).sum(axis=1),
              "skip8": fn.plan.hw_flops.reshape(p * q, -1).sum(axis=1)}
     ranks = []
