@@ -5,6 +5,7 @@ Run from the repository root:
 
     python3 chip_smoke.py            # every phase, one GPU
     python3 chip_smoke.py --quick    # phases 1, 2, 3, 5 and 8 (no large run)
+    python3 chip_smoke.py --filter-kernels   # phases 1, 2 and 7b
 
 Phases (any failure exits non-zero before the final line):
 
@@ -65,8 +66,10 @@ Phases (any failure exits non-zero before the final line):
 7. the double-precision filtered SCF path at the phase-4 shape in float64,
    with ``bench.py``'s off-diagonal decay exp(-1.5·|bi-bj|) and
    ``filter_eps`` = 1e-5: ``build_filtered_executor`` steps over three data
-   variants (the float64 kernel must run, K1/K2 must not), each step against
-   the same step through the kernel's plain version, ``compact()`` against
+   variants (the float64 kernel and the filter's F1 and F2 must run, once a
+   step, K1/K2 must not), each step against the same step through plain
+   versions (the kernel's, the norms²'s and the keep-zeroing's: keep equal
+   but for ties within the benchmark's ``norm_tie_rel``), ``compact()`` against
    the one-shot ``multiply(filter_eps=...)``, and CUDA-event medians of the
    step, its superset product, the kernel alone and its plain version;
    then every kernel that takes the step's stack, on it: the float64 stack
@@ -76,6 +79,13 @@ Phases (any failure exits non-zero before the final line):
    float64 recomputation of 64 sampled C tiles; then the same once in
    float32, where the step runs K2 and K1, K2, K4 and K5 must be bitwise
    equal. K5's times are printed beside what the design it replaced read;
+7b. the eps filter's kernels F1 (block norms², ``block_sumsq_kernel``)
+   and F2 (keep-zeroing, ``keep_blocks_kernel``) on the benchmark's main
+   path store, C's superset product of ``water_2048`` (13.8 GB in
+   float64): z, the block norms², keep and the zeroed store against the
+   plain versions (``filter_rtol``; ties within ``norm_tie_rel``), two F1
+   calls bitwise equal, and each kernel's time against its bound and its
+   plain version's;
 8. the McWeeny purification loop of ``tests/test_purification.py`` on the
    card (T=16, ``mm_driver="stack"``, so every product takes the float64
    kernel) with that test's assertions, against the same loop on CPU
@@ -240,9 +250,10 @@ Phases (any failure exits non-zero before the final line):
     orchestration only) and a line saying the multi-card leg was not run.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
-The kernel summary is one JSON line (eight kernels: the six ports of the
-TPU's kernels and KC1, KC2, each with its launches in phases 17 and 18; then
-K1-K5 once more at phase 16's sweep rows;
+The kernel summary is one JSON line (ten kernels: the six ports of the
+TPU's kernels and KC1, KC2, each with its launches in phases 17 and 18, the
+filter's F1 and F2 from phase 7b; then K1-K5 once more at phase 16's sweep
+rows;
 ``bound_ms`` is computed from this run's tile
 and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
 ``nvidia-smi`` line, then the final line ``{"ok": true, "device": {...}}``.
@@ -257,7 +268,6 @@ import shutil
 import subprocess
 import sys
 import time
-from dataclasses import replace
 
 import numpy as np
 
@@ -287,6 +297,22 @@ F64_RTOL = 1e-12
 DECAY = 1.5
 FILTER_EPS = 1e-5
 N_VARIANTS = 3
+#: phases 7 and 7b: the benchmark's tie band (its configurations'
+#: ``norm_tie_rel``): a block whose norms² lie this close to eps², relative,
+#: may be kept by one order of float32 sums and dropped by another
+NORM_TIE_REL = 1e-4
+#: phase 7b: the benchmark configuration whose C store the filter kernels
+#: run on, and the seed of its operands
+FILTER_CONFIG = "water_2048.json"
+FILTER_SEED = 2**31 + 2024
+
+
+def filter_rtol(tile: int) -> float:
+    """Block norms² of F1 against the plain version's indicator matmuls:
+    both sum a cell's float32 squares, F1 rows then columns in order, the
+    matmuls in their own order; each is within (h + w - 2)·u of the exact
+    sum (u = 2⁻²⁴, h, w ≤ T), so they agree to 4·T·u of it."""
+    return 4 * tile * 2.0 ** -24
 #: phase 9: rows of the scrambled chain (bench.py's clustered leg stops at
 #: 24,000). Scrambled, nearly every block lands in a tile of its own: 60,000
 #: rows are ≈ 34,600 blocks in ≈ 32,000 tiles of 64 KiB (2.1 GB per operand)
@@ -1549,23 +1575,39 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launches since the last reset, by kernel (K1-K5, K6 =
-    the float64 stack kernel, KC1, KC2)."""
+    the float64 stack kernel, KC1, KC2, and the filter's F1, F2)."""
     from dbcsr_tpu_torch.mm import kernel_launches
 
     return kernel_launches()
 
 
+#: the eps filter's kernels (F1 block norms², F2 keep-zeroing): they run
+#: wherever block norms or a filter do, beside the product kernels. Phases
+#: 7, 7b and 13c hold their launches; the other phases hold the product
+#: kernels alone (``product_launches``)
+FILTER_KERNELS = ("F1", "F2")
+
+
+def product_launches(launches: dict) -> dict:
+    """The product kernels in ``launches`` that ran, each with its count."""
+    return {k: n for k, n in launches.items() if n and k not in FILTER_KERNELS}
+
+
 def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dict:
     """``build_filtered_executor`` over the data variants of A: float64
-    steps must run the float64 kernel (K6's port), float32 steps K2. Each
-    step is held against the same step through the kernel's plain version,
-    the superset product against a host float64 recomputation of sampled
-    tiles, and ``compact()`` against the one-shot filtered ``multiply``."""
+    steps must run the float64 kernel (K6's port), float32 steps K2, and
+    each step the filter's F1 and F2 once. Each step is held against the
+    same step through plain versions (the kernel's, the norms²'s and the
+    keep-zeroing's), the superset product against a host float64
+    recomputation of sampled tiles, and ``compact()`` against the one-shot
+    filtered ``multiply``."""
     import torch
 
     import dbcsr_tpu_torch as dt
     from dbcsr_tpu_torch.block.store import store_layout
-    from dbcsr_tpu_torch.block.tileops import apply_tile_gather, tile_gather
+    from dbcsr_tpu_torch.block.tileops import (
+        apply_tile_gather, device_block_info, keep_blocks_plain, tile_block_sumsq_plain,
+        tile_gather)
 
     f64 = a.dtype == torch.float64
     name = "float64" if f64 else "float32"
@@ -1584,7 +1626,15 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
         plan.align_map(store_layout(ex.c_index, 128).tile_keys()),
         len(plan.prod_keys), dev,
     )
-    plain_ex = replace(ex, fn=lambda x, y: apply_tile_gather(plain_of(plan, x, y), gather))
+    info = device_block_info(ex.c_index, 128, dev)
+    eps2 = float(np.float32(FILTER_EPS) ** 2)
+
+    def plain_step(v):
+        # the step through plain versions alone: the product kernel's, the
+        # norms²'s indicator matmuls, the keep-zeroing's kept-cell mask
+        c = apply_tile_gather(plain_of(plan, v, b.data), gather).contiguous()
+        nsq = info.block_sum(tile_block_sumsq_plain(c, info).reshape(-1))
+        return c, keep_blocks_plain(c, info, nsq, eps2), nsq
 
     # --- this path's main-path run: counts set to 0 just before, read just after
     reset_launches()
@@ -1593,33 +1643,40 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
     launches = read_launches()
     log(f"  {name} main-path launches over {len(variants)} steps: {launches}")
     want = "K6" if f64 else "K2"
-    if launches[want] != len(variants) or any(
-            n for k, n in launches.items() if k != want):
-        fail(f"{name} filtered steps: launches {launches}, expected {want} only")
+    expect = {want: len(variants), "F1": len(variants), "F2": len(variants)}
+    if {k: n for k, n in launches.items() if n} != expect:
+        fail(f"{name} filtered steps: launches {launches}, expected {expect} and no other")
 
     worst, shares = 0.0, []
-    eps2 = np.float32(FILTER_EPS) ** 2
     for k, (v, (c, keep, nsq)) in enumerate(zip(variants, steps)):
         if (tuple(c.shape) != (n_sup, 128, 128) or c.dtype != a.dtype
                 or tuple(keep.shape) != (ex.c_index.nblks,) or not bool(torch.isfinite(c).all())):
             fail(f"{name} step {k}: output {tuple(c.shape)} {c.dtype}, keep {tuple(keep.shape)}")
-        pc, pkeep, _ = plain_ex.step(v, b.data)
+        pc, pkeep, pnsq = plain_step(v)
         sync(dev)
+        # keep may differ only on a tie: a block within NORM_TIE_REL of eps²;
+        # those blocks are zeroed on both sides before the stores are compared
+        apart = keep != pkeep
+        ties = int(apart.sum())
+        off_tie = int((apart & ((pnsq.double() - eps2).abs() > NORM_TIE_REL * eps2)).sum())
+        if ties:
+            c = c.clone()  # the step's own store goes on to compact()
+            for x in (c, pc):
+                keep_blocks_plain(x, info, (~apart).float(), 0.5)
         err, rel = rel_err(c, pc)
         worst = max(worst, err)
-        differ = int((keep != pkeep).sum())
         share = float(keep.mean())
         shares.append(share)
         kept_nsq = nsq[keep > 0.5]
         log(f"  {name} step {k}: kept {int(keep.sum())} of {ex.c_index.nblks} blocks "
             f"(share {share:.4f}, {ex.kept_flops(keep) / ex.eff_flops:.4f} of the effective flops); "
-            f"vs plain step: keep differs in {differ} blocks, max_abs_err={err:.3e} rel={rel:.2e} "
-            f"(bound {rtol:.0e})")
-        if differ or not rel <= rtol or not 0.0 < share < 1.0:
+            f"vs plain step: keep differs in {ties} blocks ({off_tie} off a tie), "
+            f"max_abs_err={err:.3e} rel={rel:.2e} (bound {rtol:.0e})")
+        if off_tie or not rel <= rtol or not 0.0 < share < 1.0:
             fail(f"{name} step {k} disagrees with the plain step or filtered nothing")
         if kept_nsq.numel() and float(kept_nsq.min()) < eps2:
             fail(f"{name} step {k} kept a block below eps")
-        del pc, pkeep
+        del pc, pkeep, pnsq
     sup = ex.fn(a.data, b.data)
     serr, srel = sampled_f64_check(plan, sup, ex.c_index, a.data, b.data)
     log(f"  {name} superset product vs float64 (64 tiles): max_abs_err={serr:.3e} "
@@ -1723,6 +1780,133 @@ def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dic
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the filter's kernels F1 and F2 on the benchmark's C store
+# ---------------------------------------------------------------------------
+
+def phase_filter_kernels(dev) -> dict:
+    """7b: F1 (``tile_block_sumsq``) and F2 (``keep_blocks``) on C's
+    superset product of the benchmark's ``FILTER_CONFIG`` at its full size,
+    each against its plain version: z within ``filter_rtol`` (0 where no
+    block is stored), the block norms² within that and the float32 combine
+    across tiles, keep equal but for ties within the configuration's
+    ``norm_tie_rel``, the zeroed store equal to the plain one value for
+    value (the tie blocks zeroed on both sides), two F1 calls bitwise equal;
+    F1 twice and F2 once the only launches. Then CUDA-event medians of
+    each, kernel, plain, plain, kernel, beside its bound in bytes at
+    ``HBM_BYTES_PER_S``: F1 reads the stored cells, F2 writes zeros over
+    the dropped ones. Returns one row a kernel."""
+    import torch
+
+    import dbcsr_tpu_torch as dt
+    from benchmark.operands import make_operands, pattern_of
+    from benchmark.products import matrices
+    from dbcsr_tpu_torch.block.tileops import (
+        device_block_info, keep_blocks, keep_blocks_plain, tile_block_sumsq,
+        tile_block_sumsq_plain)
+
+    with open(os.path.join(REPO, "benchmark", "configs", FILTER_CONFIG)) as f:
+        cfg = json.load(f)
+    t0 = time.perf_counter()
+    ops = make_operands(cfg, pattern_of(cfg), FILTER_SEED, 1, dev)
+    a, b = matrices(cfg, ops)
+    fn, c_index, _ = dt.build_multiply_executor("N", "N", a, b)
+    c = fn(ops.a[0], ops.b).contiguous()
+    del a, b, ops, fn
+    torch.cuda.empty_cache()
+    tile = c.shape[1]
+    info = device_block_info(c_index, tile, dev)
+    eps_sq, tie = float(np.float32(cfg["eps"]) ** 2), float(cfg["norm_tie_rel"])
+    sync(dev)
+    size = c.element_size()
+    log(f"  {FILTER_CONFIG} C store: {c.shape[0]} tiles of {tile} ({c.numel() * size / 1e9:.2f} "
+        f"GB, {c.dtype}), {c_index.nblks} blocks in cells of up to "
+        f"{tuple(info.bid_p1.shape[1:])}; set-up {time.perf_counter() - t0:.1f} s")
+
+    # --- the kernels' run: counts set to 0 just before, read just after
+    reset_launches()
+    z = tile_block_sumsq(c, info)
+    z2 = tile_block_sumsq(c, info)
+    nsq = info.block_sum(z.reshape(-1))
+    cp = c.clone()
+    keep = keep_blocks(c, info, nsq, eps_sq)
+    sync(dev)
+    launches = {k: n for k, n in read_launches().items() if n}
+    zp = tile_block_sumsq_plain(cp, info)
+    nsq_p = info.block_sum(zp.reshape(-1))
+    keep_p = keep_blocks_plain(cp, info, nsq_p, eps_sq)
+    sync(dev)
+    if launches != {"F1": 2, "F2": 1}:
+        fail(f"7b: launches {launches}, expected F1 twice and F2 once, no other")
+    stored = info.bid_p1 > 0
+    rtol = filter_rtol(tile)
+    z_abs = float((z - zp).abs().max())
+    z_rel = float(((z - zp).abs()[stored].double() / zp[stored].double().clamp_min(1e-300)).max())
+    # the block norms²: sums over a block's cells (at most 2 x 2 tiles at
+    # the configuration's block edge) of terms each within rtol, in the
+    # same float32 order on both sides: within rtol and 2·3 roundings
+    nsq_rtol = rtol + 6 * 2.0 ** -24
+    nsq_rel = float(((nsq - nsq_p).abs().double() / nsq_p.double().clamp_min(1e-300)).max())
+    apart = keep != keep_p
+    off_tie = int((apart & ((nsq_p.double() - eps_sq).abs() > tie * eps_sq)).sum())
+    if bool(apart.any()):
+        for x in (c, cp):
+            keep_blocks_plain(x, info, (~apart).float(), 0.5)
+    same = bool(torch.equal(c, cp))
+    kept = int(keep.sum())
+    log(f"  7b F1 vs plain: z max rel {z_rel:.2e} (bound {rtol:.2e}), 0 off the stored cells "
+        f"{not bool(z[~stored].any())}, two calls bitwise equal {bool(torch.equal(z, z2))}; "
+        f"norms² max rel {nsq_rel:.2e} (bound {nsq_rtol:.2e}); F2 kept {kept} of "
+        f"{c_index.nblks} blocks, keep differs in {int(apart.sum())} ({off_tie} off a tie "
+        f"of {tie:g}), zeroed store equal to the plain one {same}")
+    if (not z_rel <= rtol or bool(z[~stored].any()) or not torch.equal(z, z2)
+            or not nsq_rel <= nsq_rtol or off_tie or not same or not 0 < kept < c_index.nblks):
+        fail("7b: the filter kernels disagree with their plain versions")
+    if not torch.equal(keep, (nsq >= eps_sq).to(torch.float32)):
+        fail("7b: F2's keep is not nsq >= eps²")
+    del z2, zp, nsq_p, keep_p, cp
+    torch.cuda.empty_cache()
+
+    # the bounds: bytes over the HBM rate
+    m, n = (x.astype(np.float64) for x in c_index.blk_shapes)
+    kept_np = keep.cpu().numpy() > 0.5
+    nbytes = {"F1": info.stored_elems * size, "F2": float((m * n)[~kept_np].sum() * size)}
+    calls = {"F1": (lambda: tile_block_sumsq(c, info),
+                    lambda: tile_block_sumsq_plain(c, info)),
+             # each call writes the same zeros again
+             "F2": (lambda: keep_blocks(c, info, nsq, eps_sq),
+                    lambda: keep_blocks_plain(c, info, nsq, eps_sq))}
+    rows = {}
+    for k, (kern, plain) in calls.items():
+        k1 = cuda_median_ms(kern, reps=10)
+        p1 = cuda_median_ms(plain, reps=5)
+        p2 = cuda_median_ms(plain, reps=5)
+        k2 = cuda_median_ms(kern, reps=10)
+        km, pm = float(np.median([k1, k2])), float(np.median([p1, p2]))
+        bound = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        log(f"  7b {k}: {km:.3f} ms (runs {k1:.3f}/{k2:.3f}), plain {pm:.3f} ms "
+            f"(runs {p1:.3f}/{p2:.3f}); bound {bound:.3f} ms by bytes "
+            f"({nbytes[k] / 1e9:.2f} GB): {bound / km:.1%} of it")
+        rows[k] = {"launches": launches.get(k, 0), "max_abs_err": z_abs if k == "F1" else 0.0,
+                   "ms": km, "plain_ms": pm, "bound_ms": bound, "bound_by": "bytes"}
+    log(f"    full-store read for F1 would take {c.numel() * size / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del c, z, nsq, keep, info
+    torch.cuda.empty_cache()
+    return rows
+
+
+def filter_entry(kname: str, r: dict) -> dict:
+    """The ``kernels`` line's entry of F1 or F2 from phase 7b's row."""
+    kernel = {"F1": "block_sumsq_kernel", "F2": "keep_blocks_kernel"}[kname]
+    return {"name": f"{kernel} ({kname}) at {FILTER_CONFIG}'s C store", "route": "cuda",
+            "source": "dbcsr_tpu_torch/csrc/block_filter.cu",
+            "replaces": "none: the JAX package's norms and mask are XLA indicator matmuls",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+            "bound_ms": round(r["bound_ms"], 4), "bound_by": r["bound_by"],
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: McWeeny purification on the card
 # ---------------------------------------------------------------------------
 
@@ -1798,7 +1982,7 @@ def phase_mcweeny(dev) -> int:
         fail("McWeeny on the card missed the reference test's assertions")
     if not (iters == it_cpu and same and rel <= 1e-10):
         fail("McWeeny on the card differs from the same loop on CPU tensors")
-    if launches["K6"] == 0 or any(n for k, n in launches.items() if k != "K6"):
+    if set(product_launches(launches)) != {"K6"}:
         fail(f"McWeeny products should run the float64 kernel only: {launches}")
     return launches["K6"]
 
@@ -1925,7 +2109,7 @@ def phase_new_drivers(dev, a, b, panel_out) -> dict:
                 f"{grew / 1e9:.3f} GB for a C store of {store / 1e9:.3f} GB")
             if grew > 1.01 * store + (1 << 22):
                 fail("K4 allocated more than the C store: a padded copy of C is back")
-        rows[k] = {"launches": launches[k], "max_abs_err": max(err, serr), "ms": km,
+        rows[k] = {"launches": launches.get(k, 0), "max_abs_err": max(err, serr), "ms": km,
                    "plain_ms": pm, "exec_ms": ex,
                    "counts": (a.data.shape[0], b.data.shape[0], tp.n_c_tiles, len(tp.stack))}
         if k != "K4":
@@ -2324,10 +2508,10 @@ K_KW = dict(contract_1=(0, 1), notcontract_1=(2,), contract_2=(0, 1), notcontrac
 
 
 def launch_delta(before: dict) -> dict:
-    """The kernels launched since ``before`` (a ``read_launches()``)."""
+    """The product kernels launched since ``before`` (a ``read_launches()``)."""
     from dbcsr_tpu_torch.mm import launches_since
 
-    return launches_since(before)
+    return product_launches(launches_since(before))
 
 
 def kernel_vs_plain(what: str, plan, a_data, b_data, rtol: float) -> tuple:
@@ -3042,7 +3226,7 @@ def phase_complex_main(dev) -> tuple:
         reset_launches()
         out = fn(a.data, b.data)
         sync(dev)
-        launched = {k: n for k, n in read_launches().items() if n}
+        launched = product_launches(read_launches())
         log(f"  13a {tname} main-path launches: {launched}")
         if launched != {kname: 1}:
             fail(f"13a {tname}: launches {launched}, expected {kname} once and no other")
@@ -3138,7 +3322,8 @@ def phase_complex_hermitian(dev, a, b, c_in) -> None:
 
 def phase_complex_filtered(dev) -> None:
     """13c: the complex128 filtered SCF step (phase 7's decay and eps) on
-    the banded shape: KC2 the only launch of the step, the kept share equal
+    the banded shape: KC2, F1 and F2 the only launches of the step (once
+    each), the kept share equal
     to the one-shot ``multiply(filter_eps=...)``'s and ``compact()`` equal
     to it element for element (the same kernel on the same stack)."""
     import torch
@@ -3156,8 +3341,8 @@ def phase_complex_filtered(dev) -> None:
     c, keep, _ = ex.step(a.data, b.data)
     sync(dev)
     launched = {k: n for k, n in read_launches().items() if n}
-    if launched != {"KC2": 1}:
-        fail(f"13c: the step launched {launched}, expected KC2 once and no other")
+    if launched != {"KC2": 1, "F1": 1, "F2": 1}:
+        fail(f"13c: the step launched {launched}, expected KC2, F1 and F2 once and no other")
     one_s = []
     for _ in range(2):  # cold (plans the pattern), then warm
         t0 = time.perf_counter()
@@ -3196,7 +3381,7 @@ def phase_complex_tensor(dev) -> None:
     batch = BatchedContract()
     out = batch.contract(a, b, **R_KW)
     sync(dev)
-    launched = {k: n for k, n in read_launches().items() if n}
+    launched = product_launches(read_launches())
     if set(launched) != {"KC2"}:
         fail(f"13d: BatchedContract launched {launched}, expected KC2 only")
     (fn, _, _), = batch._tas._cache.values()
@@ -3631,7 +3816,7 @@ def phase_dist(dev) -> dict:
     phase_dist_oneshot(dev, rows)
     phase_dist_sharded(dev, rows)
     phase_dist_tas(dev, rows)
-    launched = {k: n for k, n in read_launches().items() if n}
+    launched = product_launches(read_launches())
     log(f"  phase 14 launches: {launched}")
     for k in ("K1", "K6", "KC2"):
         if not launched.get(k):
@@ -3922,7 +4107,7 @@ def phase_capi_scf(dev, shim: str, hdr: str, work: str, card: str) -> dict:
     def one(fn, what):
         reset_launches()
         ms, out = event_ms(fn)
-        launched = {k: n for k, n in read_launches().items() if n}
+        launched = product_launches(read_launches())
         if launched != {"K6": 1}:
             fail(f"15a {what} launched {launched}, expected the float64 kernel once")
         return ms, out
@@ -4032,7 +4217,7 @@ def phase_capi(dev, card: str) -> dict:
         reset_launches()
         with config_override(mm_driver="panel"):
             rc, out = c_stdout(prog.typed_sweep_main)
-        launched = {k: n for k, n in read_launches().items() if n}
+        launched = product_launches(read_launches())
         lines = out.strip().splitlines()
         if rc != 0 or not lines or lines[-1] != "OK" or [ln.split()[0] for ln in lines[:4]] != [
                 "d", "s", "z", "c"]:
@@ -4428,7 +4613,7 @@ def mp_leg_a(pid: int, nprocs: int, url: str, work: str, refs: dict, backend: st
         comm.reset_transfer_counts()
         out = fn(a.data, b.data)
         sync(dev)
-        r["launches"] = {k: n for k, n in read_launches().items() if n}
+        r["launches"] = product_launches(read_launches())
         moved = comm.transfer_counts()
         r["moved"] = {"messages": moved.messages, "bytes_sent": moved.bytes_sent,
                       "bytes_received": moved.bytes_received}
@@ -4530,7 +4715,7 @@ def mp_leg_b(pid: int, nprocs: int, url: str, work: str, backend: str,
     t0 = time.perf_counter()
     res = mp_leg_b_run(dev, os.path.join(work, "ckpt_b"))
     res["_"] = {"init_s": init_s, "run_s": time.perf_counter() - t0,
-                "launches": {k: n for k, n in read_launches().items() if n},
+                "launches": product_launches(read_launches()),
                 "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     with open(os.path.join(work, f"b_{pid}.json"), "w") as f:
         json.dump(res, f)
@@ -4714,7 +4899,7 @@ def phase_examples(dev) -> dict:
             out = mod.main(["--device", "cuda"])
         sync(dev)
         secs = time.perf_counter() - t0
-        got = {k: n for k, n in read_launches().items() if n}
+        got = product_launches(read_launches())
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         outs[name] = out
@@ -5003,6 +5188,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="phases 1, 2, 3, 5 and 8 only: build and check the kernels")
+    ap.add_argument("--filter-kernels", action="store_true",
+                    help="phases 1, 2 and 7b only: the filter's kernels on the benchmark's store")
     args = ap.parse_args()
 
     import torch
@@ -5060,6 +5247,13 @@ def main() -> int:
     log(f"    this card from registers alone: FFMA {peaks['ffma']:.1f} TFLOP/s (data sheet "
         f"{PEAK_FLOPS['float32'] / 1e12:.0f}); FP64 mma m16n8k8 {peaks['dmma_m16n8k8']:.1f} TFLOP/s "
         f"(data sheet {PEAK_FLOPS['float64'] / 1e12:.0f}), m8n8k4 {peaks['dmma_m8n8k4']:.1f}")
+
+    if args.filter_kernels:
+        log(f"[7b] the filter's kernels F1 and F2 on {FILTER_CONFIG}'s C store")
+        rows = phase_filter_kernels(dev)
+        print(json.dumps({"kernels": [filter_entry(k, r) for k, r in rows.items()]}), flush=True)
+        log("filter-kernels mode: phases 1, 2 and 7b passed")
+        return 0
 
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions on the card")
@@ -5128,6 +5322,8 @@ def main() -> int:
         filtered[dtype] = phase_filtered(dev, a, b, variants, rtol)
         del a, b, variants
         torch.cuda.empty_cache()
+    log(f"[7b] the filter's kernels F1 and F2 on {FILTER_CONFIG}'s C store")
+    filter_rows = phase_filter_kernels(dev)
 
     # 8. McWeeny on the card
     log("[8] McWeeny purification on the card")
@@ -5298,6 +5494,8 @@ def main() -> int:
         with17(entry13("stack_matmul_c128 (KC2)", "KC2",
                        "dbcsr_tpu_torch/csrc/stack_matmul_c128.cu",
                        "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"), "KC2"),
+        filter_entry("F1", filter_rows["F1"]),
+        filter_entry("F2", filter_rows["F2"]),
         entry16("K1", "dbcsr_tpu_torch/csrc/stack_matmul.cu", "dbcsr_tpu/mm/kernels.py:76"),
         entry16("K2", "dbcsr_tpu_torch/csrc/panel_matmul.cu", "dbcsr_tpu/mm/panel.py:297"),
         entry16("K3", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu", "dbcsr_tpu/mm/panel.py:757"),

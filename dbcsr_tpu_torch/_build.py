@@ -178,6 +178,21 @@ def kernels() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32,
                 i32, i32, i32, i32, vp,
             ]
+            # the eps filter's passes (block_filter.cu); dtype: a code of
+            # block/tileops.py's FILTER_DTYPES
+            lib.dbcsr_torch_block_sumsq.restype = i32
+            # (store, z, rows, cols, rseg, cseg, bid_p1, n_tiles, amax, bmax,
+            #  tile, dtype, device, stream)
+            lib.dbcsr_torch_block_sumsq.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp,
+            ]
+            lib.dbcsr_torch_keep_blocks.restype = i32
+            # (store, nsq, keep, rows, cols, rseg, cseg, bid_p1, n_tiles,
+            #  n_blocks, amax, bmax, thr, tile, dtype, device, stream)
+            lib.dbcsr_torch_keep_blocks.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, ctypes.c_float,
+                i32, i32, i32, vp,
+            ]
             lib.dbcsr_torch_error_string.restype = ctypes.c_char_p
             lib.dbcsr_torch_error_string.argtypes = [i32]
             _LIB = lib

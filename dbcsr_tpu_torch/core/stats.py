@@ -7,7 +7,8 @@ full dense grid), hardware flops as the kernels issue them: the padded
 figure, less the mma depths that the float64 stack kernel skips
 (``mm/f64_stack.py``). effective / hardware is the tile packing
 efficiency, 1 − hardware / padded the share of the tile work skipped. The
-distributed executors count their messages (``record_comm``). Reference:
+distributed executors count their messages (``record_comm``), the eps
+filter's kernels their bytes (``filter_bytes``). Reference:
 ``src/mm/dbcsr_mm_sched.F:392-663``, printed like
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
 """
@@ -33,6 +34,12 @@ class MMStats:
     #: route of a one-shot local product ("dense", "band", "stack", ...) ->
     #: the products that took it
     local_routes: Dict[str, int] = field(default_factory=dict)
+    #: bytes the eps filter's kernels (``block/tileops.py``: block norms²,
+    #: keep-zeroing) read and write, counted from the plan at each launch:
+    #: the stored blocks' elements, the cells' block ids and sums, the
+    #: norms² and keep vectors; the zeros written depend on the data and
+    #: are not counted. 0 where no launch ran (the plain versions)
+    filter_bytes: float = 0.0
 
     def add_tile_flops(self, issued: float, padded: float) -> None:
         """Count one product's kernel work: the flops issued and the tile
@@ -87,6 +94,8 @@ def print_statistics(out=None) -> str:
         lines.append(
             f" max device memory        {s.max_memory_bytes / 1e9:.3f} GB"
         )
+    if s.filter_bytes:
+        lines.append(f" filter kernel bytes      {s.filter_bytes:.6E}")
     if s.local_routes:
         lines.append(" local routes             " + ", ".join(
             f"{r} {n}" for r, n in sorted(s.local_routes.items())))

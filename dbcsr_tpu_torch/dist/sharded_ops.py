@@ -41,11 +41,11 @@ from ..block.store import store_layout
 from ..block.tileops import (
     TileGather,
     apply_tile_gather,
-    device_block_info,
-    per_tile_block_sums,
+    slots_block_info,
     take_tiles,
     tile_align_map,
     tile_block_info,
+    tile_block_sumsq,
     tile_gather,
     valid_mask,
 )
@@ -612,11 +612,11 @@ def sharded_checkpoint_read(directory: str, grid) -> ShardedMatrix:
 
 def sharded_block_norms(sm: ShardedMatrix) -> np.ndarray:
     """Per-block Frobenius norm² (float32) from the sharded store: each
-    rank's per-tile (segment-row, segment-col) partials by the indicator
-    matmuls of ``block/tileops.py`` on its own shard, the combine of
-    blocks spanning tiles on the host in rank order (``block_sums_sq``'s
-    sharded twin); on a grid that spans processes every rank's partials
-    reach every process first."""
+    rank's per-tile (segment-row, segment-col) partials by
+    ``tile_block_sumsq`` (``block/tileops.py``) on its own shard, the
+    combine of blocks spanning tiles on the host in rank order
+    (``block_sums_sq``'s sharded twin); on a grid that spans processes every
+    rank's partials reach every process first."""
     if sm.index.nblks == 0:
         return np.zeros(0, dtype=np.float32)
     sl, t = sm.shard, sm.tile
@@ -624,27 +624,16 @@ def sharded_block_norms(sm: ShardedMatrix) -> np.ndarray:
     info = tile_block_info(sm.index, t)
 
     def mk():
-        lay = store_layout(sm.index, t)
         out = []
         for d, (dev, h) in enumerate(zip(devs, _held(sm.grid))):
             pos = sl.slot_of_pos[d * sl.n_max:(d + 1) * sl.n_max]
-            slot = np.maximum(pos, 0)
-            dinfo = None
-            if h:
-                dinfo = device_block_info(sm.index, t, dev)
-                dinfo = replace(
-                    dinfo,
-                    rows=torch.as_tensor(lay.tile_coords[slot, 0].astype(np.int64),
-                                         device=dev),
-                    cols=torch.as_tensor(lay.tile_coords[slot, 1].astype(np.int64),
-                                         device=dev),
-                )
-            bid = np.where(pos[:, None, None] >= 0, info.bid[slot], -1)
+            dinfo = slots_block_info(sm.index, t, pos, dev) if h else None
+            bid = np.where(pos[:, None, None] >= 0, info.bid[np.maximum(pos, 0)], -1)
             out.append((dinfo, bid))
         return out
 
     tables = sm.index._cached(("sharded_block_norm_tables", t, sl.token, sm.grid), mk)
-    parts = [None if x is None else per_tile_block_sums(x, dinfo)
+    parts = [None if x is None else tile_block_sumsq(x.contiguous(), dinfo)
              for x, (dinfo, _) in zip(sm.data, tables)]
     parts = comm.all_gather_panels(plane_owners(sm.grid), parts,
                                    [bid.shape for _, bid in tables], torch.float32)

@@ -11,9 +11,12 @@ with Frobenius norm >= eps (``multrec_filtering``,
   and the block<->tile indicator structure on the device. Host work happens
   only when a pattern changes.
 * Per call, device work with no host sync: superset product (the same
-  kernels every unfiltered multiply uses) → per-block Frobenius norms² as
-  indicator matmuls + an ordered segment sum → keep = norms² >= eps² →
-  the keep mask zeroing dropped blocks. Data may change every call.
+  kernels every unfiltered multiply uses) → per-block Frobenius norms², a
+  pass over each tile's stored atom-block cells + an ordered segment sum →
+  keep = norms² >= eps² and zeros written over the dropped blocks, in
+  place (on a card the two hand-written kernels of
+  ``csrc/block_filter.cu``, ``block/tileops.py``). Data may change every
+  call.
 
 Equivalence to ``multiply(filter_eps=...)`` with ``filter_mode="sum"`` (the
 default): a C block is pre-dropped there iff
@@ -24,7 +27,9 @@ final filter therefore keeps the same blocks (up to exact-boundary ties)
 with the same values.
 
 The result stays in MASK form: C's superset index with dropped blocks
-zeroed (padding and dropped positions exactly 0), so it feeds the next
+zeroed (padding and dropped positions exactly 0: the superset product of
+stores with zero padding leaves every position no superset block covers at
+exact 0, so only the dropped blocks are written), so it feeds the next
 step with no conversion. ``compact()`` builds the pruned ``BCSRMatrix``.
 The JAX package composes ``step`` under jit/scan; here a Python loop of
 steps is the equivalent (each step only enqueues device work).
@@ -33,8 +38,8 @@ Over a process grid (``dist=``, ``ShardedFilteredExecutor``) the same step
 runs sharded at rest, as CP2K runs its SCF multiply over MPI ranks: each
 rank runs its Cannon (or SUMMA) ticks into its own C shard (its C panel,
 the superset tiles it owns), then takes the norms² of its own blocks on
-its device, with the same indicator matmuls over its shard, and zeroes its
-dropped blocks in place. Nothing is gathered: only a block whose tiles lie
+its device, with the same kernels over its shard, and zeroes its dropped
+blocks in place. Nothing is gathered: only a block whose tiles lie
 on more than one rank needs more than its rank's partial, and its partial
 norms² are summed over those ranks alone, in rank order, on each of them.
 """
@@ -49,17 +54,18 @@ import torch
 
 from ..block.bcsr import BCSRMatrix
 from ..block.index import BCSRIndex, build_index
-from ..block.store import row_indicators, store_layout
+from ..block.store import store_layout
 from ..block.tileops import (
     DeviceBlockInfo,
-    block_mask_store,
+    SegmentTables,
+    block_info,
     device_block_info,
-    keep_blocks_,
-    ordered_segment_sum,
-    per_tile_block_sums,
+    keep_blocks,
+    segment_tables,
     take_tiles,
     tile_align_map,
     tile_block_pairs,
+    tile_block_sumsq,
 )
 from ..core.errors import dbcsr_assert
 from ..core.stats import get_stats
@@ -74,7 +80,8 @@ class FilteredExecutor:
 
     ``step(a_data, b_data) -> (c_data, keep, norms_sq)``: ``c_data`` is the
     product in C's SUPERSET store layout with blocks of Frobenius norm <
-    eps zeroed, ``keep`` the float32 0/1 vector over superset blocks,
+    eps zeroed (in place, in the store the product was written to),
+    ``keep`` the float32 0/1 vector over superset blocks,
     ``norms_sq`` the pre-mask block norms² (float32), all on the operands'
     device. ``eff_flops`` counts the superset product (the flops the device
     performs, block-granular); ``kept_flops(keep)`` gives the filtered
@@ -93,21 +100,19 @@ class FilteredExecutor:
     def step(
         self, a_data: torch.Tensor, b_data: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        c_sup = self.fn(a_data, b_data)
+        c_sup = self.fn(a_data, b_data).contiguous()
         nblks = self.c_index.nblks
         if nblks == 0:
             empty = torch.zeros(0, dtype=torch.float32, device=c_sup.device)
             return c_sup, empty, empty
         with timed("filtered/norms"):
             info = device_block_info(self.c_index, self.tile, c_sup.device)
-            nsq = info.block_sum(per_tile_block_sums(c_sup, info).reshape(-1))
+            nsq = info.block_sum(tile_block_sumsq(c_sup, info).reshape(-1))
         with timed("filtered/mask"):
             # eps² rounded to float32 as the reference's single-precision
             # norms; a Python scalar needs no host-to-device copy
-            keep = (nsq >= float(np.float32(self.eps) ** 2)).to(torch.float32)
-            mask = block_mask_store(self.c_index, self.tile, c_sup.device, keep=keep)
-            c_data = c_sup * mask.to(c_sup.dtype)
-        return c_data, keep, nsq
+            keep = keep_blocks(c_sup, info, nsq, float(np.float32(self.eps) ** 2))
+        return c_sup, keep, nsq
 
     def kept_flops(self, keep) -> float:
         """Effective flops restricted to kept blocks — the number the
@@ -182,7 +187,7 @@ def build_filtered_executor(
             transa, transb, a, b, driver=driver
         )
         with timed("filtered/prep"):
-            # the indicator structure goes to the device at plan time, not in step
+            # the block structure goes to the device at plan time, not in step
             device_block_info(c_index, a.tile, a.device)
 
             # per-block effective flops of the superset product (static):
@@ -280,7 +285,7 @@ class ShardedFilteredExecutor:
         ranks = self._ranks
         with timed("filtered/norms"):
             part = [None if rf is None else
-                    rf.info.block_sum(per_tile_block_sums(x[:rf.n], rf.info).reshape(-1))
+                    rf.info.block_sum(tile_block_sumsq(x[:rf.n], rf.info).reshape(-1))
                     for rf, x in zip(ranks, c)]
             nsq = self._sum_shared(part)
         keep: list = [None] * len(ranks)
@@ -289,8 +294,7 @@ class ShardedFilteredExecutor:
             thr = float(np.float32(self.eps) ** 2)
             for d, rf in enumerate(ranks):
                 if rf is not None:
-                    keep[d] = (nsq[d] >= thr).to(torch.float32)
-                    keep_blocks_(c[d][:rf.n], rf.info, keep[d])
+                    keep[d] = keep_blocks(c[d][:rf.n], rf.info, nsq[d], thr)
         stats = get_stats()
         stats.num_multiplications += 1
         for rf in ranks:
@@ -332,28 +336,18 @@ class ShardedFilteredExecutor:
 
 
 def _rank_block_info(c_index: BCSRIndex, tile: int, sl, d: int, pairs: tuple,
-                     mine: np.ndarray, blocks: np.ndarray, J: torch.Tensor,
-                     I: torch.Tensor, dev) -> DeviceBlockInfo:
+                     mine: np.ndarray, blocks: np.ndarray,
+                     tables: SegmentTables) -> DeviceBlockInfo:
     """``device_block_info`` of rank ``d``'s shard of C: its real tiles in
     shard order, its blocks (``blocks``, the (block, tile) ``pairs`` that
-    are ``mine``) numbered locally, the indicators ``J``/``I`` shared."""
+    are ``mine``) numbered locally, on ``tables``' device."""
     slot, sa, sb, blk = (x[mine] for x in pairs)
     n = int((sl.owner_of_slot == d).sum())
-    K = np.zeros((n, J.shape[2], I.shape[2]), dtype=np.float32)
-    bid = np.full(K.shape, -1, dtype=np.int64)
-    loc = sl.local_of_slot[slot]
-    K[loc, sa, sb] = 1.0
-    bid[loc, sa, sb] = np.searchsorted(blocks, blk)
+    bid = np.full((n, tables.heights.shape[1], tables.widths.shape[1]), -1, dtype=np.int64)
+    bid[sl.local_of_slot[slot], sa, sb] = np.searchsorted(blocks, blk)
     coords = store_layout(c_index, tile).tile_coords.astype(np.int64)
     slots = sl.slot_of_pos[d * sl.n_max:d * sl.n_max + n]
-    return DeviceBlockInfo(
-        J=J, I=I,
-        rows=torch.as_tensor(coords[slots, 0], device=dev),
-        cols=torch.as_tensor(coords[slots, 1], device=dev),
-        K=torch.as_tensor(K, device=dev),
-        bid_p1=torch.as_tensor(bid + 1, device=dev),
-        block_sum=ordered_segment_sum(bid.reshape(-1), len(blocks), dev),
-    )
+    return block_info(tables, coords[slots, 0], coords[slots, 1], bid, len(blocks))
 
 
 def _shares(rank_blocks: List[np.ndarray], holders: np.ndarray, owners: List[int],
@@ -443,21 +437,15 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
                 rank_blocks.append(x[np.concatenate(([True], x[1:] != x[:-1]))]
                                    if len(x) else x)
             holders = np.bincount(np.concatenate(rank_blocks), minlength=c_index.nblks)
-            J = row_indicators(c_index.row_block_sizes, tile, c_index, "rows").J
-            I = row_indicators(c_index.col_block_sizes, tile, c_index, "cols").J
-            on_dev: Dict[str, tuple] = {}
             ranks: List[Optional[_RankFilter]] = []
             for d in range(p * q):
                 if owners[d] != me:
                     ranks.append(None)
                     continue
-                dev = devices[d]
-                if str(dev) not in on_dev:
-                    on_dev[str(dev)] = (torch.as_tensor(J, device=dev),
-                                        torch.as_tensor(I, device=dev))
                 info = _rank_block_info(c_index, tile, sl, d, pairs, owner == d,
-                                        rank_blocks[d], *on_dev[str(dev)], dev)
-                ranks.append(_RankFilter(n=info.K.shape[0], info=info, eff_flops=float(eff[d]),
+                                        rank_blocks[d],
+                                        segment_tables(c_index, tile, devices[d]))
+                ranks.append(_RankFilter(n=info.bid_p1.shape[0], info=info, eff_flops=float(eff[d]),
                                          hw_flops=float(issued[d]),
                                          padded_flops=float(padded[d])))
             shares = _shares(rank_blocks, holders, owners, devices, me)

@@ -4,9 +4,10 @@ Port of ``dbcsr_tpu/ops/norms.py``: per-block squared Frobenius norms feed
 epsilon filtering (``src/mm/dbcsr_mm_common.F:629-694``, GPU variant
 ``calculate_norms.cpp``); matrix norms frobenius / maxabs / column /
 gershgorin mirror ``dbcsr_types.F:231-234`` + ``src/ops/dbcsr_operations.F``.
-Per-block sums on a tile store run as two small per-tile indicator matmuls
-(``block/tileops.py``); per-tile row/column sums are combined across tiles
-by an ordered segment sum (deterministic on the GPU).
+Per-block sums on a tile store run per tile over its atom-block cells
+(``block/tileops.py``: a hand-written kernel on a card, two small indicator
+matmuls elsewhere); per-tile row/column sums are combined across tiles by
+an ordered segment sum (deterministic on the GPU).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ every file under ``dbcsr_tpu_torch/csrc/`` is compiled or hashed into the
 library's name and ships as package data, an edited header changes the
 name (so a stale library cannot load), and the wrappers' 16-byte alignment
 rule for tile stores (the kernels copy with ``cp.async`` and 128-bit loads);
-every kernel source launches through the one routine choice of
-``tile_kernel.cuh``, and the sub-tile grid of the design it replaced is gone.
+every product kernel source launches through the one routine choice of
+``tile_kernel.cuh``, and the sub-tile grid of the design it replaced is gone;
+the eps filter's two kernels (``block_filter.cu``) are the only others.
 """
 import fnmatch
 import os
@@ -23,6 +24,10 @@ except ImportError:  # Python < 3.11
     tomllib = None
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the sources of the product kernels; the one other source holds the eps
+#: filter's kernels, which multiply nothing
+FILTER_SOURCE = "block_filter.cu"
+PRODUCT_SOURCES = [s for s in _build._SOURCES if s != FILTER_SOURCE]
 
 
 def test_every_csrc_file_is_built_or_hashed():
@@ -41,7 +46,7 @@ def _csrc_text(name):
         return f.read()
 
 
-@pytest.mark.parametrize("name", _build._SOURCES)
+@pytest.mark.parametrize("name", PRODUCT_SOURCES)
 def test_every_kernel_source_launches_through_tile_kernel(name):
     """Each ``.cu`` defines one extern "C" stack product, describes it as a
     Job struct and launches it with ``launch_tile_kernel``, which picks the
@@ -75,9 +80,10 @@ def test_the_sub_tile_grid_is_gone():
     kernel = _csrc_text("tile_kernel.cuh")
     assert "static_assert(T <= 32" in kernel
     assert "if constexpr (T < 64)" in kernel
-    # the routine's own kernels are the only __global__ functions of the library
+    # the routine's own kernels are the only __global__ products of the
+    # library; the filter's two kernels are the only other __global__s
     globals_ = [n for n in sorted(os.listdir(_build._CSRC)) if "__global__" in _csrc_text(n)]
-    assert globals_ == ["tile_kernel.cuh"]
+    assert globals_ == [FILTER_SOURCE, "tile_kernel.cuh"]
 
 
 @pytest.mark.skipif(tomllib is None, reason="tomllib needs Python 3.11")
@@ -155,3 +161,22 @@ def test_complex_kernels_are_built_and_hashed():
     kernel = _csrc_text("tile_kernel.cuh")
     for header in ("tile_product_c64.cuh", "tile_mma_c128.cuh"):
         assert f'#include "{header}"' in kernel
+
+
+def test_filter_kernels_are_built_and_named_apart_from_the_products():
+    """``block_filter.cu`` holds the eps filter's two kernels and their entry
+    points, each with a ctypes signature; it launches no product routine,
+    and no kernel name of it matches the benchmark's product-kernel pattern
+    (``\\btile_\\w*kernel\\b``), so its time counts with the tile ops."""
+    assert FILTER_SOURCE in _build._SOURCES
+    text = _csrc_text(FILTER_SOURCE)
+    code = re.sub(r"//[^\n]*", "", text)
+    assert "launch_tile_kernel" not in code
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", code)
+    assert sorted(kernels) == ["block_sumsq_kernel", "keep_blocks_kernel"]
+    assert not any(re.search(r"\btile_\w*kernel\b", k) for k in kernels)
+    with open(_build.__file__) as f:
+        build_py = f.read()
+    for entry in ("dbcsr_torch_block_sumsq", "dbcsr_torch_keep_blocks"):
+        assert len(re.findall(r'extern "C" int %s\(' % entry, text)) == 1
+        assert f"lib.{entry}.argtypes" in build_py

@@ -1,7 +1,8 @@
 """The port's kernels on the card: K1, K2, K3 (run-fused panel), K4
-(grouped), K5 (band) and the float64 stack kernel against their plain
-versions, the executors' routes (the filtered executor and the reordered
-panel plan included), and the wrappers' refusals.
+(grouped), K5 (band), the float64 stack kernel and the eps filter's two
+kernels (``block_filter.cu``; tolerance at ``filter_rtol``) against their
+plain versions, the executors' routes (the filtered executor and the
+reordered panel plan included), and the wrappers' refusals.
 
 Every test needs a CUDA GPU and skips without one. This file imports no
 jax (the GPU machine has none), so run it there without the suite's
@@ -1465,3 +1466,186 @@ def test_large_scale_check_at_100k_rows_against_its_plain_version(dev):
         ref = take_tiles(chip_smoke.plain_of(fn.plan, a.data, b.data),
                          fn.plan.align_map(store_layout(c_index, 128).tile_keys()), 128)
         assert rel_err(prod, ref) <= 1e-4, driver
+
+
+# ---- the eps filter's kernels (csrc/block_filter.cu) -------------------------
+
+def filter_rtol(tile: int) -> float:
+    """Norms² of the kernel against its plain version: both sum a cell's
+    float32 squares (the same bits), the kernel rows then columns in order,
+    the indicator matmuls in their own order; each is within (h + w - 2)·u
+    of the exact sum (u = 2⁻²⁴, h, w ≤ T), so they agree to 4·T·u of it."""
+    return 4 * tile * 2.0 ** -24
+
+
+#: the benchmark's tie band: a block whose norms² lie this close to eps²
+#: (relative) may be kept by one order of sums and dropped by another
+NORM_TIE_REL = 1e-4
+
+
+def _filter_operands(dev, kind, tile, dtype):
+    """A and B on the card: the water pattern at 2 × 2 × 2 cells, or a
+    random pattern whose blocks (up to 150 rows) span tile edges."""
+    if kind == "water":
+        a, b, _ = _water_f64(dev, tile)
+    else:
+        rng = np.random.default_rng(tile)
+        with config_override(tile_size=tile):
+            rbs = dtt.random_block_sizes(600, [1, 3, 5, 13, 40, 150], rng)
+            a, b = (dtt.random_matrix(rbs, rbs, 0.15, np.random.default_rng(s),
+                                      dtype=np.float64, device=dev) for s in (1, 2))
+    return a.astype(dtype), b.astype(dtype)
+
+
+def _filter_case(dev, kind, tile, dtype):
+    """C's superset product on the card and its block info; a bfloat16 or
+    complex C is the float64 product in that type (``as_store``: a random
+    imaginary part where C is not 0)."""
+    from dbcsr_tpu_torch.block.tileops import device_block_info
+
+    from test_torch_filter_kernels import as_store
+
+    real = dtype in (torch.float32, torch.float64)
+    a, b = _filter_operands(dev, kind, tile, dtype if real else torch.float64)
+    fn, c_index, _ = dtt.build_multiply_executor("N", "N", a, b)
+    c = fn(a.data, b.data).contiguous()
+    return c_index, (c if real else as_store(c, dtype)), device_block_info(c_index, tile, dev)
+
+
+FILTER_CASES = [("random", 16), ("random", 64), ("random", 128), ("water", 64),
+                ("water", 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kind,tile", FILTER_CASES)
+def test_filter_kernels_match_their_plain_versions(dev, kind, tile, dtype):
+    """The norms² kernel against the indicator matmuls (``filter_rtol``; 0
+    where no block is stored) and, on the random patterns, bit for bit
+    against a numpy rendering of its walk; keep identical but for blocks
+    within ``NORM_TIE_REL`` of eps²; the zeroed store equal, value for
+    value, to the superset times ``block_mask_store(keep)``; two calls
+    bitwise equal."""
+    from dbcsr_tpu_torch.block.tileops import (
+        block_mask_store, keep_blocks, keep_blocks_plain, tile_block_sumsq,
+        tile_block_sumsq_plain)
+
+    c_index, c, info = _filter_case(dev, kind, tile, dtype)
+    n0, k0 = tile_block_sumsq.launches, keep_blocks.launches
+    z = tile_block_sumsq(c, info)
+    zp = tile_block_sumsq_plain(c, info)
+    assert tile_block_sumsq.launches == n0 + 1
+    stored = info.bid_p1 > 0
+    assert bool(stored.any()) and not bool(z[~stored].any())
+    diff = (z[stored].double() - zp[stored].double()).abs()
+    assert bool((diff <= filter_rtol(tile) * zp[stored].double()).all())
+    assert torch.equal(z, tile_block_sumsq(c, info))  # reproducible
+    if kind == "random":
+        from test_torch_filter_kernels import walk_sumsq
+
+        walk = walk_sumsq(c.cpu(), device_info_on_cpu(c_index, tile))
+        assert np.array_equal(z.cpu().numpy(), walk)
+    nsq = info.block_sum(z.reshape(-1))
+    nsq_p = info.block_sum(zp.reshape(-1))
+    v = np.sort(nsq.cpu().numpy().astype(np.float64))
+    eps_sq = float(np.float32(np.sqrt(v[len(v) // 2 - 1] * v[len(v) // 2])))
+    c1, c2, cp = c.clone(), c.clone(), c.clone()
+    keep = keep_blocks(c1, info, nsq, eps_sq)
+    assert torch.equal(keep_blocks(c2, info, nsq, eps_sq), keep) and torch.equal(c1, c2)
+    assert keep_blocks.launches == k0 + 2
+    assert torch.equal(keep, (nsq >= eps_sq).to(torch.float32))
+    keep_p = keep_blocks_plain(cp, info, nsq_p, eps_sq)
+    apart = keep != keep_p
+    near = (nsq_p.double() - eps_sq).abs() <= NORM_TIE_REL * eps_sq
+    assert not bool((apart & ~near).any())
+    assert 0 < int(keep.sum()) < len(keep)
+    assert torch.equal(c1, c * block_mask_store(c_index, tile, dev, keep=keep).to(dtype))
+    if not bool(apart.any()):
+        assert torch.equal(c1, cp)
+
+
+def device_info_on_cpu(c_index, tile):
+    from dbcsr_tpu_torch.block.tileops import device_block_info
+
+    return device_block_info(c_index, tile, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex128])
+def test_filtered_step_on_the_card_runs_the_filter_kernels(dev, dtype):
+    """The one-card step launches each filter kernel once, counts their
+    bytes, runs no torch bmm, returns its own product zeroed in place, and
+    ``compact()`` equals the one-shot ``multiply(filter_eps=)``."""
+    from dbcsr_tpu_torch.block.tileops import keep_blocks, tile_block_sumsq
+    from dbcsr_tpu_torch.core.stats import get_stats, reset_stats
+
+    a, b = _filter_operands(dev, "random", 64, dtype)
+    with config_override(tile_size=64):
+        nsq0 = np.sort(dtt.block_norms_sq(dtt.multiply("N", "N", 1.0, a, b)).astype(np.float64))
+        k = len(nsq0) // 3
+        eps = float(np.sqrt(np.sqrt(nsq0[k] * nsq0[k + 1])))
+        ex = dtt.build_filtered_executor("N", "N", a, b, eps)
+        ex.step(a.data, b.data)  # warm
+        reset_stats()
+        n0, k0 = tile_block_sumsq.launches, keep_blocks.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            c_data, keep, nsq = ex.step(a.data, b.data)
+            torch.cuda.synchronize()
+        assert (tile_block_sumsq.launches, keep_blocks.launches) == (n0 + 1, k0 + 1)
+        assert get_stats().filter_bytes > 0
+        assert "filter kernel bytes" in dtt.print_statistics()
+        ops = {e.key for e in prof.key_averages()}
+        assert "aten::bmm" not in ops, sorted(ops)
+        one = dtt.multiply("N", "N", 1.0, a, b, filter_eps=eps)
+        got = ex.compact(c_data, keep)
+    np.testing.assert_array_equal(got.index.row_ptr, one.index.row_ptr)
+    np.testing.assert_array_equal(got.index.col_idx, one.index.col_idx)
+    assert rel_err(got.to_dense(), one.to_dense()) <= (RTOL if dtype == torch.float32
+                                                        else RTOL_F64)
+
+
+def test_sharded_filtered_step_runs_the_filter_kernels(dev):
+    """Four cuda:0 ranks on a 2×2 Cannon grid over the water pattern: each
+    rank's norms² and keep-zeroing launch the filter kernels once a step,
+    and two steps agree bit for bit."""
+    from dbcsr_tpu_torch.block.tileops import keep_blocks, tile_block_sumsq
+    from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
+    from dbcsr_tpu_torch.dist.sharded import shard_store_with_layout
+
+    a, b, sizes = _water_f64(dev, 128)
+    grid = ProcessGrid.make(2, 2, devices=[dev] * 4)
+    ex = dtt.build_filtered_executor("N", "N", a, b, 1e-5,
+                                     dist=tile_aligned_dist(grid, sizes, sizes, 128))
+    a_sh = shard_store_with_layout(a, ex.shard_a, grid)
+    ranks = sum(rf is not None and rf.n > 0 for rf in ex._ranks)
+    assert ranks == 4
+    n0, k0 = tile_block_sumsq.launches, keep_blocks.launches
+    c, keep, nsq = ex.step(a_sh)
+    assert (tile_block_sumsq.launches - n0, keep_blocks.launches - k0) == (ranks, ranks)
+    again = ex.step(a_sh)
+    assert all(torch.equal(x, y) for x, y in zip(c + keep + nsq, again[0] + again[1] + again[2]))
+
+
+def test_filter_wrappers_refuse_on_the_card(dev):
+    """A store off a 16-byte boundary, a tile edge without a kernel, a plan
+    on the CPU and a float16 store are refused before any launch."""
+    from dbcsr_tpu_torch.block.tileops import device_block_info, keep_blocks, tile_block_sumsq
+
+    c_index, c, info = _filter_case(dev, "random", 16, torch.float64)
+    n = c.shape[0]
+    flat = torch.zeros(n * 256 + 1, dtype=torch.float64, device=dev)
+    shifted = flat[1:].view(n, 16, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tile_block_sumsq(shifted, info)
+    with pytest.raises(ValueError):
+        tile_block_sumsq(c, device_block_info(c_index, 16, torch.device("cpu")))
+    with pytest.raises(TypeError):
+        tile_block_sumsq(c.to(torch.float16), info)
+    nsq = info.block_sum(tile_block_sumsq(c, info).reshape(-1))
+    with pytest.raises(ValueError):
+        keep_blocks(c, info, nsq.cpu(), 1.0)
+    with config_override(tile_size=8):
+        rbs = dtt.random_block_sizes(40, [3, 5], np.random.default_rng(0))
+        m8 = dtt.random_matrix(rbs, rbs, 0.3, np.random.default_rng(1), dtype=np.float64,
+                               device=dev)
+    with pytest.raises(ValueError, match="tile edge"):
+        tile_block_sumsq(m8.data, device_block_info(m8.index, 8, dev))
