@@ -6,6 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py            # every phase, one GPU
     python3 chip_smoke.py --quick    # phases 1, 2, 3, 5 and 8 (no large run)
     python3 chip_smoke.py --filter-kernels   # phases 1, 2 and 7b
+    python3 chip_smoke.py --refold-kernel    # phases 1, 2 and 11c
 
 Phases (any failure exits non-zero before the final line):
 
@@ -127,6 +128,17 @@ Phases (any failure exits non-zero before the final line):
     out every fold space. Then shape T, bench.py's tensor shape with its
     tall axis × 45 (the dense route), against a float64 matmul of the
     folded dense operands. Runs after phase 8, before phase 10.
+11c. the tensor refold's kernel R1 (``block_refold_kernel``,
+    ``apply_refold``) on the benchmark's ``REFOLD_CONFIG`` at its full
+    size: X of one batch of RI atoms built through ``BatchedContract``
+    (bounds on P, ``filter_eps``), refolded ((μ,P) | σ) → (μ | (σ,P)),
+    bitwise against the plain version on the same plan and against
+    ``with_layout``, R1 launched once and nothing else (counts set to 0
+    just before); CUDA-event medians of the kernel and the plain version
+    beside its bound in bytes; then one whole step of the benchmark's
+    call (every batch: bounds, eps, accumulation into K, K filtered last)
+    with R1 launched once a batch, held to the benchmark's judge
+    (``block_err`` within the configuration's limit). After phase 11.
 12. the host API around the multiply, on phase 4's banded SCF operands at
     400,000 rows in float32 and float64, after phase 11 and before phase
     10: (a) ``multiply(limits=...)`` with beta 0.5 and C = the full product,
@@ -250,10 +262,10 @@ Phases (any failure exits non-zero before the final line):
     orchestration only) and a line saying the multi-card leg was not run.
 
 Phase 9 runs after phase 6 (it reuses phase 4's matrices and panel result).
-The kernel summary is one JSON line (ten kernels: the six ports of the
+The kernel summary is one JSON line (eleven kernels: the six ports of the
 TPU's kernels and KC1, KC2, each with its launches in phases 17 and 18, the
-filter's F1 and F2 from phase 7b; then K1-K5 once more at phase 16's sweep
-rows;
+filter's F1 and F2 from phase 7b, the refold's R1 from phase 11c; then
+K1-K5 once more at phase 16's sweep rows;
 ``bound_ms`` is computed from this run's tile
 and product counts against NVIDIA's H100 SXM data-sheet peaks), then the
 ``nvidia-smi`` line, then the final line ``{"ok": true, "device": {...}}``.
@@ -305,6 +317,10 @@ NORM_TIE_REL = 1e-4
 #: run on, and the seed of its operands
 FILTER_CONFIG = "water_2048.json"
 FILTER_SEED = 2**31 + 2024
+#: phase 11c: the benchmark configuration whose X the refold kernel moves,
+#: and the seed of its operands
+REFOLD_CONFIG = "rihfx_water_64.json"
+REFOLD_SEED = 2**31 + 2323
 
 
 def filter_rtol(tile: int) -> float:
@@ -1575,7 +1591,8 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launches since the last reset, by kernel (K1-K5, K6 =
-    the float64 stack kernel, KC1, KC2, and the filter's F1, F2)."""
+    the float64 stack kernel, KC1, KC2, the filter's F1, F2 and the
+    refold's R1)."""
     from dbcsr_tpu_torch.mm import kernel_launches
 
     return kernel_launches()
@@ -1586,11 +1603,15 @@ def read_launches() -> dict:
 #: 7, 7b and 13c hold their launches; the other phases hold the product
 #: kernels alone (``product_launches``)
 FILTER_KERNELS = ("F1", "F2")
+#: the tensor refold's kernel: it runs wherever a tensor changes fold
+#: (phases 11, 11c, 13, 14 and 17 refold); phase 11c holds its launches
+REFOLD_KERNELS = ("R1",)
 
 
 def product_launches(launches: dict) -> dict:
     """The product kernels in ``launches`` that ran, each with its count."""
-    return {k: n for k, n in launches.items() if n and k not in FILTER_KERNELS}
+    return {k: n for k, n in launches.items()
+            if n and k not in FILTER_KERNELS + REFOLD_KERNELS}
 
 
 def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dict:
@@ -2753,6 +2774,141 @@ def phase_tensor(dev) -> None:
     # the plan cache holds the prepared refold, extraction and merge maps
     get_plan_cache().clear()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: the refold's kernel R1 on the RI configuration's X
+# ---------------------------------------------------------------------------
+
+def phase_refold_kernel(dev) -> dict:
+    """11c: R1 (``apply_refold``) on X of one batch of ``REFOLD_CONFIG``,
+    the benchmark's RI-HFX step, at its full size (phase list above).
+    Returns R1's row for the ``kernels`` line."""
+    import gc
+
+    import torch
+
+    from benchmark.calls import rihfx_step
+    from benchmark.operands import make_operands, pattern_of
+    from dbcsr_tpu_torch.block import refold
+    from dbcsr_tpu_torch.tensors import NDMapping
+    from dbcsr_tpu_torch.tensors.tensor import refold_layout
+
+    with open(os.path.join(REPO, "benchmark", "configs", REFOLD_CONFIG)) as f:
+        cfg = json.load(f)
+    t0 = time.perf_counter()
+    ops = make_operands(cfg, pattern_of(cfg), REFOLD_SEED, 1, dev)
+    prog = rihfx_step.Program(cfg, ops)
+    sync(dev)
+    log(f"  {REFOLD_CONFIG}: B {prog.b.nblks} blocks in {prog.b.matrix.data.shape[0]} tiles "
+        f"({prog.b.matrix.data.numel() * 8 / 1e9:.2f} GB), {len(prog.ranges)} batches of RI "
+        f"atoms; set-up {time.perf_counter() - t0:.1f} s")
+
+    # --- X of the middle batch, through BatchedContract (bounds on P, eps)
+    lo, hi = prog.ranges[len(prog.ranges) // 2]
+    d = prog.Tensor(name="D", block_sizes=(prog.ao, prog.ao), mapping=NDMapping(2, (0,), (1,)),
+                    matrix=prog.BCSRMatrix(name="D", index=prog.d_index, data=ops.a[0]))
+    t0 = time.perf_counter()
+    x = prog.bc.contract(prog.b, d, contract_1=(1,), notcontract_1=(0, 2), contract_2=(0,),
+                         notcontract_2=(1,), map_1=(0, 2), map_2=(1,),
+                         bounds={"nc1": {2: (lo, hi)}}, filter_eps=prog.eps)
+    target = NDMapping(3, (0,), (1, 2))
+    _, plan = refold_layout(x, target)
+    src = x.matrix.data
+    sync(dev)
+    size = src.element_size()
+    log(f"  X of P elements [{lo}, {hi}): {x.nblks} blocks, {src.shape[0]} tiles "
+        f"({src.numel() * size / 1e9:.2f} GB) -> {plan.n_tiles} tiles "
+        f"({plan.n_tiles * src.shape[1] ** 2 * size / 1e9:.2f} GB), starts {x.starts}; "
+        f"contraction and plan {time.perf_counter() - t0:.1f} s")
+    if x.starts != (0, 0, lo) or plan.meta is None:
+        fail(f"11c: X starts at {x.starts}, the plan's lookups {plan.refusal or 'built'}")
+
+    # --- the kernel's run: counts set to 0 just before, read just after
+    reset_launches()
+    got = refold.apply_refold(src, plan)
+    sync(dev)
+    launches = {k: n for k, n in read_launches().items() if n}
+    want = torch.zeros_like(got)
+    refold.refold_plain(src, plan, want)
+    sync(dev)
+    same_plain = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
+    del want
+    again = x.with_layout(target).matrix.data
+    same_layout = bool(torch.equal(got.view(torch.int64), again.view(torch.int64)))
+    del again
+    log(f"  11c R1: launches {launches}; bitwise the plain version {same_plain}, "
+        f"with_layout {same_layout}")
+    if launches != {"R1": 1}:
+        fail(f"11c: launches {launches}, expected R1 once and no other")
+    if not (same_plain and same_layout):
+        fail("11c: the refold kernel disagrees with its plain version")
+
+    # --- times (CUDA-event medians), the kernel alone into a zeroed store
+    moved = plan.moved_bytes(size)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+
+    def kern():
+        refold._launch(src, got, plan)
+
+    def plain():
+        refold.refold_plain(src, plan, got)
+
+    k1 = cuda_median_ms(kern, reps=10)
+    p1 = cuda_median_ms(plain, reps=3, warmup=1)
+    p2 = cuda_median_ms(plain, reps=3, warmup=1)
+    k2 = cuda_median_ms(kern, reps=10)
+    wrapper = cuda_median_ms(lambda: refold.apply_refold(src, plan), reps=10)
+    km, pm = float(np.median([k1, k2])), float(np.median([p1, p2]))
+    log(f"  11c R1: {km:.3f} ms (runs {k1:.3f}/{k2:.3f}), plain {pm:.3f} ms "
+        f"(runs {p1:.3f}/{p2:.3f}); bound {bound:.3f} ms by bytes ({moved / 1e9:.2f} GB "
+        f"read and written): {bound / km:.1%} of it; apply_refold with its zeroed store "
+        f"{wrapper:.3f} ms")
+    row = {"launches": launches.get("R1", 0), "max_abs_err": 0.0, "ms": km, "plain_ms": pm,
+           "bound_ms": bound, "bound_by": "bytes"}
+    del got, x, src, plan, d
+    torch.cuda.empty_cache()
+
+    # --- one whole step of the benchmark's call, held to its judge
+    prog(ops.a[0])  # the first step plans every batch
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    k = prog(ops.a[0])
+    sync(dev)
+    step_s = time.perf_counter() - t0
+    step_launches = {n: c for n, c in read_launches().items() if c}
+    n_batches = len(prog.ranges)
+    blocks, store = prog.output(k)
+    store = store.to("cpu")
+    prog.release()
+    del prog, k
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = rihfx_step.judge(cfg, ops)(ops.a[0], blocks, store.to(dev))
+    limit = float(cfg["limits"]["block_err"])
+    log(f"  11c the step ({len(blocks.rows)} K blocks): {step_s * 1e3:.1f} ms, launches "
+        f"{step_launches}; block_err {err:.3e} (limit {limit:.0e}); peak device memory "
+        f"{peak_memory(dev) / 1e9:.2f} GB")
+    if step_launches.get("R1") != n_batches:
+        fail(f"11c: the step launched R1 {step_launches.get('R1')} times, expected once a batch")
+    if not err <= limit:
+        fail(f"11c: the step's block_err {err:.3e} is above {limit:.0e}")
+    del ops, store
+    torch.cuda.empty_cache()
+    return row
+
+
+def refold_entry(r: dict) -> dict:
+    """The ``kernels`` line's entry of R1 from phase 11c's row."""
+    return {"name": f"block_refold_kernel (R1) at {REFOLD_CONFIG}'s X of one batch",
+            "route": "cuda", "source": "dbcsr_tpu_torch/csrc/block_refold.cu",
+            "replaces": "none: the JAX package refolds through an element map "
+                        "(dbcsr_tpu/tensors/tensor.py with_layout)",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+            "bound_ms": round(r["bound_ms"], 4), "bound_by": r["bound_by"],
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -5190,6 +5346,9 @@ def main() -> int:
                     help="phases 1, 2, 3, 5 and 8 only: build and check the kernels")
     ap.add_argument("--filter-kernels", action="store_true",
                     help="phases 1, 2 and 7b only: the filter's kernels on the benchmark's store")
+    ap.add_argument("--refold-kernel", action="store_true",
+                    help="phases 1, 2 and 11c only: the refold's kernel on the benchmark's "
+                         "RI tensors")
     args = ap.parse_args()
 
     import torch
@@ -5253,6 +5412,12 @@ def main() -> int:
         rows = phase_filter_kernels(dev)
         print(json.dumps({"kernels": [filter_entry(k, r) for k, r in rows.items()]}), flush=True)
         log("filter-kernels mode: phases 1, 2 and 7b passed")
+        return 0
+    if args.refold_kernel:
+        log(f"[11c] the refold's kernel R1 on {REFOLD_CONFIG}'s X")
+        row = phase_refold_kernel(dev)
+        print(json.dumps({"kernels": [refold_entry(row)]}), flush=True)
+        log("refold-kernel mode: phases 1, 2 and 11c passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -5335,6 +5500,8 @@ def main() -> int:
     log(f"[11] tensor contraction: shape R (RI-type 3-center, {TENSOR_ATOMS} atoms) in "
         f"float32 and float64, shape T (bench.py's tensor shape, i = {TENSOR_T_ROWS})")
     phase_tensor(dev)
+    log(f"[11c] the refold's kernel R1 on {REFOLD_CONFIG}'s X, then one step of its call")
+    refold_row = phase_refold_kernel(dev)
 
     # 12. the host API around the multiply, on phase 4's operands
     log(f"[12] the host API on the card: limits, retile, checkpoint, CSR, .perf recipes, "
@@ -5496,6 +5663,7 @@ def main() -> int:
                        "dbcsr_tpu/mm/ozaki_panel.py:222", "complex128"), "KC2"),
         filter_entry("F1", filter_rows["F1"]),
         filter_entry("F2", filter_rows["F2"]),
+        refold_entry(refold_row),
         entry16("K1", "dbcsr_tpu_torch/csrc/stack_matmul.cu", "dbcsr_tpu/mm/kernels.py:76"),
         entry16("K2", "dbcsr_tpu_torch/csrc/panel_matmul.cu", "dbcsr_tpu/mm/panel.py:297"),
         entry16("K3", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu", "dbcsr_tpu/mm/panel.py:757"),

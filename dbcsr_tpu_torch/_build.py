@@ -193,6 +193,14 @@ def kernels() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, ctypes.c_float,
                 i32, i32, i32, vp,
             ]
+            # the tensor refold (block_refold.cu)
+            lib.dbcsr_torch_block_refold.restype = i32
+            # (src, dst, meta, dims, src_lut, dst_lut, src_ntc, dst_ntc,
+            #  n_blocks, old_nrow, new_nrow, old_packed, new_packed, tshift,
+            #  elem_bytes, device, stream)
+            lib.dbcsr_torch_block_refold.argtypes = [
+                vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32, vp,
+            ]
             lib.dbcsr_torch_error_string.restype = ctypes.c_char_p
             lib.dbcsr_torch_error_string.argtypes = [i32]
             _LIB = lib

@@ -6,8 +6,8 @@ subsets, block permutations) are a new index built on the host plus ONE
 device element gather through a host-built map. The map builders are numpy
 and identical to the JAX package's; ``apply_store_gather`` is the torch
 device half, and ``prepare_flat_gather`` a flat map's device form made
-once, for callers that repeat a gather (the tensor refold, TAS group
-extraction and merge). Element gathers are slow compared with tile gathers,
+once, for callers that repeat a gather (TAS group extraction and merge;
+the tensor refold moves whole blocks instead, ``block/refold.py``). Element gathers are slow compared with tile gathers,
 so hot paths do not use them.
 """
 from __future__ import annotations

@@ -21,26 +21,29 @@ tile-col ``tc`` share ``I[tc] ∈ {0,1}^{T×Bmax}``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
+from ..core.errors import dbcsr_assert
 from .index import BCSRIndex
 
-__all__ = ["StoreLayout", "store_layout", "RowIndicators", "row_indicators"]
+__all__ = ["StoreLayout", "store_layout", "block_tile_coords", "RowIndicators", "row_indicators"]
 
 
 @dataclass(frozen=True)
 class StoreLayout:
-    """Tile layout of one matrix index at tile edge ``tile``."""
+    """Tile layout of one matrix index at tile edge ``tile``. The tiles come
+    from the blocks alone (a few numbers a block); the element map
+    ``elem_dest`` (8 bytes an element) is built at its first use, so a
+    layout that only places tiles does not keep it."""
 
     tile: int
     ntr: int  # tile rows of the full matrix
     ntc: int  # tile cols
     tile_coords: np.ndarray  # int32 [n_tiles, 2] (trow, tcol), row-major order
-    elem_dest: np.ndarray  # int64 [nelems_flat] flat-block elem -> store pos
-    tile_of_rc: dict  # (trow, tcol) -> slot  (host lookups)
+    index: BCSRIndex = field(repr=False, compare=False)
 
     @property
     def n_tiles(self) -> int:
@@ -52,6 +55,30 @@ class StoreLayout:
             self.tile_coords[:, 0].astype(np.int64) * self.ntc
             + self.tile_coords[:, 1]
         )
+
+    @property
+    def elem_dest(self) -> np.ndarray:
+        """int64 [nelems_flat]: flat-block element -> store position."""
+        return self.index._cached(("store_elem_dest", self.tile), self._elem_dest)
+
+    def _elem_dest(self) -> np.ndarray:
+        from ..core.config import get_config
+
+        nat = None
+        if get_config().use_native_planner:
+            from ..native import store_layout_native
+
+            nat = store_layout_native(self.index, self.tile)
+        if nat is not None:
+            coords, elem_dest = nat[0], nat[1]
+        else:
+            from ..mm.pack import tile_panel_maps
+
+            elem_dest, coords, _ = tile_panel_maps(self.index, self.tile, False)
+            elem_dest = elem_dest.astype(np.int64)
+        dbcsr_assert(np.array_equal(coords, self.tile_coords),
+                     "element map and block tiles disagree")
+        return elem_dest
 
     # -- host flat <-> store conversion ------------------------------------
     def store_from_flat(self, flat: np.ndarray) -> np.ndarray:
@@ -67,41 +94,29 @@ class StoreLayout:
         return np.asarray(store).reshape(-1)[self.elem_dest]
 
 
+def block_tile_coords(index: BCSRIndex, tile: int) -> np.ndarray:
+    """int32 [n_tiles, 2]: the (trow, tcol) of every tile that some stored
+    element lies in, row-major, from each block's tile span."""
+    ntc = -(-index.nfullcols // tile)
+    m, n = (x.astype(np.int64) for x in index.blk_shapes)
+    keep = (m > 0) & (n > 0)
+    r0 = index.row_offsets[index.blk_rows[keep]]
+    c0 = index.col_offsets[index.col_idx[keep]]
+    tr0, tr1 = r0 // tile, (r0 + m[keep] - 1) // tile
+    tc0, tc1 = c0 // tile, (c0 + n[keep] - 1) // tile
+    keys = []
+    for dr in range(int((tr1 - tr0).max(initial=-1)) + 1):
+        for dc in range(int((tc1 - tc0).max(initial=-1)) + 1):
+            keys.append(np.minimum(tr0 + dr, tr1) * ntc + np.minimum(tc0 + dc, tc1))
+    keys = np.unique(np.concatenate(keys)) if keys else np.zeros(0, dtype=np.int64)
+    return np.stack([keys // ntc, keys % ntc], axis=1).astype(np.int32).reshape(-1, 2)
+
+
 def store_layout(index: BCSRIndex, tile: int) -> StoreLayout:
     """Cached tile layout of ``index`` (orientation N)."""
-    key = ("store_layout", tile)
-
-    def mk():
-        from ..core.config import get_config
-
-        nat = None
-        if get_config().use_native_planner:
-            from ..native import store_layout_native
-
-            nat = store_layout_native(index, tile)
-        if nat is not None:
-            tile_coords, elem_dest, ntr, ntc = nat
-        else:
-            from ..mm.pack import tile_panel_maps
-
-            elem_dest, tile_coords, (ntr, ntc) = tile_panel_maps(
-                index, tile, False
-            )
-            elem_dest = elem_dest.astype(np.int64)
-        lut = {
-            (int(r), int(c)): i
-            for i, (r, c) in enumerate(np.asarray(tile_coords))
-        }
-        return StoreLayout(
-            tile=tile,
-            ntr=ntr,
-            ntc=ntc,
-            tile_coords=tile_coords,
-            elem_dest=elem_dest,
-            tile_of_rc=lut,
-        )
-
-    return index._cached(key, mk)
+    return index._cached(("store_layout", tile), lambda: StoreLayout(
+        tile=tile, ntr=-(-index.nfullrows // tile), ntc=-(-index.nfullcols // tile),
+        tile_coords=block_tile_coords(index, tile), index=index))
 
 
 @dataclass(frozen=True)

@@ -8,7 +8,9 @@ figure, less the mma depths that the float64 stack kernel skips
 (``mm/f64_stack.py``). effective / hardware is the tile packing
 efficiency, 1 − hardware / padded the share of the tile work skipped. The
 distributed executors count their messages (``record_comm``), the eps
-filter's kernels their bytes (``filter_bytes``). Reference:
+filter's kernels their bytes (``filter_bytes``), the tensor refolds theirs
+(``refold_bytes``) and the batched contraction its batches
+(``tensor_batches``). Reference:
 ``src/mm/dbcsr_mm_sched.F:392-663``, printed like
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
 """
@@ -40,6 +42,11 @@ class MMStats:
     #: norms² and keep vectors; the zeros written depend on the data and
     #: are not counted. 0 where no launch ran (the plain versions)
     filter_bytes: float = 0.0
+    #: bytes the tensor refolds (``block/refold.py``) read and write: each
+    #: moved block element read once and written once
+    refold_bytes: float = 0.0
+    #: contractions run by ``tensors.BatchedContract``, one a batch
+    tensor_batches: int = 0
 
     def add_tile_flops(self, issued: float, padded: float) -> None:
         """Count one product's kernel work: the flops issued and the tile
@@ -96,6 +103,10 @@ def print_statistics(out=None) -> str:
         )
     if s.filter_bytes:
         lines.append(f" filter kernel bytes      {s.filter_bytes:.6E}")
+    if s.refold_bytes:
+        lines.append(f" tensor refold bytes      {s.refold_bytes:.6E}")
+    if s.tensor_batches:
+        lines.append(f" tensor batches           {s.tensor_batches}")
     if s.local_routes:
         lines.append(" local routes             " + ", ".join(
             f"{r} {n}" for r, n in sorted(s.local_routes.items())))

@@ -1,3 +1,4 @@
+from ..block.refold import apply_refold
 from ..block.tileops import keep_blocks, tile_block_sumsq
 from .band import BandPlan, band_matmul, band_matmul_plain, plan_band
 from .c_stack import (
@@ -36,14 +37,14 @@ from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
 #: every hand-written kernel's wrapper, by kernel (K6: the float64 stack
 #: kernel that ports it; F1, F2: the eps filter's block norms² and
-#: keep-zeroing, ``block/tileops.py``); each counts its own launches in
-#: ``.launches``
+#: keep-zeroing, ``block/tileops.py``; R1: the tensor refold,
+#: ``block/refold.py``); each counts its own launches in ``.launches``
 KERNEL_WRAPPERS = {
     "K1": tile_stack_matmul, "K2": tile_stack_matmul_panel,
     "K3": tile_stack_matmul_panel_runs, "K4": tile_stack_matmul_grouped,
     "K5": band_matmul, "K6": tile_stack_matmul_f64,
     "KC1": tile_stack_matmul_c64, "KC2": tile_stack_matmul_c128,
-    "F1": tile_block_sumsq, "F2": keep_blocks,
+    "F1": tile_block_sumsq, "F2": keep_blocks, "R1": apply_refold,
 }
 
 

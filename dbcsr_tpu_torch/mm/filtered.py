@@ -71,7 +71,8 @@ from ..core.errors import dbcsr_assert
 from ..core.stats import get_stats
 from ..core.timing import timed
 
-__all__ = ["FilteredExecutor", "ShardedFilteredExecutor", "build_filtered_executor"]
+__all__ = ["FilteredExecutor", "ShardedFilteredExecutor", "build_filtered_executor",
+           "filter_store_"]
 
 
 @dataclass
@@ -101,17 +102,7 @@ class FilteredExecutor:
         self, a_data: torch.Tensor, b_data: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         c_sup = self.fn(a_data, b_data).contiguous()
-        nblks = self.c_index.nblks
-        if nblks == 0:
-            empty = torch.zeros(0, dtype=torch.float32, device=c_sup.device)
-            return c_sup, empty, empty
-        with timed("filtered/norms"):
-            info = device_block_info(self.c_index, self.tile, c_sup.device)
-            nsq = info.block_sum(tile_block_sumsq(c_sup, info).reshape(-1))
-        with timed("filtered/mask"):
-            # eps² rounded to float32 as the reference's single-precision
-            # norms; a Python scalar needs no host-to-device copy
-            keep = keep_blocks(c_sup, info, nsq, float(np.float32(self.eps) ** 2))
+        keep, nsq = filter_store_(c_sup, self.c_index, self.tile, self.eps)
         return c_sup, keep, nsq
 
     def kept_flops(self, keep) -> float:
@@ -139,6 +130,25 @@ class FilteredExecutor:
         # the step's keep mask: the store invariant holds
         return BCSRMatrix(name="product", index=new_index,
                           data=take_tiles(c_data, amap, self.tile))
+
+
+def filter_store_(store: torch.Tensor, index: BCSRIndex, tile: int, eps: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eps filter on a store in mask form, in place: block norms² in
+    single precision (span ``filtered/norms``), then zeros over every block
+    of norm² below eps² (span ``filtered/mask``). Returns ``(keep,
+    norms_sq)``, float32 over ``index``'s blocks, on the store's device."""
+    if index.nblks == 0:
+        empty = torch.zeros(0, dtype=torch.float32, device=store.device)
+        return empty, empty
+    with timed("filtered/norms"):
+        info = device_block_info(index, tile, store.device)
+        nsq = info.block_sum(tile_block_sumsq(store, info).reshape(-1))
+    with timed("filtered/mask"):
+        # eps² rounded to float32 as the reference's single-precision
+        # norms; a Python scalar needs no host-to-device copy
+        keep = keep_blocks(store, info, nsq, float(np.float32(eps) ** 2))
+    return keep, nsq
 
 
 def _pattern(index: BCSRIndex, trans: bool) -> sp.csr_matrix:

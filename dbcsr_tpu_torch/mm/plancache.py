@@ -9,8 +9,9 @@ plan across calls. Keys are fingerprints of the index CONTENT (pattern +
 block sizes), so the cache is safe across object lifetimes and data
 changes.
 
-Entries that hold element-level maps on a device (the tensor refold, TAS
-extraction and merge) state their size: those are also held to a byte
+Entries that hold maps on a device (TAS extraction and merge, whose maps
+are element-level, and the tensor refold's block plan) state their size:
+those are also held to a byte
 budget, ``max_bytes`` (least recently used first; an entry larger than the
 budget is rebuilt on every call), and ``nbytes`` says what they hold now.
 The JAX package's cache holds only the refold maps and has no budget.

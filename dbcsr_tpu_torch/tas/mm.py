@@ -235,14 +235,17 @@ class BatchedTAS:
     (``dbcsr_tas_batched_mm_init/finalize``, ``src/tas/dbcsr_tas_mm.F:
     1595-1713``): iterative callers repeat contractions over fixed sparsity
     patterns; the reference caches replicated buffers and split decisions
-    across the batch. Here the cache holds plan-once executors
-    (:func:`~dbcsr_tpu_torch.mm.engine.build_multiply_executor`) keyed by
-    the operand patterns' content, so a steady-state call is the device work
-    of one executor.
+    across the batch. Here the cache holds plan-once executors keyed by the
+    operand patterns' content and the filter: without ``filter_eps``
+    :func:`~dbcsr_tpu_torch.mm.engine.build_multiply_executor`, with it
+    :func:`~dbcsr_tpu_torch.mm.filtered.build_filtered_executor`, whose
+    product comes in mask form (C's superset index, the dropped blocks
+    zero). A steady-state call is the device work of one executor; a new
+    key is planned under the span ``tensor/plan``.
     """
 
     def __init__(self):
-        self._cache: Dict[tuple, tuple] = {}
+        self._cache: Dict[tuple, object] = {}
 
     @staticmethod
     def _pattern_key(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix):
@@ -258,16 +261,28 @@ class BatchedTAS:
         transb: str,
         a: Union[TASMatrix, BCSRMatrix],
         b: Union[TASMatrix, BCSRMatrix],
+        *,
+        filter_eps: Optional[float] = None,
     ) -> BCSRMatrix:
+        from ..mm.filtered import build_filtered_executor
+
         A = desymmetrize(_matrix_of(a))
         B = desymmetrize(_matrix_of(b))
-        key = self._pattern_key(transa, transb, A, B)
+        eps = None if filter_eps is None else float(filter_eps)
+        key = self._pattern_key(transa, transb, A, B) + (eps,)
         if key not in self._cache:
-            self._cache[key] = build_multiply_executor(transa, transb, A, B)
-        fn, c_index, _ = self._cache[key]
-        return BCSRMatrix(
-            name="batched_product", index=c_index, data=fn(A.data, B.data)
-        )
+            with timed("tensor/plan"):
+                self._cache[key] = (
+                    build_multiply_executor(transa, transb, A, B) if eps is None
+                    else build_filtered_executor(transa, transb, A, B, eps))
+        plan = self._cache[key]
+        if eps is None:
+            fn, c_index, _ = plan
+            data = fn(A.data, B.data)
+        else:
+            c_index = plan.c_index
+            data = plan.step(A.data, B.data)[0]
+        return BCSRMatrix(name="batched_product", index=c_index, data=data)
 
     def finalize(self) -> None:
         self._cache.clear()

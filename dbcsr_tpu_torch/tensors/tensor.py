@@ -22,12 +22,14 @@ import torch
 
 from ..block.bcsr import BCSRMatrix, _host_dtype, torch_dtype
 from ..block.index import build_index
+from ..block.refold import apply_refold, refold_plan
+from ..core.timing import timed
 from ..core.errors import dbcsr_assert
 from .index import NDMapping, grouped_block_sizes
 
 __all__ = [
     "Tensor", "TensorBuilder", "split_blocks", "tensor_from_matrix",
-    "matrix_from_tensor",
+    "matrix_from_tensor", "refold_layout",
 ]
 
 
@@ -37,11 +39,17 @@ class Tensor:
     block_sizes: Tuple[np.ndarray, ...]  # per-dim int32 block-size vectors
     mapping: NDMapping
     matrix: BCSRMatrix  # folded 2-D representation
+    # where each dim starts, in elements, in the index that contraction
+    # bounds name: a window result of ``BatchedContract`` holds its window
+    # alone (None: every dim starts at 0)
+    offsets: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         dbcsr_assert(
             self.mapping.ndim == len(self.block_sizes), "mapping/dims mismatch"
         )
+        dbcsr_assert(self.offsets is None or len(self.offsets) == len(self.block_sizes),
+                     "offsets/dims mismatch")
 
     # -- structure ---------------------------------------------------------
     @property
@@ -55,6 +63,11 @@ class Tensor:
     @property
     def shape(self) -> Tuple[int, ...]:
         return tuple(int(b.sum()) for b in self.block_sizes)
+
+    @property
+    def starts(self) -> Tuple[int, ...]:
+        """The element where each dim starts (``offsets``, 0 where None)."""
+        return tuple(int(x) for x in self.offsets) if self.offsets else (0,) * self.ndim
 
     @property
     def nblks(self) -> int:
@@ -133,49 +146,16 @@ class Tensor:
     def with_layout(self, mapping: NDMapping) -> "Tensor":
         """Re-fold to a different (map1, map2) partition — the reference's
         tensor reshape (``dbcsr_t_reshape``, ``dbcsr_tensor_reshape.F``).
-        One host index rebuild + one device element gather."""
+        A host index rebuild and a block-granular plan
+        (``block/refold.py``), kept in the plan cache under the index's
+        content, the nd block sizes, both mappings and the device; a call
+        is one device pass (span ``tensor/refold``), which moves each block
+        whole and equals the JAX package's element map bit for bit."""
         if (mapping.map1, mapping.map2) == (self.mapping.map1, self.mapping.map2):
             return self
-        # the refold's host work (index rebuild + per-block transpose
-        # map + store-map composition) is pure content; iterative
-        # contractions refold the same operands every call, so cache it
-        # (keyed on matrix index content + nd block sizes + both mappings,
-        # and the device the prepared map lives on) and leave only one
-        # device gather per call
-        from ..block.gather import apply_prepared_gather, prepare_flat_gather
-        from ..mm.plancache import (
-            array_fingerprint, get_plan_cache, index_fingerprint,
-        )
-
-        _pc = get_plan_cache()
-        _key = (
-            "with_layout", index_fingerprint(self.matrix.index),
-            array_fingerprint(*self.block_sizes), self.matrix.tile,
-            self.mapping.map1, self.mapping.map2,
-            mapping.map1, mapping.map2, str(self.device),
-        )
-        _hit = _pc.get(_key)
-        if _hit is not None:
-            new_index, gather = _hit
-        else:
-            nbpd = self.nblk_per_dim
-            bis = self.block_indices()  # [nblks, ndim]
-            new_rows, new_cols = mapping.fold(bis, nbpd)
-            rbs = grouped_block_sizes(list(self.block_sizes), list(mapping.map1))
-            cbs = grouped_block_sizes(list(self.block_sizes), list(mapping.map2))
-            new_index, order = build_index(
-                new_rows.astype(np.int64), new_cols.astype(np.int64), rbs, cbs
-            )
-            gmap = refold_flat_map(
-                self.block_sizes, self.mapping, mapping, bis,
-                self.matrix.index.blk_offset, order, new_index.nelems,
-            )
-            # the map is kept DEVICE-resident (int32 where positions fit):
-            # uploading an nelems-sized map every call costs more than the
-            # gather itself
-            gather = prepare_flat_gather(new_index, self.matrix.tile, self.matrix, gmap)
-            _pc.put(_key, (new_index, gather), nbytes=gather.nbytes)
-        data = apply_prepared_gather(self.matrix.data, gather)
+        new_index, plan = refold_layout(self, mapping)
+        with timed("tensor/refold"):
+            data = apply_refold(self.matrix.data.contiguous(), plan)
         return Tensor(
             name=self.name,
             block_sizes=self.block_sizes,
@@ -183,36 +163,41 @@ class Tensor:
             matrix=BCSRMatrix(
                 name=self.name, index=new_index, data=data
             ),
+            offsets=self.offsets,
         )
 
 
-def refold_flat_map(block_sizes, old: NDMapping, new: NDMapping, bis: np.ndarray,
-                    old_offsets: np.ndarray, order: np.ndarray,
-                    nelems: int) -> np.ndarray:
-    """The refold's flat element map (int64 [nelems]): per block of the new
-    index (``order[nb]`` is its source block), the source block's elements
-    transposed from the old storage order to the new one — the JAX
-    package's per-block loop, as it is."""
-    old_order = old.dim_order
-    new_order = new.dim_order
-    # axes to pass to transpose: position of each new-order dim in old order
-    axes = tuple(old_order.index(d) for d in new_order)
-    gmap = np.empty(nelems, dtype=np.int64)
-    pos = 0
-    perm_cache: Dict[Tuple[int, ...], np.ndarray] = {}
-    for nb in range(len(order)):
-        ob = int(order[nb])  # source block id (build_index perm)
-        bi = bis[ob]
-        shp_old = tuple(int(block_sizes[d][bi[d]]) for d in old_order)
-        if shp_old not in perm_cache:
-            perm_cache[shp_old] = np.transpose(
-                np.arange(int(np.prod(shp_old)), dtype=np.int64).reshape(shp_old),
-                axes=axes,
-            ).reshape(-1)
-        n = perm_cache[shp_old].size
-        gmap[pos:pos + n] = int(old_offsets[ob]) + perm_cache[shp_old]
-        pos += n
-    return gmap
+def refold_layout(t: "Tensor", mapping: NDMapping):
+    """(new index, ``RefoldPlan``) of refolding ``t`` to ``mapping``, from
+    the plan cache (its host work is pure content: iterative contractions
+    refold the same patterns every call)."""
+    from ..mm.plancache import array_fingerprint, get_plan_cache, index_fingerprint
+
+    pc = get_plan_cache()
+    key = (
+        "with_layout", index_fingerprint(t.matrix.index),
+        array_fingerprint(*t.block_sizes), t.matrix.tile,
+        t.mapping.map1, t.mapping.map2, mapping.map1, mapping.map2, str(t.device),
+    )
+    hit = pc.get(key)
+    if hit is not None:
+        return hit
+    bis = t.block_indices()  # [nblks, ndim]
+    new_rows, new_cols = mapping.fold(bis, t.nblk_per_dim)
+    rbs = grouped_block_sizes(list(t.block_sizes), list(mapping.map1))
+    cbs = grouped_block_sizes(list(t.block_sizes), list(mapping.map2))
+    new_index, order = build_index(
+        new_rows.astype(np.int64), new_cols.astype(np.int64), rbs, cbs
+    )
+    src = bis[order]
+    sizes = np.stack([np.asarray(t.block_sizes[d], dtype=np.int64)[src[:, d]]
+                      for d in range(t.ndim)], axis=1) if len(src) else \
+        np.zeros((0, t.ndim), dtype=np.int64)
+    plan = refold_plan(t.matrix.index, new_index, order, sizes, t.mapping.dim_order,
+                       len(t.mapping.map1), mapping.dim_order, len(mapping.map1),
+                       t.matrix.tile, t.device)
+    pc.put(key, (new_index, plan), nbytes=plan.nbytes)
+    return new_index, plan
 
 
 class TensorBuilder:

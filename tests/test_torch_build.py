@@ -24,10 +24,11 @@ except ImportError:  # Python < 3.11
     tomllib = None
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the sources of the product kernels; the one other source holds the eps
-#: filter's kernels, which multiply nothing
+#: the sources of the product kernels; the two other sources hold the eps
+#: filter's kernels and the tensor refold's, which multiply nothing
 FILTER_SOURCE = "block_filter.cu"
-PRODUCT_SOURCES = [s for s in _build._SOURCES if s != FILTER_SOURCE]
+REFOLD_SOURCE = "block_refold.cu"
+PRODUCT_SOURCES = [s for s in _build._SOURCES if s not in (FILTER_SOURCE, REFOLD_SOURCE)]
 
 
 def test_every_csrc_file_is_built_or_hashed():
@@ -81,9 +82,10 @@ def test_the_sub_tile_grid_is_gone():
     assert "static_assert(T <= 32" in kernel
     assert "if constexpr (T < 64)" in kernel
     # the routine's own kernels are the only __global__ products of the
-    # library; the filter's two kernels are the only other __global__s
+    # library; the filter's two kernels and the refold's are the only other
+    # __global__s
     globals_ = [n for n in sorted(os.listdir(_build._CSRC)) if "__global__" in _csrc_text(n)]
-    assert globals_ == [FILTER_SOURCE, "tile_kernel.cuh"]
+    assert globals_ == [FILTER_SOURCE, REFOLD_SOURCE, "tile_kernel.cuh"]
 
 
 @pytest.mark.skipif(tomllib is None, reason="tomllib needs Python 3.11")
@@ -180,3 +182,21 @@ def test_filter_kernels_are_built_and_named_apart_from_the_products():
     for entry in ("dbcsr_torch_block_sumsq", "dbcsr_torch_keep_blocks"):
         assert len(re.findall(r'extern "C" int %s\(' % entry, text)) == 1
         assert f"lib.{entry}.argtypes" in build_py
+
+
+def test_refold_kernel_is_built_and_named_apart_from_the_products():
+    """``block_refold.cu`` holds the tensor refold's kernel and its entry
+    point, with a ctypes signature; it launches no product routine, and its
+    kernel name does not match the benchmark's product-kernel pattern
+    (``\\btile_\\w*kernel\\b``), so ``kernel.ms`` stays the products' time."""
+    assert REFOLD_SOURCE in _build._SOURCES
+    text = _csrc_text(REFOLD_SOURCE)
+    code = re.sub(r"//[^\n]*", "", text)
+    assert "launch_tile_kernel" not in code and "tile_kernel.cuh" not in code
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", code)
+    assert kernels == ["block_refold_kernel"]
+    assert not re.search(r"\btile_\w*kernel\b", kernels[0])
+    with open(_build.__file__) as f:
+        build_py = f.read()
+    assert len(re.findall(r'extern "C" int dbcsr_torch_block_refold\(', text)) == 1
+    assert "lib.dbcsr_torch_block_refold.argtypes" in build_py

@@ -1649,3 +1649,82 @@ def test_filter_wrappers_refuse_on_the_card(dev):
                                device=dev)
     with pytest.raises(ValueError, match="tile edge"):
         tile_block_sumsq(m8.data, device_block_info(m8.index, 8, dev))
+
+
+# ---- the tensor refold's kernel ---------------------------------------------------
+
+REFOLD_CASES = [
+    # (per-dim block sizes, old fold, new fold, tile)
+    ([[13, 5, 5, 13], [13, 5], [56, 14, 14]], ((0, 2), (1,)), ((0,), (1, 2)), 128),
+    ([[13, 5, 5, 13], [13, 5], [56, 14, 14]], ((0, 2), (1,)), ((0,), (1, 2)), 16),
+    ([[2, 3, 1], [4, 1], [3, 2], [1, 5]], ((3, 1), (0, 2)), ((2, 0), (3, 1)), 16),
+    ([[7, 9], [30, 2, 11]], ((0,), (1,)), ((1,), (0,)), 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.complex128])
+@pytest.mark.parametrize("case", range(len(REFOLD_CASES)))
+def test_refold_kernel_matches_its_plain_version(dev, case, dtype):
+    """``block_refold_kernel`` moves every block as the plain version does,
+    bit for bit, padding zero; one launch a refold, and its bytes counted."""
+    from dbcsr_tpu_torch.block.refold import apply_refold, refold_plain
+    from dbcsr_tpu_torch.core.stats import get_stats
+    from dbcsr_tpu_torch.tensors import NDMapping, TensorBuilder
+    from dbcsr_tpu_torch.tensors.tensor import refold_layout
+
+    sizes, old, new, tile = REFOLD_CASES[case]
+    rng = np.random.default_rng(case)
+    bs = [np.asarray(s, dtype=np.int32) for s in sizes]
+    nd = len(bs)
+    host = torch.float64 if dtype == torch.bfloat16 else dtype
+    tb = TensorBuilder(bs, NDMapping(nd, *old), device=dev, dtype=host, tile=tile)
+    for bi in np.ndindex(*[len(s) for s in bs]):
+        if rng.random() < 0.7:
+            shape = tuple(int(bs[d][bi[d]]) for d in range(nd))
+            blk = rng.standard_normal(shape)
+            if dtype.is_complex:
+                blk = blk + 1j * rng.standard_normal(shape)
+            tb.put_block(bi, blk)
+    t = tb.finalize()
+    if dtype == torch.bfloat16:
+        t = dataclasses.replace(t, matrix=t.matrix.with_data(t.matrix.data.to(dtype)))
+    target = NDMapping(nd, *new)
+    _, plan = refold_layout(t, target)
+    assert plan.meta is not None
+    launches, moved = apply_refold.launches, get_stats().refold_bytes
+    got = apply_refold(t.matrix.data, plan)
+    torch.cuda.synchronize()
+    assert apply_refold.launches == launches + 1
+    assert get_stats().refold_bytes == moved + plan.moved_bytes(t.matrix.data.element_size())
+    want = torch.zeros_like(got)
+    refold_plain(t.matrix.data, plan, want)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    back = t.with_layout(target).with_layout(t.mapping)
+    assert torch.equal(back.matrix.data.view(torch.uint8), t.matrix.data.view(torch.uint8))
+
+
+def test_refold_wrapper_refuses_on_the_card(dev):
+    """On a card the refold runs the kernel or raises: a rank-5 tensor,
+    which the kernel does not take, is refused, and nothing is launched or
+    counted; its plan on the CPU takes the plain version."""
+    from dbcsr_tpu_torch.block.refold import apply_refold
+    from dbcsr_tpu_torch.core.stats import get_stats
+    from dbcsr_tpu_torch.tensors import NDMapping, TensorBuilder
+
+    bs = [np.asarray(s, dtype=np.int32) for s in ([2, 1], [3, 1], [1, 2], [2, 2], [1, 3])]
+    rng = np.random.default_rng(5)
+    built = {}
+    for where in (dev, "cpu"):
+        tb = TensorBuilder(bs, NDMapping(5, (0, 1), (2, 3, 4)), device=where,
+                           dtype=torch.float64, tile=16)
+        for bi in np.ndindex(*[len(s) for s in bs]):
+            if rng.random() < 0.5:
+                tb.put_block(bi, np.ones(tuple(int(bs[d][bi[d]]) for d in range(5))))
+        built[str(where)] = tb.finalize()
+    target = NDMapping(5, (4, 0), (2, 1, 3))
+    launches, moved = apply_refold.launches, get_stats().refold_bytes
+    with pytest.raises(ValueError, match="rank-5"):
+        built[str(dev)].with_layout(target)
+    assert (apply_refold.launches, get_stats().refold_bytes) == (launches, moved)
+    assert built["cpu"].with_layout(target).nblks == built["cpu"].nblks

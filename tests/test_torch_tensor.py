@@ -185,7 +185,7 @@ def test_with_layout_rank4_every_mapping(dtype):
 
 
 def test_refold_cached_map_is_bitwise_apply_store_gather():
-    """The refold's prepared map, cached on the tensor's device, gives the
+    """The refold's cached plan, on the tensor's device, gives the
     bits of the one-call store gather through the host map the refold
     composes, and a cache hit gives them again."""
     rng = np.random.default_rng(4)
@@ -199,7 +199,7 @@ def test_refold_cached_map_is_bitwise_apply_store_gather():
     assert pc.hits == hits + 1 and second.matrix.index is first.matrix.index
     # the host map, composed as the refold composes it
     from dbcsr_tpu_torch.block.index import build_index
-    from dbcsr_tpu_torch.tensors.tensor import refold_flat_map
+    from torch_refold_map import refold_flat_map
 
     bis = tt.block_indices()
     rows, cols = target.fold(bis, tt.nblk_per_dim)
@@ -215,9 +215,11 @@ def test_refold_cached_map_is_bitwise_apply_store_gather():
 
 
 def test_refold_map_is_the_jax_map():
-    """The port's cached refold map is the JAX package's (the same per-block
-    loop, composed with the same store layouts): position for position, the
-    JAX map's out-of-range sentinel where the port gathers nothing."""
+    """The port's cached refold plan moves each element as the JAX
+    package's map does (the same per-block loop, composed with the same
+    store layouts): position for position, the JAX map's out-of-range
+    sentinel where the port moves nothing."""
+    from dbcsr_tpu_torch.block.refold import apply_refold
     from dbcsr_tpu.mm.plancache import get_plan_cache as jax_cache
 
     rng = np.random.default_rng(5)
@@ -227,12 +229,15 @@ def test_refold_map_is_the_jax_map():
         for target in [((0,), (1, 2, 3)), ((2, 0), (3, 1)), ((1, 2, 3), (0,))]:
             tt.with_layout(tten.NDMapping(4, *target))
             tj.with_layout(jten.NDMapping(4, *target))
-            g = [v for k, v in get_plan_cache()._store.items()
-                 if k[0] == "with_layout"][-1][1]
+            plan = [v for k, v in get_plan_cache()._store.items()
+                    if k[0] == "with_layout"][-1][1]
             jinv = np.asarray([v for k, v in jax_cache()._store.items()
                                if k[0] == "with_layout"][-1][1]).astype(np.int64)
-            inv = np.full(g.n_tiles * T * T, -1, np.int64)
-            inv[g.dst.numpy()] = g.src.numpy()
+            # the port keeps a block plan: the map it moves by is where each
+            # position of the new store takes its value from (1 + position,
+            # exact in float64; 0 where nothing is moved)
+            pos = torch.arange(1, len(plan.src_keys) * T * T + 1, dtype=torch.float64)
+            inv = apply_refold(pos.view(-1, T, T), plan).reshape(-1).long().numpy() - 1
             np.testing.assert_array_equal(np.where(jinv == sentinel, -1, jinv), inv)
 
 
