@@ -7,6 +7,7 @@ Run from the repository root:
     python3 chip_smoke.py --quick    # phases 1, 2, 3, 5 and 8 (no large run)
     python3 chip_smoke.py --filter-kernels   # phases 1, 2 and 7b
     python3 chip_smoke.py --refold-kernel    # phases 1, 2 and 11c
+    python3 chip_smoke.py --segment-kernel   # phases 1, 2 and 11d
 
 Phases (any failure exits non-zero before the final line):
 
@@ -139,6 +140,13 @@ Phases (any failure exits non-zero before the final line):
     call (every batch: bounds, eps, accumulation into K, K filtered last)
     with R1 launched once a batch, held to the benchmark's judge
     (``block_err`` within the configuration's limit). After phase 11.
+11d. the float64 kernel's run segments on the same configuration's K
+    product of one batch (K += X·B over the batch's (σ,P), 144 C tiles):
+    the plan's segments (split runs, workspace tiles under 4·S), the
+    segmented launch (K6 and S1 once each) against the launch of one
+    segment a run and the plain version at 1e-12, two launches bitwise
+    equal, CUDA-event medians of the product with its cut and with one
+    segment a run and of S1 alone. After phase 11c.
 12. the host API around the multiply, on phase 4's banded SCF operands at
     400,000 rows in float32 and float64, after phase 11 and before phase
     10: (a) ``multiply(limits=...)`` with beta 0.5 and C = the full product,
@@ -386,7 +394,26 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: the runs that the float64 kernel's launches cut in the executor calls of
+#: each phase (``core/stats.py`` ``split_runs``, taken at each phase header
+#: that ``log`` prints): which phases' products are cut on this card
+SPLIT_RUNS: dict = {}
+_SPLIT_SEEN = {"phase": None, "runs": 0}
+
+
+def _note_split_runs(header: str) -> None:
+    from dbcsr_tpu_torch.core.stats import get_stats
+
+    now = get_stats().split_runs
+    seen = _SPLIT_SEEN["runs"] if now >= _SPLIT_SEEN["runs"] else 0  # stats were reset
+    if now > seen and _SPLIT_SEEN["phase"] is not None:
+        SPLIT_RUNS[_SPLIT_SEEN["phase"]] = SPLIT_RUNS.get(_SPLIT_SEEN["phase"], 0) + now - seen
+    _SPLIT_SEEN.update(phase=header, runs=now)
+
+
 def log(msg: str) -> None:
+    if msg.startswith("[") and "]" in msg and "dbcsr_tpu_torch" in sys.modules:
+        _note_split_runs(msg[1:msg.index("]")])
     print(msg, flush=True)
 
 
@@ -1606,12 +1633,16 @@ FILTER_KERNELS = ("F1", "F2")
 #: the tensor refold's kernel: it runs wherever a tensor changes fold
 #: (phases 11, 11c, 13, 14 and 17 refold); phase 11c holds its launches
 REFOLD_KERNELS = ("R1",)
+#: the float64 kernel's fix-up of split runs: it runs after the float64
+#: kernel wherever a launch's plan cuts a run (a few long runs on the card's
+#: SMs, small products included); phase 11d holds its launches
+SEGMENT_KERNELS = ("S1",)
 
 
 def product_launches(launches: dict) -> dict:
     """The product kernels in ``launches`` that ran, each with its count."""
     return {k: n for k, n in launches.items()
-            if n and k not in FILTER_KERNELS + REFOLD_KERNELS}
+            if n and k not in FILTER_KERNELS + REFOLD_KERNELS + SEGMENT_KERNELS}
 
 
 def phase_filtered(dev, a, b, variants, rtol: float, timing: bool = True) -> dict:
@@ -2897,6 +2928,138 @@ def phase_refold_kernel(dev) -> dict:
     del ops, store
     torch.cuda.empty_cache()
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 11d: the float64 kernel's run segments on the RI configuration's K product
+# ---------------------------------------------------------------------------
+
+def phase_segment_kernel(dev) -> dict:
+    """11d: the K product (K += X·B, bounds on the contracted P) of the middle
+    batch of ``REFOLD_CONFIG`` at its full size, through the program's own
+    ``BatchedContract``; the float64 kernel's launch is taken from the
+    executor as it runs. Returns S1's row for the ``kernels`` line."""
+    import dataclasses
+
+    import torch
+
+    from benchmark.calls import rihfx_step
+    from benchmark.operands import make_operands, pattern_of
+    from dbcsr_tpu_torch.mm import engine
+    from dbcsr_tpu_torch.mm.f64_stack import (
+        SEGMENTS_PER_SM,
+        RunSegments,
+        device_sm_count,
+        entry_depths,
+        segment_sum_f64,
+        tile_stack_matmul_f64,
+        tile_stack_matmul_f64_plain,
+    )
+    from dbcsr_tpu_torch.tensors import NDMapping
+
+    with open(os.path.join(REPO, "benchmark", "configs", REFOLD_CONFIG)) as f:
+        cfg = json.load(f)
+    ops = make_operands(cfg, pattern_of(cfg), REFOLD_SEED, 1, dev)
+    prog = rihfx_step.Program(cfg, ops)
+    lo, hi = prog.ranges[len(prog.ranges) // 2]
+    d = prog.Tensor(name="D", block_sizes=(prog.ao, prog.ao), mapping=NDMapping(2, (0,), (1,)),
+                    matrix=prog.BCSRMatrix(name="D", index=prog.d_index, data=ops.a[0]))
+    x = prog.bc.contract(prog.b, d, contract_1=(1,), notcontract_1=(0, 2), contract_2=(0,),
+                         notcontract_2=(1,), map_1=(0, 2), map_2=(1,),
+                         bounds={"nc1": {2: (lo, hi)}}, filter_eps=prog.eps)
+    x = x.with_layout(NDMapping(3, (0,), (1, 2)))
+    taken = []
+    kernel = engine.tile_stack_matmul_f64
+
+    def take(a, b, stack):
+        taken.append((a, b, stack))
+        return kernel(a, b, stack)
+
+    engine.tile_stack_matmul_f64 = take
+    try:
+        prog.bc.contract(x, prog.bt, contract_1=(1, 2), notcontract_1=(0,), contract_2=(1, 2),
+                         notcontract_2=(0,), bounds={"contract": {2: (lo, hi)}},
+                         filter_eps=prog.eps)
+    finally:
+        engine.tile_stack_matmul_f64 = kernel
+    del x
+    if len(taken) != 1:
+        fail(f"11d: the K product launched the float64 kernel {len(taken)} times, expected once")
+    (a_st, b_st, ds), = taken
+    seg = ds.segments
+    sms = device_sm_count(dev)
+    c_ptr = ds.c_ptr_host
+    per = 2.0 * a_st.shape[1] ** 2 * 8
+    work = entry_depths(ds.a_chunks.cpu().numpy(), ds.b_chunks.cpu().numpy(),
+                        ds.a_idx.cpu().numpy(), ds.b_idx.cpu().numpy())
+    cw = np.concatenate(([0], np.cumsum(work)))
+    run_w = (cw[c_ptr[1:]] - cw[c_ptr[:-1]]) * per
+    log(f"  K product of P elements [{lo}, {hi}): {ds.n_c} C tiles, {len(work)} entries, "
+        f"{cw[-1] * per / 1e9:.1f} GFLOP issued; runs {np.diff(c_ptr).min()}-"
+        f"{np.diff(c_ptr).max()} entries, longest {run_w.max() / 1e9:.2f} GFLOP against "
+        f"W/S = {cw[-1] * per / sms / 1e9:.2f} ({sms} SMs)")
+    if seg.n_split == 0:
+        fail("11d: the K product's plan split no run")
+    seg_w = (cw[seg.seg_ptr_host[1:]] - cw[seg.seg_ptr_host[:-1]]) * per
+    log(f"  segments: {seg.n_split} runs split into {seg.n_seg} segments, {seg.n_ws} workspace "
+        f"tiles (cap {SEGMENTS_PER_SM * sms}), the longest {seg_w.max() / 1e9:.2f} GFLOP")
+    if seg.n_ws >= SEGMENTS_PER_SM * sms:
+        fail(f"11d: {seg.n_ws} workspace tiles, at least {SEGMENTS_PER_SM} an SM")
+
+    reset_launches()
+    got = tile_stack_matmul_f64(a_st, b_st, ds)
+    sync(dev)
+    launches = {k: n for k, n in read_launches().items() if n}
+    again = tile_stack_matmul_f64(a_st, b_st, ds)
+    same = bool(torch.equal(got, again))
+    del again
+    whole_ds = dataclasses.replace(ds, segments=RunSegments.whole(ds))
+    whole = tile_stack_matmul_f64(a_st, b_st, whole_ds)
+    err_whole = rel_err(got, whole)
+    del whole
+    t0 = time.perf_counter()
+    plain = tile_stack_matmul_f64_plain(a_st, b_st, ds)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    err_plain = rel_err(got, plain)
+    del plain
+    log(f"  11d launches {launches}; bitwise twice {same}; against the launch of one "
+        f"segment a run {err_whole[1]:.2e}, the plain version {err_plain[1]:.2e} ({plain_s:.1f} s)")
+    if launches != {"K6": 1, "S1": 1}:
+        fail(f"11d: launches {launches}, expected K6 and S1 once each")
+    if not same or not (err_whole[1] <= F64_RTOL and err_plain[1] <= F64_RTOL):
+        fail("11d: the segmented launch disagrees with itself or its references")
+
+    ws = torch.empty((seg.n_ws, a_st.shape[1], a_st.shape[1]), dtype=torch.float64, device=dev)
+    s1 = cuda_median_ms(lambda: segment_sum_f64(got, ws, seg), reps=20)
+    t_seg = [cuda_median_ms(lambda: tile_stack_matmul_f64(a_st, b_st, ds), reps=5)]
+    t_whole = [cuda_median_ms(lambda: tile_stack_matmul_f64(a_st, b_st, whole_ds), reps=5)]
+    t_whole.append(cuda_median_ms(lambda: tile_stack_matmul_f64(a_st, b_st, whole_ds), reps=5))
+    t_seg.append(cuda_median_ms(lambda: tile_stack_matmul_f64(a_st, b_st, ds), reps=5))
+    ms, ms_whole = float(np.median(t_seg)), float(np.median(t_whole))
+    moved = (2 * seg.n_split + seg.n_ws) * a_st.shape[1] ** 2 * 8
+    log(f"  11d the K product: segmented {ms:.3f} ms (runs {t_seg[0]:.3f}/{t_seg[1]:.3f}), "
+        f"one block a run {ms_whole:.3f} ms (runs {t_whole[0]:.3f}/{t_whole[1]:.3f}); S1 alone "
+        f"{s1:.4f} ms for {moved / 1e9:.3f} GB ({moved / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes)")
+    row = {"launches": launches.get("S1", 0), "max_abs_err": float(err_plain[0]), "ms": s1,
+           "plain_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "k_product_ms": ms, "k_product_whole_ms": ms_whole}
+    prog.release()
+    del prog, ops, got, ws, taken, a_st, b_st, ds, d
+    torch.cuda.empty_cache()
+    return row
+
+
+def segment_entry(r: dict) -> dict:
+    """The ``kernels`` line's entry of S1 from phase 11d's row."""
+    return {"name": f"tile_segment_sum_kernel (S1) after the float64 kernel on "
+                    f"{REFOLD_CONFIG}'s K product of one batch",
+            "route": "cuda", "source": "dbcsr_tpu_torch/csrc/tile_kernel.cuh",
+            "replaces": "none: K6 on the TPU takes at most 8 entries a C tile",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": round(r["ms"], 4), "bound_ms": round(r["bound_ms"], 4),
+            "bound_by": r["bound_by"], "k_product_ms": round(r["k_product_ms"], 3),
+            "k_product_one_block_a_run_ms": round(r["k_product_whole_ms"], 3)}
 
 
 def refold_entry(r: dict) -> dict:
@@ -5349,6 +5512,9 @@ def main() -> int:
     ap.add_argument("--refold-kernel", action="store_true",
                     help="phases 1, 2 and 11c only: the refold's kernel on the benchmark's "
                          "RI tensors")
+    ap.add_argument("--segment-kernel", action="store_true",
+                    help="phases 1, 2 and 11d only: the float64 kernel's run segments on the "
+                         "benchmark's RI K product")
     args = ap.parse_args()
 
     import torch
@@ -5418,6 +5584,12 @@ def main() -> int:
         row = phase_refold_kernel(dev)
         print(json.dumps({"kernels": [refold_entry(row)]}), flush=True)
         log("refold-kernel mode: phases 1, 2 and 11c passed")
+        return 0
+    if args.segment_kernel:
+        log(f"[11d] the float64 kernel's run segments on {REFOLD_CONFIG}'s K product")
+        row = phase_segment_kernel(dev)
+        print(json.dumps({"kernels": [segment_entry(row)]}), flush=True)
+        log("segment-kernel mode: phases 1, 2 and 11d passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -5502,6 +5674,8 @@ def main() -> int:
     phase_tensor(dev)
     log(f"[11c] the refold's kernel R1 on {REFOLD_CONFIG}'s X, then one step of its call")
     refold_row = phase_refold_kernel(dev)
+    log(f"[11d] the float64 kernel's run segments on {REFOLD_CONFIG}'s K product")
+    segment_row = phase_segment_kernel(dev)
 
     # 12. the host API around the multiply, on phase 4's operands
     log(f"[12] the host API on the card: limits, retile, checkpoint, CSR, .perf recipes, "
@@ -5626,6 +5800,9 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": round(r["library_ms"], 4)}
 
     r64 = filtered[torch.float64]
+    _note_split_runs("end")
+    log("runs that the float64 kernel's launches cut in each phase's executor calls on this "
+        "card: " + (", ".join(f"[{k}] {n}" for k, n in SPLIT_RUNS.items()) or "none"))
 
     def with17(e, kname):
         # phase 17's launches on each process: (a) and (c) Cannon 2x2, (b) every leg
@@ -5664,6 +5841,7 @@ def main() -> int:
         filter_entry("F1", filter_rows["F1"]),
         filter_entry("F2", filter_rows["F2"]),
         refold_entry(refold_row),
+        segment_entry(segment_row),
         entry16("K1", "dbcsr_tpu_torch/csrc/stack_matmul.cu", "dbcsr_tpu/mm/kernels.py:76"),
         entry16("K2", "dbcsr_tpu_torch/csrc/panel_matmul.cu", "dbcsr_tpu/mm/panel.py:297"),
         entry16("K3", "dbcsr_tpu_torch/csrc/panel_runs_matmul.cu", "dbcsr_tpu/mm/panel.py:757"),

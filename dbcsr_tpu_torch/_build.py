@@ -142,11 +142,15 @@ def kernels() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp,
             ]
             lib.dbcsr_torch_stack_matmul_f64.restype = i32
-            # (a, b, c, c_ptr, a_idx, b_idx, a_chunks, b_chunks, n_c, tile,
-            #  device, stream); the chunk masks may be null
+            # (a, b, c, c_ptr, a_idx, b_idx, a_chunks, b_chunks, seg_ptr,
+            #  seg_out, ws, n_c, n_seg, tile, device, stream); the chunk masks
+            #  and the segment table may be null
             lib.dbcsr_torch_stack_matmul_f64.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, vp,
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp,
             ]
+            # its fix-up: (c, ws, red_c, red_ptr, n_split, tile, device, stream)
+            lib.dbcsr_torch_segment_sum_f64.restype = i32
+            lib.dbcsr_torch_segment_sum_f64.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
             # KC1 and KC2, the complex64 / complex128 flat stack kernels:
             # (a, b, c, c_ptr, a_idx, b_idx, n_c, tile, device, stream)
             for fn in (lib.dbcsr_torch_stack_matmul_c64, lib.dbcsr_torch_stack_matmul_c128):

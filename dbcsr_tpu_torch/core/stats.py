@@ -9,8 +9,9 @@ figure, less the mma depths that the float64 stack kernel skips
 efficiency, 1 − hardware / padded the share of the tile work skipped. The
 distributed executors count their messages (``record_comm``), the eps
 filter's kernels their bytes (``filter_bytes``), the tensor refolds theirs
-(``refold_bytes``) and the batched contraction its batches
-(``tensor_batches``). Reference:
+(``refold_bytes``), the batched contraction its batches
+(``tensor_batches``) and the float64 stack kernel's launches their run
+segments (``split_runs``, ``run_segments``). Reference:
 ``src/mm/dbcsr_mm_sched.F:392-663``, printed like
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
 """
@@ -47,12 +48,22 @@ class MMStats:
     refold_bytes: float = 0.0
     #: contractions run by ``tensors.BatchedContract``, one a batch
     tensor_batches: int = 0
+    #: runs of the float64 stack kernel's masked launches cut into more than
+    #: one segment (``mm/f64_stack.py``), and the segments (thread blocks)
+    #: those launches ran, one a run where none is cut
+    split_runs: int = 0
+    run_segments: int = 0
 
     def add_tile_flops(self, issued: float, padded: float) -> None:
         """Count one product's kernel work: the flops issued and the tile
         figure they come from."""
         self.hardware_flops += issued
         self.padded_flops += padded
+
+    def add_segments(self, split_runs: int, run_segments: int) -> None:
+        """Count one product's run segments (its plan's, every call)."""
+        self.split_runs += split_runs
+        self.run_segments += run_segments
 
     def record_comm(self, kind: str, count: int, msg_bytes: float) -> None:
         """Record ``count`` rank-to-rank messages of ``msg_bytes`` each
@@ -107,6 +118,8 @@ def print_statistics(out=None) -> str:
         lines.append(f" tensor refold bytes      {s.refold_bytes:.6E}")
     if s.tensor_batches:
         lines.append(f" tensor batches           {s.tensor_batches}")
+    if s.run_segments:
+        lines.append(f" run segments (split)     {s.run_segments} ({s.split_runs})")
     if s.local_routes:
         lines.append(" local routes             " + ", ".join(
             f"{r} {n}" for r, n in sorted(s.local_routes.items())))

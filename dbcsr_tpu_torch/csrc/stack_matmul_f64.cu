@@ -32,15 +32,39 @@
 // hold a stored block, built on the host from the block index
 // (mm/f64_stack.py); at T = 64 and 128 the kernel then copies only the K
 // chunks with a depth set in both tiles of an entry and issues only those
-// depths (ChunkStackJob, tile_ring.cuh). The depths it skips hold exact
+// depths (SegmentStackJob, tile_ring.cuh). The depths it skips hold exact
 // zeros by the store invariant, so the result equals the unmasked launch
 // up to the sign of a zero. What bounds it then is still the tensor cores
 // on the depths it issues, and next the copies of the 16-deep chunks, of
 // which one depth may be empty.
 //
+// Run segments (T = 64 and 128): one block a C tile leaves the card idle
+// behind a few long runs. RI-HFX's K += X·B has 144 C tiles, each a run of
+// 713 to 3,650 entries, on 132 SMs at one block an SM: the longest run set
+// the time while most SMs waited. So a masked stack comes with a segment
+// table, planned on the host from each entry's issued depths
+// (mm/f64_stack.py): a run whose issued work passes W / (4·S) (W the
+// launch's work, S the card's SMs) is cut at entry boundaries into segments
+// of about equal work, one block each, where a list schedule of the blocks
+// over the SMs says the cut saves more than the fix-up costs (not for whole
+// waves of equal runs, nor for runs of about an entry); every other run is
+// one segment. A
+// run's first segment writes its C tile, every other one a tile of a
+// float64 workspace of fewer than 4·S tiles, and tile_segment_sum_kernel
+// then adds each split run's workspace tiles into its C tile in segment
+// order (no atomics; two launches are bitwise equal; a split run differs
+// from the unsplit one by rounding alone). What bounds a segmented launch
+// is the longest segment against W / S (at most 1.25·W/S on a list
+// schedule), and next the fix-up's bytes: each workspace tile read once,
+// each split C tile read and written once (≤ 4·S + 2·n_split tiles, under
+// 0.1 GB at T = 128). A stack whose runs all stay under W / (4·S) (the
+// water SCF products: 134,448 runs, the longest 0.27 GFLOP against W/S =
+// 30.6 GFLOP) has a table of one segment a run, the kernel's blocks as
+// before, and no fix-up.
+//
 // T = 128 and T = 64 run on the FP64 tensor cores: one block of 256 threads
-// per C tile, mma.sync m16n8k8 over 64×32 (T = 64: 32×16) warp tiles held in
-// registers, K chunks of 16 brought by cp.async into a four-slot ring of
+// per C tile (or segment), mma.sync m16n8k8 over 64×32 (T = 64: 32×16) warp
+// tiles held in registers, K chunks of 16 brought by cp.async into a four-slot ring of
 // dynamic shared memory that runs across the entries of the run
 // (tile_mma_f64.cuh has the layout; T = 128: 164,864 bytes, 218 registers
 // a thread and one block an SM, T = 64: 82,944 bytes, 91 registers and two;
@@ -53,13 +77,17 @@
 // micro-tile): a 16-row mma tile spread over 8 warps reuses nothing there.
 #include "tile_kernel.cuh"
 
-// a_chunks, b_chunks: the K occupancy of every A and B tile (ChunkStackJob in
-// tile_kernel.cuh), or both null to multiply every chunk; read at T = 64
-// and 128 only, where the tensor-core routine can skip a depth.
+// a_chunks, b_chunks, seg_ptr, seg_out, ws: the K occupancy of every A and
+// B tile and the run segments (SegmentStackJob in tile_kernel.cuh), n_seg
+// of them, with the fix-up after (dbcsr_torch_segment_sum_f64); all given
+// at T = 64 and 128, where the tensor-core routine can skip a depth, or all
+// null to multiply every chunk of one block a C tile. ws may be null where
+// no run is split.
 extern "C" int dbcsr_torch_stack_matmul_f64(
     const void* a, const void* b, void* c, const void* c_ptr,
     const void* a_idx, const void* b_idx, const void* a_chunks, const void* b_chunks,
-    long long n_c, int tile, int device, void* stream)
+    const void* seg_ptr, const void* seg_out, void* ws,
+    long long n_c, long long n_seg, int tile, int device, void* stream)
 {
     using namespace dbcsr_torch;
     int err = (int)cudaSetDevice(device);
@@ -67,21 +95,44 @@ extern "C" int dbcsr_torch_stack_matmul_f64(
     if (n_c <= 0) return 0;
     const StackJob job{static_cast<const int*>(c_ptr), static_cast<const int*>(a_idx),
                        static_cast<const int*>(b_idx)};
-    const ChunkStackJob chunk_job{job.c_ptr, job.a_idx, job.b_idx,
+    const SegmentStackJob seg_job{static_cast<const int*>(seg_ptr),
+                                  static_cast<const int*>(seg_out), job.a_idx, job.b_idx,
                                   static_cast<const int*>(a_chunks),
-                                  static_cast<const int*>(b_chunks)};
-    const bool masked = a_chunks && b_chunks;
+                                  static_cast<const int*>(b_chunks), static_cast<double*>(ws)};
+    const bool segmented = seg_ptr && seg_out && a_chunks && b_chunks;
+    if (!segmented && (seg_ptr || seg_out || a_chunks || b_chunks))
+        return (int)cudaErrorInvalidValue;
+    if (segmented && tile != 64 && tile != 128) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dispatch_tile<double>(tile, [&](auto, auto tile_tag) {
         constexpr int T = decltype(tile_tag)::value;
-        auto launch = [&](const auto& with) {
+        auto launch = [&](long long n_out, const auto& with) {
             return launch_tile_kernel<double, T>(
                 static_cast<const double*>(a), static_cast<const double*>(b),
-                static_cast<double*>(c), n_c, with, s);
+                static_cast<double*>(c), n_out, with, s);
         };
         if constexpr (T >= 64) {
-            if (masked) return launch(chunk_job);
+            if (segmented) return launch(n_seg, seg_job);
         }
-        return launch(job);
+        return launch(n_c, job);
     });
+}
+// The fix-up of a segmented launch: C tile red_c[r] += workspace tiles
+// [red_ptr[r], red_ptr[r+1]) in order, for the n_split split runs.
+extern "C" int dbcsr_torch_segment_sum_f64(
+    void* c, const void* ws, const void* red_c, const void* red_ptr,
+    long long n_split, int tile, int device, void* stream)
+{
+    using namespace dbcsr_torch;
+    int err = (int)cudaSetDevice(device);
+    if (err) return err;
+    if (n_split <= 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto* C = static_cast<double*>(c);
+    const auto* W = static_cast<const double*>(ws);
+    const auto* rc = static_cast<const int*>(red_c);
+    const auto* rp = static_cast<const int*>(red_ptr);
+    if (tile == 128) return launch_segment_sum<128>(C, W, rc, rp, n_split, s);
+    if (tile == 64) return launch_segment_sum<64>(C, W, rc, rp, n_split, s);
+    return (int)cudaErrorInvalidValue;
 }

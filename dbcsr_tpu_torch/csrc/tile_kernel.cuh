@@ -13,12 +13,15 @@
 // C slot `slot` = Σ_{e in [e0, e1)} A[pair(e).x] @ B[pair(e).y], where
 // pair(e) is an int2, either slot negative for an absent tile (or, for the
 // float64 routine alone, an int3 that also carries the pair's K occupancy:
-// ChunkStackJob, tile_ring.cuh). Every routine
+// SegmentStackJob, tile_ring.cuh). Every routine
 // calls pair once for each e, ascending, from every thread of the block at
 // the same point (so a pair function may hold a barrier). A Job that
 // has nothing to write for q (a padding row, a slot another block owns)
 // returns without calling run; that is block-uniform and comes before any
-// barrier. A run with no present pair writes a zero tile.
+// barrier. A run with no present pair writes a zero tile. The masked float64
+// stack comes cut into run segments (SegmentStackJob): a block then sums a
+// run or part of one, into C or into a workspace tile, and
+// tile_segment_sum_kernel adds the workspace tiles into C after.
 //
 // The routine follows from the input type and the tile edge alone, at compile
 // time; there is no run-time switch between designs:
@@ -99,29 +102,51 @@ __device__ __forceinline__ auto stage_pairs(int e0, int e1, Expand expand)
     };
 }
 
-// The float64 stack with the K occupancy of its tiles (stack_matmul_f64.cu
-// at T = 64 and 128): a_chunks[ia] has bit h set iff columns 8h..8h+7 of A
-// tile ia hold a stored block, b_chunks[ib] the same for rows of B tile ib;
-// a pair's occupancy is their AND (tile_ring.cuh). The pairs and their masks
-// go through stage_pairs: the mask lookups depend on the slot loads, and a
-// chain of two loads on every entry would stall the ring.
-struct ChunkStackJob {
-    const int* c_ptr;
+// The float64 stack with the K occupancy of its tiles, cut into run
+// segments (stack_matmul_f64.cu at T = 64 and 128). a_chunks[ia] has bit h
+// set iff columns 8h..8h+7 of A tile ia hold a stored block, b_chunks[ib]
+// the same for rows of B tile ib; a pair's occupancy is their AND
+// (tile_ring.cuh). The pairs and their masks go through stage_pairs: the
+// mask lookups depend on the slot loads, and a chain of two loads on every
+// entry would stall the ring. Block q takes entries [seg_ptr[q],
+// seg_ptr[q+1]), which lie in one run, and writes their sum to C tile
+// seg_out[q] (the run's first segment; a run left whole is one segment)
+// or, for seg_out[q] = -1 - w, to tile w of the workspace ws;
+// tile_segment_sum_kernel then adds each split run's workspace tiles into
+// its C tile.
+struct SegmentStackJob {
+    const int* seg_ptr;
+    const int* seg_out;
     const int* a_idx;
     const int* b_idx;
     const int* a_chunks;
     const int* b_chunks;
+    double* ws;
 
     template <typename Run>
-    __device__ __forceinline__ void operator()(int64_t c, Run&& run) const
+    __device__ __forceinline__ void operator()(int64_t q, Run&& run) const
     {
-        const int e0 = c_ptr[c], e1 = c_ptr[c + 1];
-        run(c, e0, e1, stage_pairs(e0, e1, [job = *this](int e) {
+        const int e0 = seg_ptr[q], e1 = seg_ptr[q + 1];
+        run((int64_t)seg_out[q], e0, e1, stage_pairs(e0, e1, [job = *this](int e) {
             const int ia = job.a_idx[e], ib = job.b_idx[e];
             return make_int3(ia, ib, job.a_chunks[ia] & job.b_chunks[ib]);
         }));
     }
 };
+
+// Where a Job's slot lands: C's tile `slot`, or for a segmented stack a
+// negative slot's workspace tile.
+template <int T, typename Job>
+__device__ __forceinline__ double* out_tile(const Job&, double* C, int64_t slot)
+{
+    return C + slot * (T * T);
+}
+
+template <int T>
+__device__ __forceinline__ double* out_tile(const SegmentStackJob& job, double* C, int64_t slot)
+{
+    return slot >= 0 ? C + slot * (T * T) : job.ws + (-1 - slot) * (T * T);
+}
 
 // 64-bit tile offsets throughout: slot·T² crosses 2³¹ elements past 131,072
 // tiles at T = 128.
@@ -155,9 +180,30 @@ tile_mma_kernel(const double* __restrict__ A, const double* __restrict__ B,
 {
     extern __shared__ __align__(16) unsigned char ring[];
     job((int64_t)blockIdx.x, [&](int64_t slot, int e0, int e1, auto pair) {
-        tile_run_mma_f64<T>(A, B, C + slot * (T * T), e0, e1, pair,
+        tile_run_mma_f64<T>(A, B, out_tile<T>(job, C, slot), e0, e1, pair,
                             reinterpret_cast<double*>(ring));
     });
+}
+
+// The fix-up of a segmented launch: C tile red_c[r] += workspace tiles
+// red_ptr[r] .. red_ptr[r+1]-1 of split run r, one after another in
+// segment order (a fixed order: two launches are bitwise equal). Block
+// (r, y) takes kThreads double2 of the tile, 16 bytes a thread.
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+tile_segment_sum_kernel(double* __restrict__ C, const double* __restrict__ ws,
+                        const int* __restrict__ red_c, const int* __restrict__ red_ptr)
+{
+    const int r = blockIdx.x;
+    const int64_t i = (int64_t)blockIdx.y * kThreads + threadIdx.x;
+    double2* c = reinterpret_cast<double2*>(C + (int64_t)red_c[r] * (T * T)) + i;
+    double2 acc = *c;
+    for (int w = red_ptr[r]; w < red_ptr[r + 1]; ++w) {
+        const double2 p = reinterpret_cast<const double2*>(ws + (int64_t)w * (T * T))[i];
+        acc.x += p.x;
+        acc.y += p.y;
+    }
+    *c = acc;
 }
 
 template <int T, typename Job>
@@ -228,6 +274,18 @@ static int launch_tile_kernel(const In* A, const In* B, typename AccOf<In>::type
         if (err) return err;
         tile_blocked_kernel<In, T, Job><<<blocks, kThreads, smem, s>>>(A, B, C, job);
     }
+    return (int)cudaGetLastError();
+}
+
+// tile_segment_sum_kernel over n_split split runs of a T-edge stack.
+template <int T>
+static int launch_segment_sum(double* C, const double* ws, const int* red_c,
+                              const int* red_ptr, long long n_split, cudaStream_t s)
+{
+    static_assert(T * T % (2 * kThreads) == 0, "whole double2 rows of blocks");
+    if (n_split > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)n_split, T * T / (2 * kThreads));
+    tile_segment_sum_kernel<T><<<grid, kThreads, 0, s>>>(C, ws, red_c, red_ptr);
     return (int)cudaGetLastError();
 }
 

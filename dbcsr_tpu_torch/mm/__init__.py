@@ -8,7 +8,7 @@ from .c_stack import (
     tile_stack_matmul_c_plain,
 )
 from .engine import LocalPlan, build_multiply_executor, multiply
-from .f64_stack import tile_stack_matmul_f64, tile_stack_matmul_f64_plain
+from .f64_stack import segment_sum_f64, tile_stack_matmul_f64, tile_stack_matmul_f64_plain
 from .filtered import FilteredExecutor, ShardedFilteredExecutor, build_filtered_executor
 from .kernels import (
     device_group_plan,
@@ -36,13 +36,14 @@ from .reorder import (
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
 #: every hand-written kernel's wrapper, by kernel (K6: the float64 stack
-#: kernel that ports it; F1, F2: the eps filter's block norms² and
-#: keep-zeroing, ``block/tileops.py``; R1: the tensor refold,
-#: ``block/refold.py``); each counts its own launches in ``.launches``
+#: kernel that ports it; S1: its fix-up of split runs, ``mm/f64_stack.py``;
+#: F1, F2: the eps filter's block norms² and keep-zeroing,
+#: ``block/tileops.py``; R1: the tensor refold, ``block/refold.py``); each
+#: counts its own launches in ``.launches``
 KERNEL_WRAPPERS = {
     "K1": tile_stack_matmul, "K2": tile_stack_matmul_panel,
     "K3": tile_stack_matmul_panel_runs, "K4": tile_stack_matmul_grouped,
-    "K5": band_matmul, "K6": tile_stack_matmul_f64,
+    "K5": band_matmul, "K6": tile_stack_matmul_f64, "S1": segment_sum_f64,
     "KC1": tile_stack_matmul_c64, "KC2": tile_stack_matmul_c128,
     "F1": tile_block_sumsq, "F2": keep_blocks, "R1": apply_refold,
 }
@@ -69,7 +70,7 @@ __all__ = [
     "tile_stack_matmul_c", "tile_stack_matmul_c64", "tile_stack_matmul_c128",
     "tile_stack_matmul_c_plain",
     "LocalPlan", "build_multiply_executor", "multiply",
-    "tile_stack_matmul_f64", "tile_stack_matmul_f64_plain",
+    "segment_sum_f64", "tile_stack_matmul_f64", "tile_stack_matmul_f64_plain",
     "FilteredExecutor", "ShardedFilteredExecutor", "build_filtered_executor",
     "device_group_plan", "tile_stack_matmul", "tile_stack_matmul_grouped",
     "tile_stack_matmul_grouped_plain", "tile_stack_matmul_plain",

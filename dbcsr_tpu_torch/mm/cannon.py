@@ -84,7 +84,9 @@ from ..dist.grid import ProcessGrid
 from .c_stack import tile_stack_matmul_c
 from .f64_stack import (
     CHUNKED_TILES,
-    chunked_hw_flops,
+    depth_flops,
+    entry_depths,
+    f64_device_stack,
     operand_chunk_masks,
     tile_stack_matmul_f64,
 )
@@ -579,8 +581,8 @@ class TickStack:
 
 
 def tick_stack(rows: np.ndarray, n_c: int, device, whole: bool = False,
-               chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None
-               ) -> Optional[TickStack]:
+               chunks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+               depths: Optional[np.ndarray] = None, tile: int = 0) -> Optional[TickStack]:
     """A (rank, tick) stack of a plan, its rows on the trash slot ``n_c``
     dropped ([S, 3], C-sorted), as a ``TickStack``; None when empty. A
     rank's first partial (``whole``) and a tick that touches at least half
@@ -588,14 +590,22 @@ def tick_stack(rows: np.ndarray, n_c: int, device, whole: bool = False,
     add restricted to the touched slots costs a gather, an add and a
     scatter. A sparser later tick launches over its touched slots only.
     ``chunks``: the K masks of the A and B pieces the tick multiplies,
-    piece slot by piece slot (``device_stack``)."""
+    piece slot by piece slot, ``depths`` the rows' issued depths and
+    ``tile`` the tile edge, for the float64 kernel's stack and its run
+    segments (``f64_device_stack``)."""
     if not len(rows):
         return None
+
+    def upload(stack, n):
+        if chunks is None:
+            return device_stack(stack, n, device)
+        return f64_device_stack(stack, n, device, chunks, tile, depths)
+
     touched, local = np.unique(rows[:, 0], return_inverse=True)
     if whole or 2 * len(touched) >= n_c:
-        return TickStack(device_stack(rows.astype(np.int32), n_c, device, chunks), None)
+        return TickStack(upload(rows.astype(np.int32), n_c), None)
     stack = np.stack([local, rows[:, 1], rows[:, 2]], axis=1).astype(np.int32)
-    return TickStack(device_stack(stack, len(touched), device, chunks),
+    return TickStack(upload(stack, len(touched)),
                      torch.as_tensor(touched.astype(np.int64), device=device))
 
 
@@ -812,7 +822,7 @@ class RankPlan:
     #: plan everywhere, so a layer sum knows which partials to expect
     has_part: List[bool]
     #: float64 [ranks], every rank of any process: the flops its ticks issue
-    #: (``chunked_hw_flops`` with the ticks' K masks, else 2·T³ an entry)
+    #: (``depth_flops`` of the ticks' issued depths, else 2·T³ an entry)
     #: and the tile figure they come from (2·T³ an entry)
     hw_flops: np.ndarray
     padded_flops: np.ndarray
@@ -836,6 +846,16 @@ class RankPlan:
         st.record_comm(f"{kind}_b", g.size * (g.nprow - 1), self.n_b * tt)
         if g.nlayer > 1:
             st.record_comm("psum_c_layers", g.size * (g.nlayer - 1), self.n_c * tt)
+
+    def rank_segments(self) -> np.ndarray:
+        """int64 [ranks, 2]: each rank's ``(split_runs, run_segments)`` of one
+        ``run``, its ticks summed (0 for ranks off this process)."""
+        out = np.zeros((len(self.ticks), 2), dtype=np.int64)
+        for r, per in enumerate(self.ticks):
+            for ts in per:
+                if ts is not None and ts.stack is not None:
+                    out[r] += (ts.stack.split_runs, ts.stack.run_segments)
+        return out
 
     def tile_flops(self) -> Tuple[float, float]:
         """``(issued, padded)`` of one ``run`` over every rank, as
@@ -864,14 +884,16 @@ class RankPlan:
             per, first = [], True
             for t in range(st.shape[1]):
                 rows = st[r, t][st[r, t, :, 0] < n_c]
-                masks = None
+                masks = depths = None
                 if chunks is not None:
                     sa = (i * p + (j + t) % p) * nl + l
                     sb = (((i + t) % p) * p + j) * nl + l
                     masks = (chunks[0][sa * n_a:(sa + 1) * n_a],
                              chunks[1][sb * n_b:(sb + 1) * n_b])
-                    issued[r] += chunked_hw_flops(*masks, rows[:, 1], rows[:, 2], tile)
-                ts = (tick_stack(rows, n_c, grid.device(i, j, l), whole=first, chunks=masks)
+                    depths = entry_depths(*masks, rows[:, 1], rows[:, 2])
+                    issued[r] += depth_flops(depths, tile)
+                ts = (tick_stack(rows, n_c, grid.device(i, j, l), whole=first, chunks=masks,
+                                 depths=depths, tile=tile)
                       if grid.is_local(i, j, l) else None)
                 first = first and ts is None
                 per.append(ts)
@@ -1152,6 +1174,7 @@ def execute_distributed(a: BCSRMatrix, ta: bool, ca: bool, b: BCSRMatrix, tb: bo
         prod = ex(a.data, b.data,
                   (ca and a.dtype.is_complex, cb and b.dtype.is_complex)).to(a.dtype)
     get_stats().add_tile_flops(*ex.plan.tile_flops())
+    get_stats().add_segments(*(int(x) for x in ex.plan.rank_segments().sum(axis=0)))
     return _finish(prod, c, c_index, a.tile, alpha, beta, mask_result)
 
 

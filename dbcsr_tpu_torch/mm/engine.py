@@ -96,7 +96,9 @@ from .band import DeviceBandPlan, band_matmul, device_band_plan, plan_band
 from .c_stack import tile_stack_matmul_c
 from .f64_stack import (
     CHUNKED_TILES,
-    chunked_hw_flops,
+    depth_flops,
+    entry_depths,
+    f64_device_stack,
     operand_chunk_masks,
     tile_stack_matmul_f64,
 )
@@ -527,6 +529,12 @@ class LocalPlan:
         if self.padded_flops is None:
             self.padded_flops = self.hw_flops
 
+    @property
+    def segment_counts(self) -> Tuple[int, int]:
+        """``(split_runs, run_segments)`` of a call (``core/stats.py``)."""
+        s = self.stack
+        return (0, 0) if s is None else (s.split_runs, s.run_segments)
+
     def op_stores(self, a_data: torch.Tensor, b_data: torch.Tensor):
         """The op(A), op(B) tile stores as the plan's kernel reads them."""
         a_st = _op_store(a_data, self.a_perm, self.a_conj)
@@ -739,12 +747,16 @@ def _f64_route(p: _Problem) -> LocalPlan:
     it then issues only the mma depths that both tiles of an entry fill."""
     tplan = p.tile_plan()
     padded = 2.0 * len(tplan.stack) * p.tile**3
-    chunks, issued = None, padded
+    issued = padded
     if p.tile in CHUNKED_TILES:
         chunks = (operand_chunk_masks(p.a_index, p.tile, p.ta, p.a_op.perm, "a"),
                   operand_chunk_masks(p.b_index, p.tile, p.tb, p.b_op.perm, "b"))
-        issued = chunked_hw_flops(*chunks, tplan.stack[:, 1], tplan.stack[:, 2], p.tile)
-    ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device, chunks)
+        depths = entry_depths(*chunks, tplan.stack[:, 1], tplan.stack[:, 2])
+        issued = depth_flops(depths, p.tile)
+        ds = f64_device_stack(tplan.stack, tplan.n_c_tiles, p.device, chunks, p.tile,
+                              depths)
+    else:
+        ds = device_stack(tplan.stack, tplan.n_c_tiles, p.device)
 
     def run(a_st, b_st):
         return tile_stack_matmul_f64(a_st, b_st, ds)
@@ -868,6 +880,7 @@ def _execute_local(a, ta, ca, b, tb, cb, c, c_index, alpha, beta, cfg, *,
     prod = lp.run(a.data, b.data)
     stats = get_stats()
     stats.add_tile_flops(lp.hw_flops, lp.padded_flops)
+    stats.add_segments(*lp.segment_counts)
     stats.local_routes[lp.route] = stats.local_routes.get(lp.route, 0) + 1
     c_keys = store_layout(c_index, tile).tile_keys()
     prod = take_tiles(prod, lp.align_map(c_keys), tile).to(a.dtype)
@@ -1196,6 +1209,7 @@ def build_multiply_executor(
         stats.num_multiplications += 1
         stats.total_flops += eff_flops
         stats.add_tile_flops(lp.hw_flops, lp.padded_flops)
+        stats.add_segments(*lp.segment_counts)
         return out
 
     fn.plan = lp

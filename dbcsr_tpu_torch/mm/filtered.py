@@ -236,6 +236,7 @@ class _RankFilter:
     eff_flops: float
     hw_flops: float  # what its ticks issue (``RankPlan.hw_flops``, layers summed)
     padded_flops: float  # the tile figure, 2·T³ an entry
+    segments: Tuple[int, int]  # (split_runs, run_segments) of its ticks, layers summed
 
 
 @dataclass
@@ -311,6 +312,7 @@ class ShardedFilteredExecutor:
             if rf is not None:
                 stats.total_flops += rf.eff_flops
                 stats.add_tile_flops(rf.hw_flops, rf.padded_flops)
+                stats.add_segments(*rf.segments)
         return c, keep, nsq
 
     def _sum_shared(self, part: list) -> list:
@@ -437,6 +439,7 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
             # the flops the ticks of each plane rank's layers issue
             issued = fn.plan.hw_flops.reshape(p * q, -1).sum(axis=1)
             padded = fn.plan.padded_flops.reshape(p * q, -1).sum(axis=1)
+            segments = fn.plan.rank_segments().reshape(p * q, -1, 2).sum(axis=1)
             # (block, tile) pairs of C's superset, by owner rank; the pairs
             # run block by block, so each rank's blocks come sorted
             pairs = tile_block_pairs(c_index, tile)
@@ -457,7 +460,8 @@ def _build_sharded(transa: str, transb: str, a: BCSRMatrix, b: BCSRMatrix,
                                         segment_tables(c_index, tile, devices[d]))
                 ranks.append(_RankFilter(n=info.bid_p1.shape[0], info=info, eff_flops=float(eff[d]),
                                          hw_flops=float(issued[d]),
-                                         padded_flops=float(padded[d])))
+                                         padded_flops=float(padded[d]),
+                                         segments=(int(segments[d, 0]), int(segments[d, 1]))))
             shares = _shares(rank_blocks, holders, owners, devices, me)
     return ShardedFilteredExecutor(
         transa=transa, transb=transb, eps=float(eps), c_index=c_index,

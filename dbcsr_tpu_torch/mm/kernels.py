@@ -37,10 +37,13 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import TYPE_CHECKING, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from .f64_stack import RunSegments
 
 __all__ = [
     "KERNEL_TILES",
@@ -97,6 +100,20 @@ class DeviceStack:
     #: one entry a tile of the stores, ``f64_stack.py``), or None: every depth
     a_chunks: Optional[torch.Tensor] = None
     b_chunks: Optional[torch.Tensor] = None
+    #: the float64 kernel's run segments (``f64_stack.RunSegments``), with
+    #: the masks, or None (no masks)
+    segments: Optional[RunSegments] = None
+
+    @property
+    def split_runs(self) -> int:
+        """Runs cut into more than one segment."""
+        return 0 if self.segments is None else self.segments.n_split
+
+    @property
+    def run_segments(self) -> int:
+        """Blocks of the float64 kernel's launch of a stack with segments:
+        one a run, and one more for each cut; 0 for any other stack."""
+        return 0 if self.segments is None else self.segments.n_seg
 
 
 def stack_of_runs(c_ptr: np.ndarray, a_idx: np.ndarray, b_idx: np.ndarray) -> np.ndarray:
@@ -112,7 +129,8 @@ def device_stack(stack_np: np.ndarray, n_c_tiles: int, device,
     """Upload a host stack (int32 [S, 3], sorted by c, every c in
     [0, n_c_tiles)) for the flat kernel; validates it on the host.
     ``chunks``: the K occupancy masks of the op(A) and op(B) tiles, for the
-    float64 kernel (``f64_stack.py``)."""
+    float64 kernel (``f64_stack.py``, whose ``f64_device_stack`` adds the
+    run segments it launches with)."""
     stack = np.asarray(stack_np).reshape(-1, 3)
     s = len(stack)
     if s >= 2**31:

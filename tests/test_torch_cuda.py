@@ -1,6 +1,6 @@
 """The port's kernels on the card: K1, K2, K3 (run-fused panel), K4
-(grouped), K5 (band), the float64 stack kernel and the eps filter's two
-kernels (``block_filter.cu``; tolerance at ``filter_rtol``) against their
+(grouped), K5 (band), the float64 stack kernel (with its run segments and
+their fix-up S1) and the eps filter's two kernels (``block_filter.cu``; tolerance at ``filter_rtol``) against their
 plain versions, the executors' routes (the filtered executor and the
 reordered panel plan included), and the wrappers' refusals.
 
@@ -38,6 +38,8 @@ from dbcsr_tpu_torch.block.index import build_index
 from dbcsr_tpu_torch.block.store import store_layout
 from dbcsr_tpu_torch.core.config import config_override
 from dbcsr_tpu_torch.mm.f64_stack import (
+    RunSegments,
+    f64_device_stack,
     tile_stack_matmul_f64,
     tile_stack_matmul_f64_plain,
 )
@@ -186,8 +188,9 @@ def test_f64_mma_kernel_runs(dev, tile, run):
 
 
 def unmasked(ds):
-    """The same stack without its K occupancy masks: every depth issued."""
-    return dataclasses.replace(ds, a_chunks=None, b_chunks=None)
+    """The same stack without its K occupancy masks and run segments: every
+    depth issued, one block a C tile."""
+    return dataclasses.replace(ds, a_chunks=None, b_chunks=None, segments=None)
 
 
 def f64_matrix(sizes, rows, cols, tile, seed, dev):
@@ -253,7 +256,10 @@ def test_f64_masked_kernel_cursor(dev, tile):
     """Random masks over a random stack, the stores zeroed where the masks
     are clear (the store invariant): entries with no common depth or one,
     a run of such entries only (a zero tile), runs longer than the staged
-    window of 64 pairs. The masked launch equals the unmasked one bitwise."""
+    window of 64 pairs. The masked launch of one segment a run equals the
+    unmasked one bitwise; the launch as planned for the card's SMs (its
+    long runs cut) is within 1e-12 of the plain version, and two of it are
+    bitwise equal."""
     rng = np.random.default_rng(tile + 7)
     n_tiles, depths = 16, tile // 8
     a_m = rng.integers(0, 1 << depths, n_tiles).astype(np.int32)
@@ -273,11 +279,64 @@ def test_f64_masked_kernel_cursor(dev, tile):
     b = torch.randn(n_tiles, tile, tile, dtype=torch.float64)
     a = a.masked_fill(~keep(a_m)[:, None, :], 0).to(dev)
     b = b.masked_fill(~keep(b_m)[:, :, None], 0).to(dev)
-    ds = device_stack(stack, 6, dev, (a_m, b_m))
-    got = tile_stack_matmul_f64(a, b, ds)
+    ds = f64_device_stack(stack, 6, dev, (a_m, b_m), tile)
+    whole = dataclasses.replace(ds, segments=RunSegments.whole(ds))
+    got = tile_stack_matmul_f64(a, b, whole)
     assert torch.equal(got, tile_stack_matmul_f64(a, b, unmasked(ds)))
     assert rel_err(got, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
     assert not bool(got[0].any()) and not bool(got[4].any())
+    cut = tile_stack_matmul_f64(a, b, ds)
+    assert rel_err(cut, tile_stack_matmul_f64_plain(a, b, ds)) <= RTOL_F64
+    assert torch.equal(cut, tile_stack_matmul_f64(a, b, ds))
+
+
+def test_f64_segmented_launch_on_a_k_product(dev):
+    """A K-like product (shape R's k leg at 24 atoms: a long contraction into
+    a few C tiles, float64, T = 128) through the executor: on the card's SMs
+    its runs are cut into segments, a launch runs the float64 kernel and
+    S1 once each, within 1e-12 of the plain version (which sums each run
+    whole and never reads the segments) and of the unmasked launch of one
+    block a C tile, two launches bitwise equal, the workspace under 4·S
+    tiles."""
+    from dbcsr_tpu_torch.mm.f64_stack import SEGMENTS_PER_SM, device_sm_count, segment_sum_f64
+
+    _, (ag, _) = _ri_on(dev, 24, torch.float64)
+    kw = RI_LEGS["k"](ag, ag)
+    ma = kw["a"].with_layout(dtt.NDMapping(3, kw["notcontract_1"], kw["contract_1"])).matrix
+    mb = kw["b"].with_layout(dtt.NDMapping(3, kw["contract_2"], kw["notcontract_2"])).matrix
+    fn, _, _ = dtt.build_multiply_executor("N", "N", ma, mb, driver="stack")
+    lp = fn.plan
+    ds = lp.stack
+    assert lp.route == "f64_stack" and ds.segments is not None and ds.split_runs > 0
+    assert ds.segments.n_ws < SEGMENTS_PER_SM * device_sm_count(dev)
+    a_st, b_st = lp.op_stores(ma.data, mb.data)
+    before = (tile_stack_matmul_f64.launches, segment_sum_f64.launches)
+    got = tile_stack_matmul_f64(a_st, b_st, ds)
+    assert (tile_stack_matmul_f64.launches, segment_sum_f64.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert rel_err(got, tile_stack_matmul_f64_plain(a_st, b_st, ds)) <= RTOL_F64
+    assert rel_err(got, tile_stack_matmul_f64(a_st, b_st, unmasked(ds))) <= RTOL_F64
+    assert torch.equal(got, tile_stack_matmul_f64(a_st, b_st, ds))  # deterministic
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_f64_water_launch_with_a_segment_table_is_bitwise(dev, tile):
+    """The water pattern (2 × 2 × 2 cells): on the card's SMs the planner
+    splits no run, so the masked launch goes through a segment table of one
+    segment a run, runs no S1, and is bitwise the launch without a table
+    (and without masks)."""
+    from dbcsr_tpu_torch.mm.f64_stack import segment_sum_f64
+
+    a, b, _ = _water_f64(dev, tile)
+    fn, _, _ = dtt.build_multiply_executor("N", "N", a, b, driver="stack")
+    ds = fn.plan.stack
+    assert ds.a_chunks is not None and ds.split_runs == 0 and ds.run_segments == ds.n_c
+    assert torch.equal(ds.segments.seg_ptr, ds.c_ptr)
+    a_st, b_st = fn.plan.op_stores(a.data, b.data)
+    before = segment_sum_f64.launches
+    got = tile_stack_matmul_f64(a_st, b_st, ds)
+    assert segment_sum_f64.launches == before
+    assert torch.equal(got, tile_stack_matmul_f64(a_st, b_st, unmasked(ds)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1154,14 +1213,22 @@ def _unmask_ticks(plan):
                    for ts in per] for per in plan.ticks]
 
 
+def _whole_ticks(plan):
+    """The same Cannon plan with one segment a run in every tick: no cut."""
+    plan.ticks = [[None if ts is None else dataclasses.replace(ts, stack=dataclasses.replace(
+        ts.stack, segments=RunSegments.whole(ts.stack))) for ts in per] for per in plan.ticks]
+
+
 @pytest.mark.parametrize("form", ["unsharded", "sharded_filtered"])
 def test_distributed_masked_ticks_on_water(dev, form):
     """Four cuda:0 ranks on a 2×2 Cannon grid over the water pattern,
     float64, T = 128: every tick carries K masks and the plan issues less
     than the tile figure; the masked product (the unsharded executor, or
-    the sharded filtered step: C shards, keep and norms²) equals the same
-    plan's with the masks removed, bitwise up to the sign of a zero, with
-    as many launches of the float64 kernel."""
+    the sharded filtered step: C shards, keep and norms²) with one segment
+    a run equals the same plan's with the masks removed, bitwise up to the
+    sign of a zero, with as many launches of the float64 kernel; as
+    planned for the card's SMs (a tick's runs may be cut) it is within
+    1e-12 of that."""
     from dbcsr_tpu_torch.dist import ProcessGrid, tile_aligned_dist
     from dbcsr_tpu_torch.dist.sharded import shard_store_with_layout
 
@@ -1191,10 +1258,14 @@ def test_distributed_masked_ticks_on_water(dev, form):
     n = tile_stack_matmul_f64.launches - before
     assert n == plan.launches == len(ticks)
     assert all(torch.equal(x, y) for x, y in zip(got, call()))  # deterministic
+    _whole_ticks(plan)
+    whole = call()
+    assert len(got) == len(whole) and all(
+        torch.equal(x, y) or rel_err(x, y) <= RTOL_F64 for x, y in zip(got, whole))
     _unmask_ticks(plan)
     full = call()
-    assert tile_stack_matmul_f64.launches - before == 3 * n
-    assert len(got) == len(full) and all(torch.equal(x, y) for x, y in zip(got, full))
+    assert tile_stack_matmul_f64.launches - before == 4 * n
+    assert len(whole) == len(full) and all(torch.equal(x, y) for x, y in zip(whole, full))
 
 
 # ---------------------------------------------------------------------------

@@ -162,3 +162,41 @@ def test_chunk_work_over_a_grid():
     for r in out["ranks"]:
         assert 0 < r["work"]["skip8"] < r["work"]["tile"]
         assert r["tile_util_pct"]["skip8"] == 100.0 * r["eff_flops"] / r["work"]["skip8"]
+        assert isinstance(r["split_runs"], int) and r["split_runs"] >= 0
+
+
+def test_chunk_work_ri_counts_what_the_step_issues(tmp_path):
+    """``chunk_work --ri`` on the RI configuration cut to one 8-molecule
+    cell (its ranges under half of it), T = 64, two batches: the issued
+    work of its products, batch by batch, sums to what one step of the
+    benchmark's call issues on the CPU (``hardware_flops``); K's few C tiles
+    hold every run's work; the segment plan's schedule is no longer than
+    one block a run's and no shorter than the balanced one."""
+    import dbcsr_tpu_torch as dt
+    from benchmark.calls import rihfx_step
+    from benchmark.operands import make_operands, pattern_of
+    from dbcsr_tpu_torch.core.stats import get_stats, reset_stats
+
+    with open(os.path.join(REPO, "benchmark", "configs", "rihfx_water_64.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"cell_angstrom": 6.207, "cell_molecules": 8, "pair_angstrom": 3.0,
+                "ri_angstrom": 1.5, "eps": math.exp(-1.44 * 3.0), "n_batches": 2, "tile": 64})
+    path = tmp_path / "ri_small.json"
+    path.write_text(json.dumps(cfg))
+    out = chunk_work.main(["--ri", "--config", str(path), "--sms", "132"])
+    assert len(out["batches"]) == 2 and out["sms"] == 132
+    for b in out["batches"]:
+        for k in ("X", "K"):
+            m = b[k]["makespan_ms"]
+            assert m["balanced"] <= m["segments"] + 1e-12 <= m["one_block_a_run"] + 2e-12
+            assert b[k]["longest_run_gflop"] >= b[k]["mean_run_gflop"] > 0
+        assert b["K"]["c_tiles"] < b["X"]["c_tiles"] and b["K"]["split_runs"] > 0
+    issued = sum(out["step"][k]["issued_gflop"] for k in ("X", "K"))
+
+    dt.init_lib()
+    ops = make_operands(cfg, pattern_of(cfg), 7, 1, torch.device("cpu"))
+    prog = rihfx_step.Program(cfg, ops)
+    reset_stats()
+    prog(ops.a[0])
+    assert get_stats().hardware_flops / 1e9 == pytest.approx(issued, rel=1e-12)
+    prog.release()
